@@ -1,0 +1,112 @@
+"""Batched Levenberg-Marquardt over many small independent problems.
+
+Each row of ``params`` is one problem (one 4-DOF line per track in line
+BA).  The Jacobian w.r.t. the tangent comes from forward-mode AD, one
+``torch.func.jvp`` per tangent direction for all rows at once; each
+iteration solves the [T, D, D] damped normal equations by an unrolled
+Cholesky and accepts or rejects per row.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+from torch.func import jvp
+
+from limap_tpu_torch.base.pose import (axis_angle_to_quat, quat_multiply,
+                                       so2_rotate)
+
+
+class LMResult(NamedTuple):
+    params: torch.Tensor      # [T, P] final parameters
+    cost0: torch.Tensor       # [T] initial cost
+    cost: torch.Tensor        # [T] final cost
+    n_accepted: torch.Tensor  # [T] accepted steps
+
+
+def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve small SPD systems [..., D, D] x = [..., D] by an unrolled
+    Cholesky (pivots clamped at 1e-12) and two substitutions."""
+    D = A.shape[-1]
+    L = [[None] * D for _ in range(D)]
+    for j in range(D):
+        s = A[..., j, j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        L[j][j] = torch.sqrt(torch.clamp(s, min=1e-12))
+        for i in range(j + 1, D):
+            s = A[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s / L[j][j]
+    y = [None] * D
+    for i in range(D):
+        s = b[..., i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x = [None] * D
+    for i in reversed(range(D)):
+        s = y[i]
+        for k in range(i + 1, D):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return torch.stack(x, dim=-1)
+
+
+def lm_solve(params0: torch.Tensor, residual_fn: Callable,
+             retract_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+             tangent_dim: int, aux=(), num_iterations: int = 20,
+             lambda_init: float = 1e-3, lambda_up: float = 4.0,
+             lambda_down: float = 0.5, lambda_min: float = 1e-9,
+             lambda_max: float = 1e6) -> LMResult:
+    """Minimize sum(residual_fn(p, *aux)^2) independently per row.
+
+    residual_fn: ([T, P], *aux) -> [T, R], batched over rows;
+    retract_fn: ([T, P], [T, D]) -> [T, P].
+    """
+    T = params0.shape[0]
+    D = tangent_dim
+    cost_of = lambda p: torch.sum(residual_fn(p, *aux) ** 2, dim=1)
+    basis = torch.eye(D, dtype=params0.dtype, device=params0.device)
+    zero = torch.zeros((T, D), dtype=params0.dtype, device=params0.device)
+    params = params0
+    lam = torch.full((T,), lambda_init, dtype=params0.dtype,
+                     device=params0.device)
+    cost0 = cost_of(params0)
+    cost = cost0
+    n_acc = torch.zeros((T,), dtype=torch.int32, device=params0.device)
+    for _ in range(num_iterations):
+        f = lambda delta: residual_fn(retract_fn(params, delta), *aux)
+        cols = []
+        for k in range(D):
+            r, jk = jvp(f, (zero,), (basis[k].expand(T, D),))
+            cols.append(jk)
+        J = torch.stack(cols, dim=-1)                        # [T, R, D]
+        JTJ = J.transpose(1, 2) @ J
+        JTr = (J.transpose(1, 2) @ r[..., None])[..., 0]
+        cost = torch.sum(r * r, dim=1)
+        diag = torch.diagonal(JTJ, dim1=-2, dim2=-1)
+        A = JTJ + torch.diag_embed(lam[:, None] * torch.clamp(diag, min=1e-8))
+        delta = torch.nan_to_num(-solve_spd(A, JTr))
+        new_params = retract_fn(params, delta)
+        new_cost = cost_of(new_params)
+        accept = new_cost < cost
+        params = torch.where(accept[:, None], new_params, params)
+        lam = torch.clamp(torch.where(accept, lam * lambda_down,
+                                      lam * lambda_up),
+                          lambda_min, lambda_max)
+        cost = torch.where(accept, new_cost, cost)
+        n_acc = n_acc + accept.to(torch.int32)
+    return LMResult(params, cost0, cost, n_acc)
+
+
+def retract_quat_so2(params: torch.Tensor,
+                     delta: torch.Tensor) -> torch.Tensor:
+    """Minimal line retraction: params [..., 6] = (uvec[4], wvec[2]),
+    delta [..., 4] = (so(3) tangent[3], so(2) angle[1])."""
+    new_u = quat_multiply(axis_angle_to_quat(delta[..., :3]),
+                          params[..., :4])
+    new_w = so2_rotate(params[..., 4:6], delta[..., 3])
+    return torch.cat([new_u, new_w], dim=-1)

@@ -1,0 +1,1 @@
+"""Scene builders shared by the tests and the chip smoke run."""
