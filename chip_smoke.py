@@ -4,16 +4,21 @@
 
 Phases, in order; any failure exits non-zero:
   1. build the CUDA kernels from limap_tpu_torch/csrc (nvcc, sm_90a);
-  2. hold each kernel to its plain torch version on the card, at ragged
-     sizes and at the main path's shapes;
+  2. hold the tensor-core kernel's raw filter values to a matrix product
+     (this pins the mma fragment layout), then each kernel to its plain
+     torch version on the card, at ragged sizes and at the main path's
+     shapes;
   3. run the slice on the card and on the CPU on a reduced scene and
      require the same tracks and supports, and every line within
-     tolerance (or off only through a near-tied proposal);
+     tolerance (or off only through a near-tied proposal); then hold the
+     kernels to the plain version on three inputs built against the
+     filter from that scene's queries and cloud;
   4. the main path at full width: the protocol scene (100 views x 1500
      lines x 20 neighbours), triangulate -> tracks -> filters + remerge
      -> line BA, then GT evaluation, with quality gates;
   5. time each kernel beside its bound, its plain version and one
-     PyTorch library call computing the same function.
+     PyTorch library call computing the same function; the tensor-core
+     kernel and the CUDA-core yardstick in turns.
 
 Prints the kernels' JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.
@@ -27,8 +32,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3 rate
+# H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores (a fused
+# multiply-add counts as two, so half of it for a compare or a min), TF32
+# on the tensor cores (dense), HBM3 rate
 FP32_PEAK = 67e12
+TF32_PEAK = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 # The JAX package's own CPU run of the phase-4 scene and evaluation,
@@ -134,6 +142,24 @@ def run_slice(device, n_views, n_lines, n_neighbors, noise=0.0,
     return tracks, report, t, len(lines) * n_samples, evaluator.points
 
 
+def evaluation_queries(tracks, n_samples):
+    """The evaluator's queries [n_tracks * n_samples, 3] on the card."""
+    from limap_tpu_torch.base.lines import Segments
+    from limap_tpu_torch.evaluation.evaluator import \
+        sample_points_on_segments
+    lines = torch.as_tensor(np.stack([x.line for x in tracks]),
+                            dtype=torch.float32, device="cuda")
+    return sample_points_on_segments(Segments(lines[:, 0], lines[:, 1]),
+                                     n_samples).reshape(-1, 3).contiguous()
+
+
+def max_err_to_plain(kernel, queries, cloud):
+    from limap_tpu_torch.ops.nn_distance import nn_min_dist_plain
+    err = (kernel(queries, cloud) - nn_min_dist_plain(queries, cloud)).abs()
+    torch.cuda.synchronize()
+    return err.max().item()
+
+
 def key(track):
     return tuple(sorted(zip(track.image_id_list, track.line_id_list)))
 
@@ -207,25 +233,48 @@ def main():
     # ---- 1. build ----
     t0 = time.perf_counter()
     nnd.build()
-    log(f"[build] nn_min_dist built in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] nn_min_dist.cu built in {time.perf_counter() - t0:.2f} s")
     for stem, (secs, report) in cuda_build.BUILD_INFO.items():
         log(f"[build] {stem}: nvcc {secs:.2f} s\n{report.strip()}")
+    kernels = {"nn_min_dist": nnd.nn_min_dist,
+               "nn_min_dist_scalar": nnd.nn_min_dist_scalar}
 
-    # ---- 2. kernel against plain version ----
+    # ---- 2. kernels against plain versions ----
     rng = np.random.default_rng(0)
+
+    def on_card(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device="cuda")
+
+    # the raw filter values of the tensor-core kernel against the fp32
+    # matrix product of the same operands, 1 km off the origin
+    q = on_card(rng.uniform(-10, 10, (600, 3)) + 1000.0)
+    p = on_card(rng.uniform(-10, 10, (1500, 3)) + 1000.0)
+    B, centre, p_max, _ = nnd.prepare_cloud_operand(p)
+    A, ss, _ = nnd.prepare_query_operand(q, centre, p_max)
+    D = nnd.filter_tile_values(A, B)
+    torch.cuda.synchronize()
+    tile_err = (D - nnd.filter_values_plain(A, B[:nnd.CLOUD_PAD])).abs()
+    # 8 addends up to (||s'|| + ||p'||)^2, each truncated at the largest
+    # one's last place by the tensor cores
+    tile_tol = 2.0 ** -19 * float((ss.max().sqrt() + p_max) ** 2)
+    check(tile_err.max().item() <= tile_tol,
+          ("filter tile vs matrix product", tile_err.max().item(), tile_tol))
+    log(f"[kernel] filter tile == fp32 matrix product of its operands "
+        f"(max abs err {tile_err.max().item():.3e} <= {tile_tol:.3e}, "
+        f"values up to {D.abs().max().item():.1f})")
+
     for S, M in [(1, 5), (70, 300), (257, 1025), (513, 2049), (1000, 4097)]:
-        q = torch.as_tensor(rng.normal(size=(S, 3)).astype(np.float32),
-                            device="cuda")
-        p = torch.as_tensor((rng.normal(size=(M, 3)) * 2).astype(np.float32),
-                            device="cuda")
-        n0 = nnd.nn_min_dist.launches
-        err = (nnd.nn_min_dist(q, p) - nnd.nn_min_dist_plain(q, p)).abs()
-        torch.cuda.synchronize()
-        check(nnd.nn_min_dist.launches == n0 + 1, "launch not counted")
-        # both fp32 difference form; only the rounding order differs
-        check(err.max().item() <= 1e-5, ("kernel vs plain", S, M,
-                                         err.max().item()))
-    log("[kernel] nn_min_dist == plain at ragged sizes (max abs err <= 1e-5)")
+        q = on_card(rng.normal(size=(S, 3)))
+        p = on_card(rng.normal(size=(M, 3)) * 2)
+        for name, kernel in kernels.items():
+            n0 = kernel.launches
+            err = max_err_to_plain(kernel, q, p)
+            check(kernel.launches == n0 + 1, f"{name}: launch not counted")
+            # all fp32 difference form; only the rounding order differs
+            check(err <= 1e-5, (name, "vs plain", S, M, err))
+    log("[kernel] nn_min_dist, nn_min_dist_scalar == plain at ragged sizes "
+        "(max abs err <= 1e-5)")
 
     # ---- 3. card against CPU on a reduced scene ----
     # Endpoint noise (0.3 px) keeps the proposals' scores off the
@@ -233,7 +282,7 @@ def main():
     # where last-ulp differences decide the edge test and so the supports
     small = dict(n_views=16, n_lines=300, n_neighbors=6, noise=0.3,
                  points_per_segment=50, n_samples=100)
-    gpu_tracks, gpu_rep, _, _, _ = run_slice("cuda", **small)
+    gpu_tracks, gpu_rep, _, _, small_cloud = run_slice("cuda", **small)
     cpu_tracks, cpu_rep, _, _, _ = run_slice("cpu", **small)
     check(len(gpu_tracks) == len(cpu_tracks) > 100,
           ("track count", len(gpu_tracks), len(cpu_tracks)))
@@ -250,18 +299,42 @@ def main():
         f"proposals ((line error m, best-score gap) {tied}); "
         f"recall {gpu_rep['recall']}")
 
+    # three inputs built against the filter, from that scene's evaluation
+    q = evaluation_queries(gpu_tracks, small["n_samples"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    jitter = [q + 1e-4 * torch.randn(q.shape, device="cuda", generator=gen)
+              for _ in range(4)]
+    adversarial = {
+        "shifted by 1000 m on every axis": (q + 1000.0, small_cloud + 1000.0),
+        "cloud holds the queries and duplicates": (
+            q, torch.cat([small_cloud, q, q, small_cloud[:1000]])),
+        "clusters within 1e-4 m of each query": (
+            q, torch.cat([small_cloud] + jitter)),
+    }
+    for what, (qa, pa) in adversarial.items():
+        for name, kernel in kernels.items():
+            err = max_err_to_plain(kernel, qa.contiguous(), pa.contiguous())
+            check(err <= 1e-5, (name, "vs plain", what, err))
+        log(f"[kernel] {tuple(qa.shape)} x {tuple(pa.shape)}, {what}: both "
+            f"kernels == plain; {int(nnd.nn_min_dist.confirms)} pairs "
+            f"confirmed by nn_min_dist")
+
     # ---- 4. the main path at full width ----
-    nnd.nn_min_dist.launches = 0
+    for kernel in kernels.values():
+        kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
     tracks, rep, stages, n_queries, cloud = run_slice(
         "cuda", n_views=100, n_lines=1500, n_neighbors=20)
-    launches = nnd.nn_min_dist.launches
+    main_launches = {name: k.launches for name, k in kernels.items()}
+    launches = main_launches["nn_min_dist"]
     peak = torch.cuda.max_memory_allocated()
     log(f"[full] stage seconds {json.dumps(stages)}")
     log(f"[full] peak device memory {peak / 2**30:.3f} GiB")
     log(f"[full] n_tracks {len(tracks)}; recall {rep['recall']}; "
         f"precision {rep['precision']}; nn_min_dist launches {launches}")
     check(launches > 0, "the main path did not launch nn_min_dist")
+    check(main_launches["nn_min_dist_scalar"] == 0,
+          "the main path launched the yardstick kernel")
     check(np.isfinite([x.line for x in tracks]).all(), "non-finite lines")
     ref_n = REFERENCE["n_tracks"]
     check(abs(len(tracks) - ref_n) <= 0.01 * ref_n, (len(tracks), ref_n))
@@ -272,18 +345,16 @@ def main():
               ("precision", tau))
 
     # ---- 5. kernel timing at the main path's shapes ----
-    from limap_tpu_torch.base.lines import Segments
-    from limap_tpu_torch.evaluation.evaluator import \
-        sample_points_on_segments
-    lines = torch.as_tensor(np.stack([x.line for x in tracks]),
-                            dtype=torch.float32, device="cuda")
-    queries = sample_points_on_segments(Segments(lines[:, 0], lines[:, 1]),
-                                        1000).reshape(-1, 3).contiguous()
+    from limap_tpu_torch.evaluation import evaluator as evaluator_module
+    from limap_tpu_torch.evaluation.evaluator import (PointCloudEvaluator,
+                                                      report_error_to_gt)
+    queries = evaluation_queries(tracks, 1000)
     check(queries.shape[0] == n_queries, "query count")
     sub = queries[:8192].contiguous()
-    max_err = (nnd.nn_min_dist(sub, cloud)
-               - nnd.nn_min_dist_plain(sub, cloud)).abs().max().item()
-    check(max_err <= 1e-5, ("kernel vs plain at full shape", max_err))
+    max_err = {name: max_err_to_plain(kernel, sub, cloud)
+               for name, kernel in kernels.items()}
+    for name, err in max_err.items():
+        check(err <= 1e-5, (name, "vs plain at full shape", err))
     S, M = queries.shape[0], cloud.shape[0]
 
     def library():
@@ -291,21 +362,61 @@ def main():
         return torch.cat([torch.cdist(queries[i:i + step], cloud).amin(1)
                           for i in range(0, S, step)])
 
-    kernel_ms = cuda_ms(lambda: nnd.nn_min_dist(queries, cloud), 3)
+    # the two kernels in turns on this one card
+    turns = ["nn_min_dist_scalar", "nn_min_dist", "nn_min_dist",
+             "nn_min_dist_scalar"]
+    times = {name: [] for name in kernels}
+    for name in turns:
+        times[name].append(cuda_ms(
+            lambda: kernels[name](queries, cloud), 3))
+    log(f"[time] in turns {turns}: {json.dumps(times)} ms")
+    check(torch.equal(nnd.nn_min_dist(queries, cloud),
+                      nnd.nn_min_dist_scalar(queries, cloud)),
+          "the two kernels differ at the main path's shapes")
+    confirms_per_query = int(nnd.nn_min_dist.confirms) / S
+
+    # the evaluation stage on either kernel
+    lines = np.stack([x.line for x in tracks])
+    evaluator = PointCloudEvaluator(cloud.cpu().numpy(), device="cuda")
+    evaluate_s = {}
+    for name in turns:
+        evaluator_module.nn_min_dist = kernels[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report_error_to_gt(evaluator, lines, TAUS, 1000)
+        torch.cuda.synchronize()
+        evaluate_s.setdefault(name, []).append(time.perf_counter() - t0)
+    evaluator_module.nn_min_dist = nnd.nn_min_dist
+    log(f"[time] evaluate stage seconds by kernel {json.dumps(evaluate_s)}")
+
     plain_ms = cuda_ms(lambda: nnd.nn_min_dist_plain(queries, cloud), 1,
                        warmup=False)
     library_ms = cuda_ms(library, 1, warmup=False)
-    ops_s = S * M * 8 / FP32_PEAK
-    bytes_s = (S * 12 + M * 12 + S * 4) / HBM_BYTES_PER_S
-    entry = {"name": "nn_min_dist", "route": "cuda",
-             "source": "limap_tpu_torch/csrc/nn_min_dist.cu",
-             "replaces": "limap_tpu/ops/pallas/nn_distance.py:55",
-             "launches": launches, "max_abs_err": max_err,
-             "ms": kernel_ms, "plain_ms": plain_ms,
-             "bound_ms": max(ops_s, bytes_s) * 1e3,
-             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-             "library_ms": library_ms, "queries": S, "points": M}
-    print(json.dumps({"kernels": [entry], "card": card}), flush=True)
+    # the least time of any implementation: per pair 16 TF32 operations
+    # (one k=8 product) on the tensor cores or one fp32 compare on the
+    # CUDA cores, or the bytes; beside it the bound of the CUDA-core
+    # route (8 fp32 operations a pair)
+    seconds = {"operations": max(S * M * 16 / TF32_PEAK,
+                                 S * M / (FP32_PEAK / 2)),
+               "bytes": (S * 12 + M * 12 + S * 4) / HBM_BYTES_PER_S}
+    bound_by = max(seconds, key=seconds.get)
+    entries = []
+    for name in kernels:
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "limap_tpu_torch/csrc/nn_min_dist.cu",
+            "replaces": "limap_tpu/ops/pallas/nn_distance.py:55",
+            "launches": main_launches[name], "max_abs_err": max_err[name],
+            "ms": sum(times[name]) / len(times[name]),
+            "ms_turns": times[name],
+            "plain_ms": plain_ms, "bound_ms": seconds[bound_by] * 1e3,
+            "bound_by": bound_by,
+            "cuda_core_bound_ms": S * M * 8 / FP32_PEAK * 1e3,
+            "library_ms": library_ms, "queries": S, "points": M,
+            "on_main_path": name == "nn_min_dist",
+            "evaluate_stage_s": evaluate_s[name]})
+    entries[0]["confirms_per_query"] = confirms_per_query
+    print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
