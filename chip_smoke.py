@@ -16,17 +16,34 @@ Phases, in order; any failure exits non-zero:
   4. the main path at full width: the protocol scene (100 views x 1500
      lines x 20 neighbours), triangulate -> tracks -> filters + remerge
      -> line BA, then GT evaluation, with quality gates;
-  5. time each kernel beside its bound, its plain version and one
-     PyTorch library call computing the same function; the tensor-core
-     kernel and the CUDA-core yardstick in turns.
+  5. hold each kernel to its plain version on that path's whole
+     evaluation input and time it beside its bound, the plain version
+     and one PyTorch library call computing the same function; the
+     tensor-core kernel and the CUDA-core yardstick in turns;
+  6. the front end and the runner, card against CPU, on a reduced
+     rendered scene (6 views of 240x320): line_triangulation from .npy
+     images on both devices, detections as sets within a pixel
+     tolerance, descriptors and match lists on the same segments;
+  7. the pipeline from pixels at full width: 100 rendered views of
+     800x600, tpu_lsd -> patch-endpoint descriptors -> batched neighbour
+     matcher -> triangulate -> tracks -> filters -> BA, once through the
+     runner (line_triangulation from .npy images, with its file caches)
+     and twice through the timed stages of
+     limap_tpu_torch/testing/pipeline.py, with quality gates; then GT
+     evaluation of the tracks through nn_min_dist, and phase 5's checks
+     and timings of both kernels on that evaluation's input.
 
 Prints the kernels' JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.
 """
 
+import copy
+import importlib.util
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,10 +64,55 @@ REFERENCE = {"n_tracks": 1462,
              "recall": {0.01: 2345.6145807653666, 0.05: 2345.6145807653666,
                         0.1: 2345.6145807653666},
              "precision": {0.01: 100.0, 0.05: 100.0, 0.1: 100.0}}
-F2D = {"th_angular_2d": 10.0, "th_perp_2d": 10.0, "th_sv_angular_3d": 70.0,
-       "th_sv_num_supports": 3, "th_overlap": 0.05,
-       "th_overlap_num_supports": 3}
 TAUS = (0.01, 0.05, 0.1)
+
+# The JAX package's CPU run of the phase-7 scene from the same pixels
+# (tests/torch_port_reference_gates.py --from-pixels 100): tracks of any
+# size, tracks of >= 4 images, and quality_eval at tau = 0.05.
+REFERENCE_FROM_PIXELS = {
+    "n_tracks_all": 700, "avg_segs": 491.04, "n_matches": 982080,
+    "n_tracks": 345, "recall_0.05": 206.40776633700602,
+    "precision_0.05": 91.30434782608695,
+    "gt_coverage_0.05": 49.19480726223659}
+# The JAX package's runner on the same scene, its images as PNG, with
+# the config of testing/pipeline.py::runner_config
+# (tests/torch_port_reference_gates.py --runner 100).
+REFERENCE_RUNNER = {
+    "n_tracks_all": 361, "avg_segs": 491.04, "n_matches": 982080,
+    "n_tracks": 288, "recall_0.05": 211.2249182962567,
+    "precision_0.05": 95.13888888888889,
+    "gt_coverage_0.05": 66.9934549727526}
+# (name, "relative" share or "points", slack), for both.  The card repeats its
+# result from run to run (the detector adds its moments in pixel order),
+# so a pass does not scatter round the reference: it is one more
+# rounding of the same computation.  Track-level quality is chaotic in
+# the last digits (a filter or score threshold falls either way and the
+# tracks regroup): against the JAX run, the port's CPU run and the
+# card's run differ by up to 0.6 % of the tracks, 3.2 % of the tracks of
+# >= 4 images, 1.8 % of the recall, 0.5 points of coverage and 0.9
+# points of precision; detection and matching by 0.002 %; the card's
+# runner pass from its reference by 0.3 %, 2.1 %, 2.2 %, 0.9 and 0.1.  With atomic
+# scatters the card's runs had spread by 2.3 points; the gates allow
+# about that.
+FROM_PIXELS_GATES = (
+    ("avg_segs", "relative", 0.002), ("n_matches", "relative", 0.002),
+    ("n_tracks_all", "relative", 0.02), ("n_tracks", "relative", 0.05),
+    ("recall_0.05", "relative", 0.03),
+    ("gt_coverage_0.05", "points", 2.5),
+    ("precision_0.05", "points", 2.5))
+# Card against CPU on the front end.  Both add a component's moments in
+# pixel order, but the gradient field rounds differently on the card,
+# and the variance of a stroke is a small difference of large fp32 sums:
+# a matched segment's endpoints may move by SEG_TOL px, and a component whose width, density
+# or length sits on its threshold may pass on one device only.  Measured
+# on an H100: 0.0012 px at 240x320 and 0.0112 px at 800x600, none of 492
+# unmatched; descriptors 1.6e-7.
+SEG_TOL = 0.05
+SEG_UNMATCHED_SHARE = 0.02
+DESC_TOL = 1e-5
+# matches differ only through scores within rounding of min_score or of
+# each other (a top-k tie)
+MATCH_DIFF_SHARE = 0.005
 
 
 def log(*a):
@@ -86,20 +148,15 @@ def cuda_ms(fn, reps, warmup=True):
 
 def run_slice(device, n_views, n_lines, n_neighbors, noise=0.0,
               points_per_segment=500, n_samples=1000):
-    """The port's slice through its entry points; returns (tracks,
-    report, per-stage seconds, queries and cloud of the evaluation)."""
-    from limap_tpu_torch.base.line_linker import LineLinker3dConfig
-    from limap_tpu_torch.base.linetrack import batch_to_tracks
+    """The port's slice from given segments through its entry points;
+    returns (tracks, report, per-stage seconds, number of queries and
+    cloud of the evaluation)."""
     from limap_tpu_torch.evaluation.evaluator import (PointCloudEvaluator,
                                                       report_error_to_gt)
-    from limap_tpu_torch.merging.merging import (compact_track_batch,
-                                                 filter_chain_batch)
-    from limap_tpu_torch.optimize.line_ba import (
-        LineBAConfig, get_output_tracks, solve_line_bundle_adjustment)
+    from limap_tpu_torch.testing import pipeline
     from limap_tpu_torch.testing.synthetic import (build_scene,
                                                    gt_point_cloud)
-    from limap_tpu_torch.triangulation.triangulator import (
-        GlobalLineTriangulator, TriangulatorConfig)
+    from limap_tpu_torch.util.profiler import StageProfiler
 
     imagecols, segs, nbrs, gt = build_scene(n_views, n_lines, n_neighbors,
                                             device=device)
@@ -107,39 +164,15 @@ def run_slice(device, n_views, n_lines, n_neighbors, noise=0.0,
         rng = np.random.default_rng(1)
         segs = {k: (v + rng.normal(0, noise, v.shape)).astype(np.float32)
                 for k, v in segs.items()}
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    t = {}
-
-    def stage(name, t0):
-        sync()
-        t[name] = time.perf_counter() - t0
-        return time.perf_counter()
-
-    t0 = time.perf_counter()
-    tri = GlobalLineTriangulator(TriangulatorConfig(max_tris_per_node=32),
-                                 device=device)
-    tri.init(segs, imagecols)
-    tri.triangulate_all(nbrs)
-    t0 = stage("triangulate", t0)
-    tb, host = tri.compute_track_batch(return_host=True)
-    t0 = stage("tracks", t0)
-    views = imagecols.batch(device)
-    tb, host = filter_chain_batch(tb, views, F2D, LineLinker3dConfig(),
-                                  host=host)
-    tb, host = compact_track_batch(host.refresh(tb, with_line=True),
-                                   return_host=True, device=device)
-    t0 = stage("filters", t0)
-    cfg = LineBAConfig(max_num_iterations=20)
-    refined, _ = solve_line_bundle_adjustment(tb, views, cfg)
-    tb = get_output_tracks(tb, views, refined, cfg.num_outliers_aggregator)
-    tracks = [x for x in batch_to_tracks(tb, host=host) if x.count_lines()]
-    t0 = stage("ba", t0)
-    cloud = gt_point_cloud(gt, points_per_segment)
-    evaluator = PointCloudEvaluator(cloud, device=device)
-    lines = np.stack([x.line for x in tracks])
-    report = report_error_to_gt(evaluator, lines, TAUS, n_samples)
-    stage("evaluate", t0)
-    return tracks, report, t, len(lines) * n_samples, evaluator.points
+    prof = StageProfiler(device=device)
+    tracks = pipeline.map_lines(imagecols, segs, nbrs, device, prof)
+    with prof.stage("evaluate"):
+        cloud = gt_point_cloud(gt, points_per_segment)
+        evaluator = PointCloudEvaluator(cloud, device=device)
+        lines = np.stack([x.line for x in tracks])
+        report = report_error_to_gt(evaluator, lines, TAUS, n_samples)
+    return (tracks, report, dict(prof.times), len(lines) * n_samples,
+            evaluator.points)
 
 
 def evaluation_queries(tracks, n_samples):
@@ -158,6 +191,71 @@ def max_err_to_plain(kernel, queries, cloud):
     err = (kernel(queries, cloud) - nn_min_dist_plain(queries, cloud)).abs()
     torch.cuda.synchronize()
     return err.max().item()
+
+
+TURNS = ("nn_min_dist_scalar", "nn_min_dist", "nn_min_dist",
+         "nn_min_dist_scalar")
+
+
+def measure_kernels(kernels, path, queries, cloud, launches):
+    """One path's entries of the kernels line: every kernel held to the
+    plain version on the WHOLE evaluation input of that path (all fp32
+    difference form, only the rounding order differs: 1e-5), the two
+    kernels bit-equal, their times in turns on this one card, the plain
+    version's and a library call's time (one run each), and the bound."""
+    from limap_tpu_torch.ops import nn_distance as nnd
+    S, M = queries.shape[0], cloud.shape[0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = nnd.nn_min_dist_plain(queries, cloud)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    out = {name: kernel(queries, cloud) for name, kernel in kernels.items()}
+    confirms_per_query = int(nnd.nn_min_dist.confirms) / S
+    max_err = {name: (d - plain).abs().max().item()
+               for name, d in out.items()}
+    for name, err in max_err.items():
+        check(err <= 1e-5, (name, "vs plain", path, S, M, err))
+    check(torch.equal(out["nn_min_dist"], out["nn_min_dist_scalar"]),
+          f"the two kernels differ on the {path} path's input")
+    del plain, out
+
+    def library():
+        step = 1024
+        return torch.cat([torch.cdist(queries[i:i + step], cloud).amin(1)
+                          for i in range(0, S, step)])
+
+    times = {name: [] for name in kernels}
+    for name in TURNS:
+        times[name].append(cuda_ms(lambda: kernels[name](queries, cloud), 3))
+    library_ms = cuda_ms(library, 1, warmup=False)
+    # the least time of any implementation: per pair 16 TF32 operations
+    # (one k=8 product) on the tensor cores or one fp32 compare on the
+    # CUDA cores, or the bytes; beside it the bound of the CUDA-core
+    # route (8 fp32 operations a pair)
+    seconds = {"operations": max(S * M * 16 / TF32_PEAK,
+                                 S * M / (FP32_PEAK / 2)),
+               "bytes": (S * 12 + M * 12 + S * 4) / HBM_BYTES_PER_S}
+    bound_by = max(seconds, key=seconds.get)
+    log(f"[kernel] {path}: {S} queries x {M} points, both kernels == plain "
+        f"on the whole input (max abs err {json.dumps(max_err)}), bit-equal "
+        f"to each other; ms in turns {list(TURNS)}: {json.dumps(times)}; "
+        f"plain {plain_ms:.1f} ms, library {library_ms:.1f} ms")
+    entries = [{
+        "name": name, "path": path, "route": "cuda",
+        "source": "limap_tpu_torch/csrc/nn_min_dist.cu",
+        "replaces": "limap_tpu/ops/pallas/nn_distance.py:55",
+        "launches": launches[name], "max_abs_err": max_err[name],
+        "ms": sum(times[name]) / len(times[name]), "ms_turns": times[name],
+        "plain_ms": plain_ms, "bound_ms": seconds[bound_by] * 1e3,
+        "bound_by": bound_by,
+        "cuda_core_bound_ms": S * M * 8 / FP32_PEAK * 1e3,
+        "library_ms": library_ms, "queries": S, "points": M,
+        "on_main_path": name == "nn_min_dist"} for name in kernels]
+    entries[0]["confirms_per_query"] = confirms_per_query
+    return entries
 
 
 def key(track):
@@ -219,6 +317,221 @@ def hold_card_to_cpu(gpu_tracks, cpu_tracks):
     return max(held), tied
 
 
+def nearest_offsets(a, b):
+    """For each row of a [N, >=4], the offset to the nearest row of b
+    (max abs over the four endpoint coordinates; inf when b is empty)."""
+    if not len(a) or not len(b):
+        return np.full(len(a), np.inf)
+    return np.abs(a[:, None, :4] - b[None, :, :4]).max(-1).min(1)
+
+
+def match_pairs(matches):
+    return {(a, b, int(i), int(j)) for a, by_nbr in matches.items()
+            for b, m in by_nbr.items() for i, j in np.asarray(m)}
+
+
+def front_end_card_vs_cpu(workdir):
+    """Phase 6: the runner from .npy images on the card and on the CPU,
+    then descriptors and matches of both devices on the CPU's segments."""
+    from limap_tpu_torch.line2d.endpoints import (
+        compute_descinfos_batch, match_all_neighbors_batched)
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.util import io as limapio
+    from limap_tpu_torch.util.config import default_triangulation_config
+
+    imagecols, imgs, nbrs, gt = pipeline.build_scene(
+        n_views=6, n_lines=30, hw=(240, 320), n_neighbors=4,
+        image_dir=os.path.join(workdir, "images"))
+    cfg = default_triangulation_config()
+    cfg.update(n_neighbors=4, n_visible_views=3)
+    cfg["triangulation"]["fullscore_th"] = 0.5
+    cfg["triangulation"]["filtering2d"].update(th_sv_num_supports=2,
+                                               th_overlap_num_supports=2)
+    cfg["refinement"]["min_num_images"] = 3
+    tracks, segs = {}, {}
+    for dev in ("cuda", "cpu"):
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg["output_dir"] = os.path.join(workdir, dev)
+        tracks[dev] = line_triangulation(run_cfg, imagecols, nbrs,
+                                         device=dev)
+        segs[dev] = limapio.read_all_segments_from_folder(os.path.join(
+            workdir, dev, "line_detections", "tpu_lsd", "segments"))
+        for name in ("imagecols.npy", "metainfos.txt", "alltracks.txt",
+                     "metrics.json", "triangulated_lines_nv3.obj",
+                     os.path.join("finaltracks", "config.npy")):
+            check(os.path.isfile(os.path.join(workdir, dev, name)),
+                  (dev, "runner did not write", name))
+    n_cpu = sum(len(v) for v in segs["cpu"].values())
+    n_gpu = sum(len(v) for v in segs["cuda"].values())
+    to_card = np.concatenate([nearest_offsets(segs["cpu"][i], segs["cuda"][i])
+                              for i in sorted(segs["cpu"])])
+    to_cpu = np.concatenate([nearest_offsets(segs["cuda"][i], segs["cpu"][i])
+                             for i in sorted(segs["cpu"])])
+    lost, extra = int((to_card > SEG_TOL).sum()), int((to_cpu > SEG_TOL).sum())
+    worst = to_card[to_card <= SEG_TOL].max(initial=0.0)
+    log(f"[front-end card-vs-cpu] segments {n_gpu} on the card, {n_cpu} on "
+        f"the CPU; unmatched within {SEG_TOL} px: {lost} of the CPU's, "
+        f"{extra} of the card's; largest matched offset {worst:.4f} px")
+    check(n_cpu > 100, ("too few segments", n_cpu))
+    check(max(lost, extra) <= SEG_UNMATCHED_SHARE * n_cpu,
+          ("card and CPU detections differ", lost, extra, n_cpu))
+
+    same = {i: segs["cpu"][i] for i in imgs}
+    desc = {dev: compute_descinfos_batch(imgs, same, device=dev)
+            for dev in ("cuda", "cpu")}
+    desc_err = max(np.abs(desc["cuda"][i]["endpoints_desc"]
+                          - desc["cpu"][i]["endpoints_desc"]).max()
+                   for i in imgs)
+    check(desc_err <= DESC_TOL, ("descriptors card vs CPU", desc_err))
+    pairs = {dev: match_pairs(match_all_neighbors_batched(
+        imgs, same, nbrs, topk=2, min_score=0.5, device=dev))
+        for dev in ("cuda", "cpu")}
+    differ = len(pairs["cuda"] ^ pairs["cpu"])
+    log(f"[front-end card-vs-cpu] descriptors max abs err {desc_err:.2e} "
+        f"(<= {DESC_TOL}); matches {len(pairs['cuda'])} on the card, "
+        f"{len(pairs['cpu'])} on the CPU, {differ} differ")
+    check(len(pairs["cpu"]) > 100, "too few matches")
+    check(differ <= MATCH_DIFF_SHARE * len(pairs["cpu"]) + 2,
+          ("card and CPU match lists differ", differ))
+    n = {dev: (len(t), sum(x.count_images() >= 3 for x in t))
+         for dev, t in tracks.items()}
+    log(f"[front-end card-vs-cpu] runner tracks (all, >= 3 images): "
+        f"card {n['cuda']}, CPU {n['cpu']}")
+    check(n["cpu"][0] > 0 and abs(n["cuda"][0] - n["cpu"][0])
+          <= max(2, 0.1 * n["cpu"][0]), ("runner track counts", n))
+
+
+def runner_full_width(scene, workdir, card):
+    """The runner at full width: line_triangulation from the scene's
+    .npy images with the default config and the protocol's settings, its
+    caches and results written under ``workdir``.  Returns its measures
+    for the gates."""
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.util import io as limapio
+
+    imagecols, _, nbrs, gt = scene
+    cfg = pipeline.runner_config(workdir, n_neighbors=len(nbrs[0]))
+    t0 = time.perf_counter()
+    tracks = line_triangulation(cfg, imagecols, nbrs, device="cuda")
+    wall = time.perf_counter() - t0
+    for name in ("imagecols.npy", "metainfos.txt", "alltracks.txt",
+                 "metrics.json", "triangulated_lines_nv4.obj",
+                 os.path.join("finaltracks", "config.npy")):
+        check(os.path.isfile(os.path.join(workdir, name)),
+              ("runner did not write", name))
+    with open(os.path.join(workdir, "metrics.json")) as f:
+        stages = json.load(f)["stages_s"]
+    segs = limapio.read_all_segments_from_folder(os.path.join(
+        workdir, "line_detections", "tpu_lsd", "segments"))
+    matches_dir = os.path.join(workdir, "line_matchings", "tpu_lsd",
+                               "feats_patch_endpoints",
+                               "matches_nn_endpoints")
+    n_matches = sum(len(m) for i in nbrs for m in np.load(
+        os.path.join(matches_dir, f"matches_{i}.npy"),
+        allow_pickle=True).item().values())
+    n_files = sum(len(files) for _, _, files in os.walk(workdir))
+    quality = pipeline.quality_eval(tracks, gt)
+    log(f"[runner] line_triangulation, {len(nbrs)} views from .npy images, "
+        f"{wall:.3f} s in all, {n_files} files under its folder; stage "
+        f"seconds {json.dumps(stages)} on {card}")
+    log(f"[runner] {n_matches} matches (descriptors at full resolution); "
+        f"{len(tracks)} tracks; quality_eval {json.dumps(quality)}")
+    check(np.isfinite([x.line for x in tracks]).all(),
+          "non-finite lines from the runner")
+    return dict(quality, n_tracks_all=len(tracks), n_matches=n_matches,
+                avg_segs=float(np.mean([len(v) for v in segs.values()])))
+
+
+def hold_to_gates(what, measured, ref):
+    for name, unit, slack in FROM_PIXELS_GATES:
+        got = measured[name]
+        margin = slack if unit == "points" else ref[name] * slack
+        log(f"[{what}] gate {name}: {got:.4f} against the reference's "
+            f"{ref[name]:.4f} ({unit} {slack})")
+        check(abs(got - ref[name]) <= margin,
+              (what, "gate", name, got, ref[name]))
+
+
+def from_pixels_full_width(card):
+    """Phase 7: the runner once, then two passes of the timed pipeline
+    (the first warms the allocator and the libraries), each held to the
+    gates, then GT evaluation of the second pass's tracks.  Returns the
+    evaluation's queries and cloud on the card."""
+    from limap_tpu_torch.evaluation.evaluator import (PointCloudEvaluator,
+                                                      report_error_to_gt)
+    from limap_tpu_torch.line2d.tpu_lsd import detect_segments
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.testing.synthetic import gt_point_cloud
+
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        scene = pipeline.build_scene(
+            image_dir=os.path.join(workdir, "images"))
+        log(f"[from-pixels] scene rendered on the host in "
+            f"{time.perf_counter() - t0:.1f} s: {len(scene[1])} views of "
+            f"{scene[1][0].shape[1]}x{scene[1][0].shape[0]}, "
+            f"{len(scene[3])} GT lines, {len(scene[2][0])} neighbours")
+        on_card = detect_segments(scene[1][0], max_segs=3000)
+        on_cpu = detect_segments(scene[1][0], max_segs=3000, device="cpu")
+        to_card = nearest_offsets(on_cpu, on_card)
+        lost = int((to_card > SEG_TOL).sum())
+        extra = int((nearest_offsets(on_card, on_cpu) > SEG_TOL).sum())
+        log(f"[from-pixels] view 0 at full size, card against CPU: "
+            f"{len(on_card)} and {len(on_cpu)} segments, {lost} and {extra} "
+            f"unmatched within {SEG_TOL} px, largest matched offset "
+            f"{to_card[to_card <= SEG_TOL].max(initial=0.0):.4f} px")
+        check(max(lost, extra) <= SEG_UNMATCHED_SHARE * len(on_cpu),
+              ("full-size detections differ", lost, extra, len(on_cpu)))
+        hold_to_gates("runner", runner_full_width(
+            scene, os.path.join(workdir, "runner"), card), REFERENCE_RUNNER)
+
+    passes = []
+    for what in ("first pass", "second pass"):
+        torch.cuda.reset_peak_memory_stats()
+        r = pipeline.run(scene=scene, device="cuda")
+        r["n_matches"] = sum(len(m) for v in r["matches"].values()
+                             for m in v.values())
+        log(f"[from-pixels] {what} stage seconds "
+            f"{json.dumps(r['stages_s'])} "
+            f"(sum {sum(r['stages_s'].values()):.3f}) on {card}")
+        log(f"[from-pixels] {what}: avg segments per image "
+            f"{r['avg_segs']:.2f}; {r['n_matches']} matches; "
+            f"{r['n_tracks']} tracks; quality_eval "
+            f"{json.dumps(r['quality'])}")
+        hold_to_gates(what, dict(
+            r["quality"], n_tracks_all=r["n_tracks"],
+            avg_segs=r["avg_segs"], n_matches=r["n_matches"]),
+            REFERENCE_FROM_PIXELS)
+        check(np.isfinite([x.line for x in r["linetracks"]]).all(),
+              "non-finite lines from pixels")
+        passes.append(r)
+    first, second = passes[0]["segs"], passes[1]["segs"]
+    same = all(np.array_equal(first[i], second[i]) for i in first)
+    log(f"[from-pixels] the two passes: segments bit-equal {same}; tracks "
+        f"{passes[0]['n_tracks']} and {passes[1]['n_tracks']}; quality "
+        f"equal {passes[0]['quality'] == passes[1]['quality']}")
+    check(same, "the detector did not repeat its segments on the card")
+
+    t0 = time.perf_counter()
+    evaluator = PointCloudEvaluator(gt_point_cloud(
+        scene[3].astype(np.float32), 500), device="cuda")
+    lines = np.stack([x.line for x in r["linetracks"]])
+    rep = report_error_to_gt(evaluator, lines, TAUS, 1000)
+    torch.cuda.synchronize()
+    log(f"[from-pixels] evaluation against the GT cloud "
+        f"({len(lines) * 1000} queries x {evaluator.points.shape[0]} "
+        f"points) in {time.perf_counter() - t0:.3f} s: recall "
+        f"{rep['recall']}; precision {rep['precision']}; peak device "
+        f"memory of the pass {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB")
+    check(all(np.isfinite(rep["recall"][tau]) for tau in TAUS)
+          and 0 < rep["recall"][0.01] <= rep["recall"][0.1],
+          ("GT evaluation of the from-pixels tracks", rep))
+    return evaluation_queries(r["linetracks"], 1000), evaluator.points
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
@@ -229,6 +542,9 @@ def main():
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log("optional packages on this machine: " + ", ".join(
+        f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+        for m in ("yaml", "cv2", "PIL")))
 
     # ---- 1. build ----
     t0 = time.perf_counter()
@@ -344,42 +660,20 @@ def main():
         check(rep["precision"][tau] >= REFERENCE["precision"][tau] - 1.0,
               ("precision", tau))
 
-    # ---- 5. kernel timing at the main path's shapes ----
+    # ---- 5. kernels on the main path's whole input ----
     from limap_tpu_torch.evaluation import evaluator as evaluator_module
     from limap_tpu_torch.evaluation.evaluator import (PointCloudEvaluator,
                                                       report_error_to_gt)
     queries = evaluation_queries(tracks, 1000)
     check(queries.shape[0] == n_queries, "query count")
-    sub = queries[:8192].contiguous()
-    max_err = {name: max_err_to_plain(kernel, sub, cloud)
-               for name, kernel in kernels.items()}
-    for name, err in max_err.items():
-        check(err <= 1e-5, (name, "vs plain at full shape", err))
-    S, M = queries.shape[0], cloud.shape[0]
-
-    def library():
-        step = 1024
-        return torch.cat([torch.cdist(queries[i:i + step], cloud).amin(1)
-                          for i in range(0, S, step)])
-
-    # the two kernels in turns on this one card
-    turns = ["nn_min_dist_scalar", "nn_min_dist", "nn_min_dist",
-             "nn_min_dist_scalar"]
-    times = {name: [] for name in kernels}
-    for name in turns:
-        times[name].append(cuda_ms(
-            lambda: kernels[name](queries, cloud), 3))
-    log(f"[time] in turns {turns}: {json.dumps(times)} ms")
-    check(torch.equal(nnd.nn_min_dist(queries, cloud),
-                      nnd.nn_min_dist_scalar(queries, cloud)),
-          "the two kernels differ at the main path's shapes")
-    confirms_per_query = int(nnd.nn_min_dist.confirms) / S
+    entries = measure_kernels(kernels, "segments_given", queries, cloud,
+                              main_launches)
 
     # the evaluation stage on either kernel
     lines = np.stack([x.line for x in tracks])
     evaluator = PointCloudEvaluator(cloud.cpu().numpy(), device="cuda")
     evaluate_s = {}
-    for name in turns:
+    for name in TURNS:
         evaluator_module.nn_min_dist = kernels[name]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -388,34 +682,26 @@ def main():
         evaluate_s.setdefault(name, []).append(time.perf_counter() - t0)
     evaluator_module.nn_min_dist = nnd.nn_min_dist
     log(f"[time] evaluate stage seconds by kernel {json.dumps(evaluate_s)}")
+    for entry in entries:
+        entry["evaluate_stage_s"] = evaluate_s[entry["name"]]
+    del queries, cloud, evaluator
 
-    plain_ms = cuda_ms(lambda: nnd.nn_min_dist_plain(queries, cloud), 1,
-                       warmup=False)
-    library_ms = cuda_ms(library, 1, warmup=False)
-    # the least time of any implementation: per pair 16 TF32 operations
-    # (one k=8 product) on the tensor cores or one fp32 compare on the
-    # CUDA cores, or the bytes; beside it the bound of the CUDA-core
-    # route (8 fp32 operations a pair)
-    seconds = {"operations": max(S * M * 16 / TF32_PEAK,
-                                 S * M / (FP32_PEAK / 2)),
-               "bytes": (S * 12 + M * 12 + S * 4) / HBM_BYTES_PER_S}
-    bound_by = max(seconds, key=seconds.get)
-    entries = []
-    for name in kernels:
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "limap_tpu_torch/csrc/nn_min_dist.cu",
-            "replaces": "limap_tpu/ops/pallas/nn_distance.py:55",
-            "launches": main_launches[name], "max_abs_err": max_err[name],
-            "ms": sum(times[name]) / len(times[name]),
-            "ms_turns": times[name],
-            "plain_ms": plain_ms, "bound_ms": seconds[bound_by] * 1e3,
-            "bound_by": bound_by,
-            "cuda_core_bound_ms": S * M * 8 / FP32_PEAK * 1e3,
-            "library_ms": library_ms, "queries": S, "points": M,
-            "on_main_path": name == "nn_min_dist",
-            "evaluate_stage_s": evaluate_s[name]})
-    entries[0]["confirms_per_query"] = confirms_per_query
+    # ---- 6. front end and runner, card against CPU ----
+    with tempfile.TemporaryDirectory() as workdir:
+        front_end_card_vs_cpu(workdir)
+
+    # ---- 7. the pipeline from pixels at full width ----
+    for kernel in kernels.values():
+        kernel.launches = 0
+    pixel_queries, pixel_cloud = from_pixels_full_width(card)
+    pixel_launches = {name: k.launches for name, k in kernels.items()}
+    check(pixel_launches["nn_min_dist"] > 0,
+          "the from-pixels path did not launch nn_min_dist")
+    check(pixel_launches["nn_min_dist_scalar"] == 0,
+          "the from-pixels path launched the yardstick kernel")
+    entries += measure_kernels(kernels, "from_pixels", pixel_queries,
+                               pixel_cloud, pixel_launches)
+
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ import torch
 
 from limap_tpu_torch import resolve_device
 from limap_tpu_torch.base.pose import (quat_conjugate, quat_normalize,
-                                       quat_rotate, rotmat_to_quat)
+                                       quat_rotate, quat_to_rotmat,
+                                       rotmat_to_quat)
 
 EPS = 1e-12
 
@@ -90,6 +91,52 @@ class Camera:
         extra = [p for i, p in enumerate(self.params) if i not in fi]
         return bool(np.all(np.abs(extra) < 1e-12))
 
+    def h(self) -> int:
+        return self.height
+
+    def w(self) -> int:
+        return self.width
+
+    def resize(self, width: int, height: int) -> None:
+        """Rescale the intrinsics to a new image size."""
+        if self.width <= 0 or self.height <= 0:
+            raise ValueError("camera has no size set")
+        sx = width / self.width
+        sy = height / self.height
+        s = (sx + sy) / 2.0
+        for i in self.focal_idxs():
+            self.params[i] *= s
+        pi = self.pp_idxs()
+        self.params[pi[0]] *= sx
+        self.params[pi[1]] *= sy
+        self.width, self.height = int(width), int(height)
+
+    def set_max_image_dim(self, val: int) -> None:
+        """Downscale so that max(h, w) <= val."""
+        if val <= 0:
+            return
+        mx = max(self.width, self.height)
+        if mx <= val:
+            return
+        ratio = val / mx
+        self.resize(int(round(self.width * ratio)),
+                    int(round(self.height * ratio)))
+
+    def as_dict(self) -> dict:
+        return {
+            "model_id": self.model_id,
+            "params": np.asarray(self.params).tolist(),
+            "cam_id": self.camera_id,
+            "height": self.height,
+            "width": self.width,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Camera":
+        return cls(model=d.get("model_id", 1), params=d.get("params"),
+                   cam_id=d.get("cam_id", -1),
+                   hw=(d.get("height", -1), d.get("width", -1)))
+
 
 class CameraPose:
     """World-to-camera qvec (w, x, y, z) + tvec."""
@@ -104,6 +151,23 @@ class CameraPose:
         self.tvec = np.asarray(tvec, dtype=np.float64)
         self.initialized = bool(initialized)
 
+    def R(self) -> np.ndarray:
+        """Rotation matrix, through fp32 as the reference computes it."""
+        return quat_to_rotmat(torch.as_tensor(
+            self.qvec, dtype=torch.float32)).numpy()
+
+    def center(self) -> np.ndarray:
+        return -self.R().T @ self.tvec
+
+    def as_dict(self) -> dict:
+        return {"qvec": self.qvec.tolist(), "tvec": self.tvec.tolist(),
+                "initialized": self.initialized}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CameraPose":
+        return cls(qvec=d["qvec"], tvec=d["tvec"],
+                   initialized=d.get("initialized", True))
+
 
 class CameraView:
     """Camera + pose + image name."""
@@ -114,6 +178,44 @@ class CameraView:
         self.cam = cam if cam is not None else Camera()
         self.pose = pose if pose is not None else CameraPose()
         self.image_name = image_name
+
+    def h(self) -> int:
+        return self.cam.h()
+
+    def w(self) -> int:
+        return self.cam.w()
+
+    def read_image(self, set_gray: bool = False) -> np.ndarray:
+        """The view's image at the camera's size: uint8 [H, W, 3] (BGR),
+        or [H, W] with ``set_gray``.  A ``.npy`` file holds such an
+        array and is read with numpy; any other format is decoded by
+        OpenCV, which is imported here and only then."""
+        if self.image_name.endswith(".npy"):
+            img = np.load(self.image_name)
+        else:
+            img = _cv2(self.image_name).imread(self.image_name)
+            if img is None:
+                raise FileNotFoundError(self.image_name)
+        if self.w() > 0 and self.h() > 0 \
+                and (img.shape[1], img.shape[0]) != (self.w(), self.h()):
+            img = _cv2(self.image_name).resize(img, (self.w(), self.h()))
+        if set_gray and img.ndim == 3:
+            # OpenCV's BGR -> gray weights, rounded to the nearest level
+            img = np.rint(img.astype(np.float32)
+                          @ np.float32([0.114, 0.587, 0.299])
+                          ).astype(np.uint8)
+        return img
+
+
+def _cv2(image_name: str):
+    try:
+        import cv2
+    except ImportError as exc:
+        raise ImportError(
+            f"reading or resizing {image_name!r} needs OpenCV (cv2); "
+            "without it, store images as .npy at the camera's size"
+        ) from exc
+    return cv2
 
 
 class CameraViewsBatch(NamedTuple):

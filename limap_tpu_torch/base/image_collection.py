@@ -18,6 +18,15 @@ class CameraImage:
         self.pose = pose if pose is not None else CameraPose(initialized=False)
         self.image_name = image_name
 
+    def as_dict(self) -> dict:
+        return {"cam_id": self.cam_id, "pose": self.pose.as_dict(),
+                "image_name": self.image_name}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CameraImage":
+        return cls(d["cam_id"], CameraPose.from_dict(d["pose"]),
+                   d.get("image_name", "none"))
+
 
 class ImageCollection:
     def __init__(self, cameras=None, images=None):
@@ -39,8 +48,49 @@ class ImageCollection:
             else:
                 self.images = {i: im for i, im in enumerate(images)}
 
+    def NumImages(self) -> int:
+        return len(self.images)
+
     def get_img_ids(self) -> List[int]:
         return sorted(self.images.keys())
+
+    def exist_image(self, img_id: int) -> bool:
+        return img_id in self.images
+
+    def campose(self, img_id: int) -> CameraPose:
+        return self.images[img_id].pose
+
+    def image_name(self, img_id: int) -> str:
+        return self.images[img_id].image_name
+
+    def read_image(self, img_id: int, set_gray: bool = False):
+        return self.camview(img_id).read_image(set_gray)
+
+    def set_max_image_dim(self, val: int) -> None:
+        for cam in self.cameras.values():
+            cam.set_max_image_dim(val)
+
+    def update_neighbors(self, neighbors: Dict[int, List[int]]):
+        """Drop neighbour entries that are not in the collection."""
+        out = {}
+        for img_id, ngs in neighbors.items():
+            if not self.exist_image(img_id):
+                continue
+            out[img_id] = [n for n in ngs if self.exist_image(n)]
+        return out
+
+    def as_dict(self) -> dict:
+        return {
+            "cameras": {k: v.as_dict() for k, v in self.cameras.items()},
+            "images": {k: v.as_dict() for k, v in self.images.items()},
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ImageCollection":
+        cams = {int(k): Camera.from_dict(v) for k, v in d["cameras"].items()}
+        imgs = {int(k): CameraImage.from_dict(v)
+                for k, v in d["images"].items()}
+        return cls(cams, imgs)
 
     def camview(self, img_id: int) -> CameraView:
         im = self.images[img_id]

@@ -1,8 +1,8 @@
 """Line-to-line distances used by the linkers and the track filters.
 
 Every function takes two broadcasting :class:`Segments`.  Only the
-distances the slice's linkers and filters call are here; the rest of the
-reference's seventeen wait for a later slice.
+distances the ported linkers, filters and the 2D segment merging call
+are here; the rest of the reference's seventeen wait for a later slice.
 """
 
 from __future__ import annotations
@@ -94,3 +94,31 @@ def dist_innerseg(l1: Segments, l2: Segments) -> torch.Tensor:
     s2, e2, ok2 = _innerseg(l1, l2)
     d = dist_endpoints_perpendicular(Segments(s1, e1), Segments(s2, e2))
     return torch.where(ok1 & ok2, d, torch.full_like(d, MAX_DIST))
+
+
+def dist_minpoint_oneway(l1: Segments, l2: Segments) -> torch.Tensor:
+    """Min distance from a point on segment l1 to the infinite line l2;
+    works for 2D and 3D."""
+    v1 = l1.direction()
+    v2 = l2.direction()
+    disp = l2.start - l1.start
+    start_vec = disp - torch.sum(disp * v2, dim=-1, keepdim=True) * v2
+    val = torch.linalg.vector_norm(start_vec, dim=-1)
+    sv_unit = start_vec / (val[..., None] + EPS)
+    beta1 = torch.sum(v1 * sv_unit, dim=-1)
+    if l1.start.shape[-1] == 2:
+        res_in = torch.clamp(val - beta1 * l1.length(), min=0.0)
+    else:
+        beta2 = torch.sum(v1 * v2, dim=-1)
+        beta3 = torch.sqrt(torch.clamp(1.0 - beta1 ** 2 - beta2 ** 2,
+                                       min=0.0))
+        peak = (beta1 * val) / (beta1 ** 2 + beta3 ** 2 + EPS)
+        x = torch.minimum(peak, l1.length())
+        res_in = torch.sqrt((val - beta1 * x) ** 2 + (beta3 * x) ** 2)
+    res = torch.where(beta1 <= 0, val, res_in)
+    return torch.where(val < EPS, torch.zeros_like(res), res)
+
+
+def dist_minpoint(l1, l2) -> torch.Tensor:
+    return torch.minimum(dist_minpoint_oneway(l1, l2),
+                         dist_minpoint_oneway(l2, l1))

@@ -5,10 +5,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
+
 import torch
 
 from limap_tpu_torch.base import line_dists as ld
 from limap_tpu_torch.base.lines import Segments
+from limap_tpu_torch.util import dataclass_from_dict
 
 
 def expscore(val, sigma):
@@ -40,6 +43,10 @@ class LineLinker2dConfig:
     def multiplier(self) -> float:
         return _multiplier(self.score_th)
 
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "LineLinker2dConfig":
+        return dataclass_from_dict(cls, d)
+
 
 @dataclasses.dataclass(frozen=True)
 class LineLinker3dConfig:
@@ -61,6 +68,10 @@ class LineLinker3dConfig:
     @property
     def multiplier(self) -> float:
         return _multiplier(self.score_th)
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "LineLinker3dConfig":
+        return dataclass_from_dict(cls, d)
 
     def to_shared_parent_scoring(self) -> "LineLinker3dConfig":
         return dataclasses.replace(self, use_angle=True, use_overlap=False,

@@ -4,7 +4,7 @@
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +37,89 @@ class LineTrack:
 
     def count_images(self) -> int:
         return len(set(self.image_id_list))
+
+    def as_dict(self) -> dict:
+        return {
+            "line": self.line.tolist(),
+            "image_id_list": self.image_id_list,
+            "line_id_list": self.line_id_list,
+            "line2d_list": [l.tolist() for l in self.line2d_list],
+            "line3d_list": [l.tolist() for l in self.line3d_list],
+            "score_list": self.score_list,
+            "node_id_list": self.node_id_list,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LineTrack":
+        return cls(line=d["line"], image_id_list=d["image_id_list"],
+                   line_id_list=d["line_id_list"],
+                   line2d_list=d.get("line2d_list"),
+                   line3d_list=d.get("line3d_list"),
+                   score_list=d.get("score_list"),
+                   node_id_list=d.get("node_id_list"))
+
+    # ---- txt IO in LIMAP's track file format ----
+    def Write(self, filename: str) -> None:
+        n_lines = self.count_lines()
+        with open(filename, "w") as f:
+            vals = list(np.nan_to_num(self.line[0])) + list(
+                np.nan_to_num(self.line[1]))
+            f.write(" ".join(f"{v:.10f}" for v in vals) + " \n")
+            f.write(f"{n_lines} {self.count_images()}\n")
+            f.write("image_id_list " +
+                    " ".join(str(i) for i in self.image_id_list) + " \n")
+            f.write("line_id_list " +
+                    " ".join(str(i) for i in self.line_id_list) + " \n")
+            f.write("line2d_list\n")
+            for l in self.line2d_list:
+                f.write(f"{l[0][0]:.10f} {l[0][1]:.10f} "
+                        f"{l[1][0]:.10f} {l[1][1]:.10f} \n")
+            if self.node_id_list:
+                f.write("node_id_list " +
+                        " ".join(str(i) for i in self.node_id_list) + " \n")
+            if self.score_list:
+                f.write("score_list " +
+                        " ".join(f"{s:.10f}" for s in self.score_list) + " \n")
+            if self.line3d_list:
+                f.write("line3d_list\n")
+                for l in self.line3d_list:
+                    f.write(f"{l[0][0]:.10f} {l[0][1]:.10f} {l[0][2]:.10f} "
+                            f"{l[1][0]:.10f} {l[1][1]:.10f} {l[1][2]:.10f} \n")
+            f.write("END\n")
+
+    def Read(self, filename: str) -> "LineTrack":
+        with open(filename) as f:
+            lines = [ln.strip() for ln in f.readlines()]
+        vals = [float(v) for v in lines[0].split()]
+        self.line = np.array([vals[:3], vals[3:6]])
+        n_lines = int(lines[1].split()[0])
+        self.image_id_list = [int(v) for v in lines[2].split()[1:]]
+        self.line_id_list = [int(v) for v in lines[3].split()[1:]]
+        assert lines[4] == "line2d_list"
+        self.line2d_list = []
+        row = 5
+        for i in range(n_lines):
+            v = [float(x) for x in lines[row + i].split()]
+            self.line2d_list.append(np.array([v[:2], v[2:4]]))
+        row += n_lines
+        self.node_id_list, self.score_list, self.line3d_list = [], [], []
+        while row < len(lines) and lines[row] != "END":
+            tok = lines[row].split()
+            if tok[0] == "node_id_list":
+                self.node_id_list = [int(v) for v in tok[1:]]
+                row += 1
+            elif tok[0] == "score_list":
+                self.score_list = [float(v) for v in tok[1:]]
+                row += 1
+            elif tok[0] == "line3d_list":
+                row += 1
+                for i in range(n_lines):
+                    v = [float(x) for x in lines[row + i].split()]
+                    self.line3d_list.append(np.array([v[:3], v[3:6]]))
+                row += n_lines
+            else:
+                row += 1
+        return self
 
 
 def distinct_count(img_index: torch.Tensor,
@@ -175,6 +258,37 @@ def batch_from_flat_supports(
             out_line, out_img_index, out_image_ids, out_line_ids, out_l2d,
             out_l3d, out_score, out_mask, track_mask))
     return (batch, *extras) if extras else batch
+
+
+def tracks_to_batch(tracks: Sequence[LineTrack],
+                    img_id_to_index: Dict[int, int],
+                    device=None) -> TrackBatch:
+    """Pack host tracks into a padded :class:`TrackBatch` on ``device``
+    (a track without 3D supports or scores gets zeros there)."""
+    counts = np.fromiter((t.count_lines() for t in tracks), np.int64,
+                         count=len(tracks))
+    track_of = np.repeat(np.arange(len(tracks), dtype=np.int64), counts)
+    E = len(track_of)
+
+    def flat(get, shape, dtype):
+        parts = [np.asarray(get(t), dtype).reshape((-1,) + shape)
+                 if len(get(t)) else np.zeros((n,) + shape, dtype)
+                 for n, t in zip(counts, tracks)]
+        return np.concatenate(parts) if parts else np.zeros((0,) + shape,
+                                                             dtype)
+
+    image_ids = flat(lambda t: t.image_id_list, (), np.int64)
+    img_index = np.array([img_id_to_index[int(i)] for i in image_ids],
+                         np.int64).reshape(E)
+    line = (np.stack([t.line for t in tracks]) if tracks
+            else np.zeros((0, 2, 3)))
+    return batch_from_flat_supports(
+        track_of, img_index, image_ids,
+        flat(lambda t: t.line_id_list, (), np.int64),
+        flat(lambda t: t.line2d_list, (2, 2), np.float64),
+        flat(lambda t: t.line3d_list, (2, 3), np.float64),
+        flat(lambda t: t.score_list, (), np.float64),
+        line=line, num_tracks=len(tracks), device=device)
 
 
 def batch_to_tracks(batch: TrackBatch,

@@ -9,7 +9,7 @@ residuals (Cauchy(0.25) by default).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,6 +20,7 @@ from limap_tpu_torch.base.lines import Segments
 from limap_tpu_torch.base.linetrack import TrackBatch
 from limap_tpu_torch.optimize import residuals as res
 from limap_tpu_torch.optimize.lm import LMResult, lm_solve, retract_quat_so2
+from limap_tpu_torch.util import dataclass_from_dict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +33,10 @@ class LineBAConfig:
     loss: str = "cauchy"          # "trivial" | "cauchy" | "huber"
     loss_scale: float = 0.25
     max_num_iterations: int = 100
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "LineBAConfig":
+        return dataclass_from_dict(cls, d)
 
 
 def robust_weight(r2: torch.Tensor, loss: str, scale: float) -> torch.Tensor:

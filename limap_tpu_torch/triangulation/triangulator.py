@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,7 +33,7 @@ from limap_tpu_torch.merging.aggregator import aggregate_tracks
 from limap_tpu_torch.ops import hostops
 from limap_tpu_torch.ops.connected_components import connected_components
 from limap_tpu_torch.triangulation import functions as trifun
-from limap_tpu_torch.util import shape_bucket
+from limap_tpu_torch.util import dataclass_from_dict, shape_bucket
 
 # bytes of [L, TT, TT] scoring intermediates one bucket program may keep
 # alive; eager torch holds every intermediate of score_3d/score_2d of a
@@ -72,6 +72,19 @@ class TriangulatorConfig:
             th_angle=10.0, th_overlap=0.05, th_smartoverlap=0.1,
             th_smartangle=2.0, th_perp=1.0, th_innerseg=1.0,
             th_scaleinv=0.015))
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "TriangulatorConfig":
+        """Known fields of ``d``; the linkers come from its
+        ``linker2d_config`` / ``linker3d_config`` entries."""
+        d = dict(d or {})
+        extra = {}
+        for field, linker in (("linker2d", LineLinker2dConfig),
+                              ("linker3d", LineLinker3dConfig)):
+            d.pop(field, None)
+            if field + "_config" in d:
+                extra[field] = linker.from_dict(d[field + "_config"])
+        return dataclass_from_dict(cls, d, **extra)
 
 
 def bucket_program(cfg: TriangulatorConfig, L: int, K: int, T: int,

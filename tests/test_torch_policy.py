@@ -31,6 +31,13 @@ def _port_files():
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 20
+    covered = {str(f.relative_to(ROOT)) for f in files}
+    for new in ("line2d/base.py", "line2d/tpu_lsd.py", "line2d/endpoints.py",
+                "line2d/lsd.py", "line2d/line_utils.py",
+                "runners/functions.py", "runners/line_triangulation.py",
+                "testing/pipeline.py", "util/config.py", "util/io.py",
+                "util/profiler.py"):
+        assert "limap_tpu_torch/" + new in covered, new
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -99,3 +106,65 @@ def test_entry_points_run_on_cpu_when_asked(no_gpu):
     assert tri._l2d_packed.device.type == "cpu"
     ev = PointCloudEvaluator(gt.reshape(-1, 3), device="cpu")
     assert ev.points.device.type == "cpu"
+
+
+def _front_end_calls():
+    from limap_tpu_torch.base.linetrack import tracks_to_batch
+    from limap_tpu_torch.line2d import endpoints, get_detector, \
+        get_extractor, get_matcher
+    from limap_tpu_torch.line2d.tpu_lsd import detect_segments
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.util.config import default_triangulation_config
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 255, (32, 40)).astype(np.uint8)
+    imgs = {0: img, 1: img[::-1].copy()}
+    segs = {i: rng.uniform(4, 28, (3, 4)) for i in imgs}
+    nbrs = {0: [1], 1: [0]}
+    scene = pipeline.build_scene(n_views=2, n_lines=4, hw=(40, 60),
+                                 n_neighbors=1)
+
+    def runner(device):
+        cfg = default_triangulation_config()
+        cfg["output_dir"] = "tmp/test_torch_policy_runner"
+        return line_triangulation(cfg, scene[0], scene[2], device=device)
+
+    return {
+        "detect_segments": lambda d: detect_segments(img, device=d),
+        "tpu_lsd": lambda d: get_detector({"method": "tpu_lsd"}, device=d),
+        "patch_endpoints": lambda d: get_extractor(
+            {"method": "patch_endpoints"}, device=d),
+        "nn_endpoints": lambda d: get_matcher(
+            {"method": "nn_endpoints"}, None, device=d),
+        "descinfos": lambda d: endpoints.compute_descinfos_batch(
+            imgs, segs, device=d),
+        "upload": lambda d: endpoints.upload_image_u8(img, device=d),
+        "match_neighbors": lambda d: endpoints.match_all_neighbors_batched(
+            imgs, segs, nbrs, device=d),
+        "match_pairs": lambda d: endpoints.batched_match_pairs(
+            {}, [], device=d),
+        "tracks_to_batch": lambda d: tracks_to_batch([], {}, device=d),
+        "pipeline": lambda d: pipeline.run(scene=scene, device=d),
+        "runner": runner,
+    }
+
+
+FRONT_END = ["detect_segments", "tpu_lsd", "patch_endpoints", "nn_endpoints",
+             "descinfos", "upload", "match_neighbors", "match_pairs",
+             "tracks_to_batch", "pipeline", "runner"]
+
+
+@pytest.mark.parametrize("entry", FRONT_END)
+def test_front_end_entry_points_raise_without_gpu(no_gpu, entry):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _front_end_calls()[entry](None)
+
+
+@pytest.mark.parametrize("entry", ["detect_segments", "descinfos", "upload",
+                                   "match_neighbors", "tpu_lsd"])
+def test_front_end_entry_points_run_on_cpu_when_asked(no_gpu, entry):
+    out = _front_end_calls()[entry]("cpu")
+    if entry == "upload":
+        assert out.device.type == "cpu" and out.dtype == torch.uint8
+    if entry == "match_neighbors":
+        assert set(out) == {0, 1}

@@ -1,20 +1,38 @@
-"""Quality reference for chip_smoke.py's full-width phase: runs the JAX
-package's slice (triangulate -> tracks -> filters + remerge -> line BA)
-on the protocol scene of bench.py (100 views x 1500 lines x 20
-neighbours, max_tris_per_node=32) on the CPU, and scores its lines
-against a GT cloud of 500 points per GT segment with 1000 samples per
-line at taus (0.01, 0.05, 0.10).
-
-The nearest-neighbour distances come from an exact k-d tree (scipy), so
-the scoring does not depend on either package's kernel.  Prints one JSON
-line.  Run from the repo root:
+"""Quality references for chip_smoke.py's full-width phases, from the JAX
+package on the CPU.  Each mode prints one JSON line.  Run from the repo
+root:
 
     JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --from-pixels [N_VIEWS]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --runner [N_VIEWS]
+
+Without arguments: the slice from given segments and matches
+(triangulate -> tracks -> filters + remerge -> line BA) on the protocol
+scene of bench.py (100 views x 1500 lines x 20 neighbours,
+max_tris_per_node=32), its lines scored against a GT cloud of 500 points
+per GT segment with 1000 samples per line at taus (0.01, 0.05, 0.10).
+The nearest-neighbour distances come from an exact k-d tree (scipy), so
+the scoring does not depend on either package's kernel.
+
+With ``--from-pixels``: the pipeline from pixels on the rendered scene
+of limap_tpu_torch/testing/pipeline.py (the port's rasteriser draws the
+strokes, so both packages see the same images): tpu_lsd detection,
+half-resolution patch-endpoint descriptors and the batched neighbour
+matcher (topk 2, min_score 0.5), then the same stages 3-6, scored by
+bench_pipeline.quality_eval.  About a minute on the CPU at 100 views.
+
+With ``--runner``: limap_tpu.runners.line_triangulation on the same
+rendered scene, its images written as PNG (the JAX package reads images
+through OpenCV), with the config of pipeline.runner_config; the same
+JSON keys.
 """
 
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -24,6 +42,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import bench  # noqa: E402
+import bench_pipeline  # noqa: E402
+from limap_tpu.base.image_collection import ImageCollection  # noqa: E402
 from limap_tpu.base.line_linker import LineLinker3dConfig  # noqa: E402
 from limap_tpu.base.linetrack import batch_to_tracks  # noqa: E402
 from limap_tpu.merging.merging import (compact_track_batch,  # noqa: E402
@@ -33,7 +53,7 @@ from limap_tpu.optimize.line_ba import (LineBAConfig,  # noqa: E402
                                         solve_line_bundle_adjustment)
 from limap_tpu.triangulation.triangulator import (  # noqa: E402
     GlobalLineTriangulator, TriangulatorConfig)
-from limap_tpu_torch.testing import synthetic  # noqa: E402
+from limap_tpu_torch.testing import pipeline, synthetic  # noqa: E402
 
 TAUS = (0.01, 0.05, 0.1)
 F2D = {"th_angular_2d": 10.0, "th_perp_2d": 10.0, "th_sv_angular_3d": 70.0,
@@ -41,13 +61,12 @@ F2D = {"th_angular_2d": 10.0, "th_perp_2d": 10.0, "th_sv_angular_3d": 70.0,
        "th_overlap_num_supports": 3}
 
 
-def main(n_views=100, n_lines=1500, n_neighbors=20):
-    t0 = time.perf_counter()
-    imagecols, segs, nbrs = bench.build_scene(n_views, n_lines, n_neighbors)
+def map_lines(imagecols, segs, matches):
+    """Stages 3-6 of the JAX package with the protocol's settings."""
     views = imagecols.batch()
     tri = GlobalLineTriangulator(TriangulatorConfig(max_tris_per_node=32))
     tri.init(segs, imagecols)
-    tri.triangulate_all(nbrs)
+    tri.triangulate_all(matches)
     tb, host = tri.compute_track_batch(return_host=True)
     tb, host = filter_chain_batch(tb, views, F2D, LineLinker3dConfig(),
                                   host=host)
@@ -56,7 +75,71 @@ def main(n_views=100, n_lines=1500, n_neighbors=20):
     cfg = LineBAConfig(max_num_iterations=20)
     refined, _ = solve_line_bundle_adjustment(tb, views, cfg)
     tb = get_output_tracks(tb, views, refined, cfg.num_outliers_aggregator)
-    tracks = [t for t in batch_to_tracks(tb, host=host) if t.count_lines()]
+    return [t for t in batch_to_tracks(tb, host=host) if t.count_lines()]
+
+
+def from_pixels(n_views=100):
+    from limap_tpu.line2d.base import detect_arrays_parallel
+    from limap_tpu.line2d.endpoints import (match_all_neighbors_batched,
+                                            upload_image_u8)
+    port_cols, imgs, nbrs, gt = pipeline.build_scene(n_views)
+    imagecols = ImageCollection.from_dict(port_cols.as_dict())
+    t0 = time.perf_counter()
+    segs = detect_arrays_parallel({"method": "tpu_lsd"}, imgs)
+    t_detect = time.perf_counter() - t0
+    device_imgs = {i: upload_image_u8(img, downscale=2)
+                   for i, img in imgs.items()}
+    matches = match_all_neighbors_batched(
+        imgs, segs, nbrs, topk=2, min_score=0.5, device_imgs=device_imgs,
+        img_scale=0.5)
+    t_match = time.perf_counter() - t0 - t_detect
+    tracks = map_lines(imagecols, segs, matches)
+    print(json.dumps({
+        "n_views": n_views, "n_tracks_all": len(tracks),
+        "avg_segs": float(np.mean([len(s) for s in segs.values()])),
+        "n_matches": int(sum(len(m) for v in matches.values()
+                             for m in v.values())),
+        "detect_s": t_detect, "match_s": t_match,
+        "total_s": time.perf_counter() - t0,
+        "quality": bench_pipeline.quality_eval(tracks, gt)}))
+
+
+def runner(n_views=100):
+    import cv2
+    from limap_tpu.runners import line_triangulation
+    from limap_tpu.util import io as limapio
+    port_cols, imgs, nbrs, gt = pipeline.build_scene(n_views)
+    with tempfile.TemporaryDirectory() as workdir:
+        cols = port_cols.as_dict()
+        for i, img in imgs.items():
+            name = os.path.join(workdir, f"img_{i}.png")
+            cv2.imwrite(name, img)
+            cols["images"][i]["image_name"] = name
+        cfg = pipeline.runner_config(os.path.join(workdir, "out"),
+                                     n_neighbors=len(nbrs[0]))
+        t0 = time.perf_counter()
+        tracks = line_triangulation(cfg, ImageCollection.from_dict(cols),
+                                    nbrs)
+        total = time.perf_counter() - t0
+        segs = limapio.read_all_segments_from_folder(os.path.join(
+            cfg["dir_save"], "line_detections", "tpu_lsd", "segments"))
+        matches_dir = os.path.join(
+            cfg["dir_save"], "line_matchings", "tpu_lsd",
+            "feats_patch_endpoints", "matches_nn_endpoints")
+        n_matches = sum(len(m) for i in nbrs for m in np.load(
+            os.path.join(matches_dir, f"matches_{i}.npy"),
+            allow_pickle=True).item().values())
+    print(json.dumps({
+        "n_views": n_views, "n_tracks_all": len(tracks),
+        "avg_segs": float(np.mean([len(s) for s in segs.values()])),
+        "n_matches": int(n_matches), "total_s": total,
+        "quality": bench_pipeline.quality_eval(tracks, gt)}))
+
+
+def main(n_views=100, n_lines=1500, n_neighbors=20):
+    t0 = time.perf_counter()
+    imagecols, segs, nbrs = bench.build_scene(n_views, n_lines, n_neighbors)
+    tracks = map_lines(imagecols, segs, nbrs)
     t_map = time.perf_counter() - t0
 
     # the same GT draw as bench.build_scene, and the GT cloud chip_smoke
@@ -82,4 +165,9 @@ def main(n_views=100, n_lines=1500, n_neighbors=20):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--from-pixels"]:
+        from_pixels(*map(int, sys.argv[2:3]))
+    elif sys.argv[1:2] == ["--runner"]:
+        runner(*map(int, sys.argv[2:3]))
+    else:
+        main()
