@@ -31,13 +31,25 @@ Phases, in order; any failure exits non-zero:
      and twice through the timed stages of
      limap_tpu_torch/testing/pipeline.py, with quality gates; then GT
      evaluation of the tracks through nn_min_dist, and phase 5's checks
-     and timings of both kernels on that evaluation's input.
+     and timings of both kernels on that evaluation's input;
+  8. localization at full width on phase 7's runner map: queries rendered
+     between the database views, each with a prior, 10 retrieved views and
+     1000 point matches, through hybrid_localization (tpu_lsd, epipolar-IoU
+     grid, reprojection filter, PnPL RANSAC with the pose_score and
+     trace_roots kernels, LO, f64 polish), with quality gates; then the
+     three localization kernels held to their plain versions and timed on
+     that path's own inputs.
+Phase 2 also holds the localization kernels (trace_roots, pose_score,
+epipolar_iou_grid) to their plain versions on seeded inputs, and phase 3b,
+after phase 3, runs the PnPL estimator on the card and on the CPU on one
+problem: the same hypotheses scored alike, and the same final pose.
 
 Prints the kernels' JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.
 """
 
 import copy
+import importlib
 import importlib.util
 import json
 import os
@@ -45,6 +57,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -113,6 +126,34 @@ DESC_TOL = 1e-5
 # matches differ only through scores within rounding of min_score or of
 # each other (a top-k tie)
 MATCH_DIFF_SHARE = 0.005
+
+
+# The JAX package's CPU run of phase 8's queries through its own runner
+# and its own map (tests/torch_port_reference_gates.py --localize 10):
+# per query (image id 1000 + k) the centre error (m) and the rotation
+# error (deg).  The queries are independent, so the first
+# LOCALIZE_QUERIES of them are the reference of a shorter run.  Gates:
+# the count of queries under 5 cm / 0.5 deg no lower than the
+# reference's by more than 1, the median centre error no worse than
+# 1.5 x the reference's + 2 mm, and the median rotation error no worse
+# than 1.5 x the reference's + 0.05 deg (a rotation error below ~0.03
+# deg reads as 0 or 0.028 from the f32 rotation matrices).
+LOCALIZE_QUERIES = 6
+REFERENCE_LOCALIZE_ERRORS = [
+    (0.0032780762380787897, 0.0), (0.0012084405311309208, 0.0),
+    (0.010124502065227081, 0.04845663905143738),
+    (0.00533046483449346, 0.02797645330429077),
+    (0.002313288774542853, 0.0), (0.00490200483509201, 0.0),
+    (0.004325303139943111, 0.03956468030810356),
+    (0.0011226444781994402, 0.0),
+    (0.006061203991863717, 0.02797645330429077),
+    (0.0006540772026187505, 0.0)]
+# Card against CPU on one PnPL problem (phase 3b): the same hypotheses
+# scored alike (rtol 1e-5; an order may differ only among scores within
+# 1e-5 of each other) and final poses within 1 mm and 0.01 deg.
+LOC_SCORE_RTOL = 1e-5
+LOC_POSE_TOL_M = 1e-3
+LOC_POSE_TOL_DEG = 0.01
 
 
 def log(*a):
@@ -441,7 +482,8 @@ def runner_full_width(scene, workdir, card):
     check(np.isfinite([x.line for x in tracks]).all(),
           "non-finite lines from the runner")
     return dict(quality, n_tracks_all=len(tracks), n_matches=n_matches,
-                avg_segs=float(np.mean([len(v) for v in segs.values()])))
+                avg_segs=float(np.mean([len(v) for v in segs.values()]))), \
+        tracks
 
 
 def hold_to_gates(what, measured, ref):
@@ -454,38 +496,39 @@ def hold_to_gates(what, measured, ref):
               (what, "gate", name, got, ref[name]))
 
 
-def from_pixels_full_width(card):
+def from_pixels_full_width(card, workdir):
     """Phase 7: the runner once, then two passes of the timed pipeline
     (the first warms the allocator and the libraries), each held to the
-    gates, then GT evaluation of the second pass's tracks.  Returns the
-    evaluation's queries and cloud on the card."""
+    gates, then GT evaluation of the second pass's tracks.  The scene's
+    images and the runner's files go under ``workdir``.  Returns the
+    evaluation's queries and cloud on the card, the scene and the
+    runner's tracks (phase 8's map)."""
     from limap_tpu_torch.evaluation.evaluator import (PointCloudEvaluator,
                                                       report_error_to_gt)
     from limap_tpu_torch.line2d.tpu_lsd import detect_segments
     from limap_tpu_torch.testing import pipeline
     from limap_tpu_torch.testing.synthetic import gt_point_cloud
 
-    with tempfile.TemporaryDirectory() as workdir:
-        t0 = time.perf_counter()
-        scene = pipeline.build_scene(
-            image_dir=os.path.join(workdir, "images"))
-        log(f"[from-pixels] scene rendered on the host in "
-            f"{time.perf_counter() - t0:.1f} s: {len(scene[1])} views of "
-            f"{scene[1][0].shape[1]}x{scene[1][0].shape[0]}, "
-            f"{len(scene[3])} GT lines, {len(scene[2][0])} neighbours")
-        on_card = detect_segments(scene[1][0], max_segs=3000)
-        on_cpu = detect_segments(scene[1][0], max_segs=3000, device="cpu")
-        to_card = nearest_offsets(on_cpu, on_card)
-        lost = int((to_card > SEG_TOL).sum())
-        extra = int((nearest_offsets(on_card, on_cpu) > SEG_TOL).sum())
-        log(f"[from-pixels] view 0 at full size, card against CPU: "
-            f"{len(on_card)} and {len(on_cpu)} segments, {lost} and {extra} "
-            f"unmatched within {SEG_TOL} px, largest matched offset "
-            f"{to_card[to_card <= SEG_TOL].max(initial=0.0):.4f} px")
-        check(max(lost, extra) <= SEG_UNMATCHED_SHARE * len(on_cpu),
-              ("full-size detections differ", lost, extra, len(on_cpu)))
-        hold_to_gates("runner", runner_full_width(
-            scene, os.path.join(workdir, "runner"), card), REFERENCE_RUNNER)
+    t0 = time.perf_counter()
+    scene = pipeline.build_scene(image_dir=os.path.join(workdir, "images"))
+    log(f"[from-pixels] scene rendered on the host in "
+        f"{time.perf_counter() - t0:.1f} s: {len(scene[1])} views of "
+        f"{scene[1][0].shape[1]}x{scene[1][0].shape[0]}, "
+        f"{len(scene[3])} GT lines, {len(scene[2][0])} neighbours")
+    on_card = detect_segments(scene[1][0], max_segs=3000)
+    on_cpu = detect_segments(scene[1][0], max_segs=3000, device="cpu")
+    to_card = nearest_offsets(on_cpu, on_card)
+    lost = int((to_card > SEG_TOL).sum())
+    extra = int((nearest_offsets(on_card, on_cpu) > SEG_TOL).sum())
+    log(f"[from-pixels] view 0 at full size, card against CPU: "
+        f"{len(on_card)} and {len(on_cpu)} segments, {lost} and {extra} "
+        f"unmatched within {SEG_TOL} px, largest matched offset "
+        f"{to_card[to_card <= SEG_TOL].max(initial=0.0):.4f} px")
+    check(max(lost, extra) <= SEG_UNMATCHED_SHARE * len(on_cpu),
+          ("full-size detections differ", lost, extra, len(on_cpu)))
+    measured, runner_tracks = runner_full_width(
+        scene, os.path.join(workdir, "runner"), card)
+    hold_to_gates("runner", measured, REFERENCE_RUNNER)
 
     passes = []
     for what in ("first pass", "second pass"):
@@ -529,7 +572,325 @@ def from_pixels_full_width(card):
     check(all(np.isfinite(rep["recall"][tau]) for tau in TAUS)
           and 0 < rep["recall"][0.01] <= rep["recall"][0.1],
           ("GT evaluation of the from-pixels tracks", rep))
-    return evaluation_queries(r["linetracks"], 1000), evaluator.points
+    return (evaluation_queries(r["linetracks"], 1000), evaluator.points,
+            scene, runner_tracks)
+
+
+# FP32 operations per unit of work of the localization kernels, counted
+# from their formulas (a multiply-add as two, a sqrt, divide, sin, cos or
+# atan2 as one): pose_score a point 47 and a line 124 per pose; the root
+# function G 280 per evaluation, (n_grid + 1) + 3 n_roots n_bisect +
+# 3 n_roots evaluations per instance; the IoU 46 per pair.
+OPS_POINT, OPS_LINE, OPS_G, OPS_PAIR = 47, 124, 280, 46
+
+
+def bound(ops, nbytes):
+    seconds = {"operations": ops / FP32_PEAK, "bytes": nbytes / HBM_BYTES_PER_S}
+    by = max(seconds, key=seconds.get)
+    return seconds[by] * 1e3, by
+
+
+def pose_difference(a, b):
+    """(distance between the camera centres in m, angle between the
+    rotations in deg) of two poses, in f64 from their quaternions: a
+    rotation matrix rounded to f32 reads any angle under ~0.03 deg as 0
+    or 0.028."""
+    from scipy.spatial.transform import Rotation
+    ra, rb = (Rotation.from_quat(np.roll(p.qvec, -1)) for p in (a, b))
+    centre = [-r.inv().apply(p.tvec) for r, p in ((ra, a), (rb, b))]
+    return (float(np.linalg.norm(centre[0] - centre[1])),
+            float(np.degrees((ra.inv() * rb).magnitude())))
+
+
+def localization_card_vs_cpu():
+    """Phase 3b: the PnPL estimator on one problem (40 points, 20 lines,
+    30 % outliers, H = 256) on the card and on the CPU.  The card's
+    hypotheses scored by the kernel on the card and by the plain version
+    on the CPU; then both devices' whole estimate."""
+    from limap_tpu_torch.base.pose import rotmat_to_quat
+    from limap_tpu_torch.estimators.absolute_pose import (
+        minimal_hypotheses, pl_estimate_absolute_pose)
+    from limap_tpu_torch.ops.pose_score import ScoreParams, pose_score
+    from limap_tpu_torch.testing.localization import synthetic_problem
+    from limap_tpu_torch.util.evaluation import compute_pose_err
+
+    cam, pose_gt, p3, p2, l3, l3_ids, l2 = synthetic_problem(
+        np.random.default_rng(21))
+    cfg = {"ransac": {"method": "hybrid", "thres_point": 5.0,
+                      "thres_line": 5.0, "n_hypotheses": 256},
+           "optimize": {"loss": "huber", "loss_scale": 2.0}}
+    params = ScoreParams.from_thresholds(5.0, 5.0)
+
+    def data(device):
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32),
+                                      device=device).contiguous()
+        return (t(cam.kvec()), t(p3), t(p2), t(l3[:, 0]), t(l3[:, 1]),
+                t(l2[:, 0]), t(l2[:, 1]))
+
+    hyp = {}
+    for dev in ("cuda", "cpu"):
+        kv, p3d, p2d, l3s, l3e, l2s, l2e = data(dev)
+        hyp[dev] = minimal_hypotheses(kv, p3d, p2d, l3, l2s, l2e, 256, 0)
+    Rs, ts, ok = hyp["cuda"]
+    q = rotmat_to_quat(Rs).contiguous()
+    scores = {}
+    for dev in ("cuda", "cpu"):
+        kv, p3d, p2d, l3s, l3e, l2s, l2e = data(dev)
+        s_ = pose_score(q.to(dev), ts.to(dev).contiguous(), kv, p3d, p2d,
+                        l3s, l3e, l2s, l2e, params)[0]
+        scores[dev] = torch.where(ok.to(dev), s_,
+                                  torch.full_like(s_, float("inf"))).cpu()
+    sc, sp = scores["cuda"].numpy(), scores["cpu"].numpy()
+    fin = np.isfinite(sp)
+    check(np.array_equal(np.isfinite(sc), fin), "finite scores differ")
+    rel = np.abs(sc[fin] - sp[fin]) / np.abs(sp[fin])
+    check(rel.max() <= LOC_SCORE_RTOL, ("scores card vs CPU", rel.max()))
+    oc = np.argsort(sc, kind="stable")
+    op = np.argsort(sp, kind="stable")
+    swapped = oc != op
+    gaps = np.abs(sp[oc[swapped]] - sp[op[swapped]])
+    check((gaps <= LOC_SCORE_RTOL * np.abs(sp[op[swapped]])).all(),
+          ("score orders differ", gaps.max(initial=0.0)))
+    diff = (hyp["cuda"][0].cpu() - hyp["cpu"][0]).abs().amax((1, 2))
+    both = ok.cpu() & hyp["cpu"][2]
+    log(f"[loc card-vs-cpu] {len(sc)} hypotheses from the same samples, "
+        f"{int(both.sum())} valid on both; the card's scored on both "
+        f"devices: max rel err {rel.max():.2e}, {int(swapped.sum())} order "
+        f"swaps among near-ties; minimal solvers card vs CPU: "
+        f"{int((diff[both] > 1e-3).sum())} hypotheses beyond 1e-3")
+
+    poses, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        poses[dev], stats[dev] = pl_estimate_absolute_pose(
+            cfg, l3, l3_ids, l2, p3, p2, cam, device=dev)
+        log(f"[loc card-vs-cpu] {dev}: {time.perf_counter() - t0:.3f} s, "
+            f"error to GT {compute_pose_err(poses[dev], pose_gt)}, inliers "
+            f"{stats[dev]['best_num_inliers']}")
+    d_t, d_r = pose_difference(poses["cuda"], poses["cpu"])
+    log(f"[loc card-vs-cpu] final poses card vs CPU: {d_t:.2e} m, "
+        f"{d_r:.2e} deg")
+    check(d_t <= LOC_POSE_TOL_M and d_r <= LOC_POSE_TOL_DEG,
+          ("final pose card vs CPU", d_t, d_r))
+
+
+class Recorder:
+    """Wraps ``module.name`` to keep the arguments of its largest call
+    (by ``size``), so the path's own inputs can be measured afterwards."""
+
+    def __init__(self, module, name, size):
+        self.module, self.name, self.size = module, name, size
+        self.orig = getattr(module, name)
+        self.args, self.kwargs, self.best = None, None, -1
+
+        def wrapper(*args, **kwargs):
+            n = size(*args, **kwargs)
+            if n > self.best:
+                self.args, self.kwargs, self.best = args, kwargs, n
+            return self.orig(*args, **kwargs)
+
+        setattr(module, name, wrapper)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def localization_full_width(scene, tracks, workdir, card):
+    """Phase 8: the queries through hybrid_localization on the card with
+    phase 7's runner map, gated against the JAX package's run of the same
+    queries.  Returns the path's launches and the recorded kernel
+    inputs."""
+    from limap_tpu_torch.ops import epipolar_iou, pose_score, trace_roots
+    from limap_tpu_torch.testing import localization
+    from limap_tpu_torch.runners import functions as runners_functions
+    from limap_tpu_torch.util.config import default_localization_config
+    from limap_tpu_torch.util.profiler import StageProfiler
+    est = importlib.import_module("limap_tpu_torch.estimators.absolute_pose")
+    pnl = importlib.import_module("limap_tpu_torch.estimators.pnl_solvers")
+    runner = importlib.import_module(
+        "limap_tpu_torch.runners.hybrid_localization")
+
+    # the localization config's line2d section gives the database images
+    # the detections that the map's line ids index
+    det_cfg = runners_functions.setup(dict(
+        default_localization_config(),
+        output_dir=os.path.join(workdir, "map_check")))
+    segs, _ = runners_functions.compute_2d_segs(
+        det_cfg, scene[0], compute_descinfo=False, device="cuda")
+    worst, n_sup = 0.0, 0
+    for tr in tracks:
+        for img_id, lid, l2d in zip(tr.image_id_list, tr.line_id_list,
+                                    tr.line2d_list):
+            check(img_id in segs and 0 <= lid < len(segs[img_id]),
+                  ("track support out of range", img_id, lid))
+            worst = max(worst, float(np.abs(
+                np.asarray(segs[img_id][lid][:4]).reshape(2, 2)
+                - np.asarray(l2d)).max()))
+            n_sup += 1
+    log(f"[localize] map: {len(tracks)} tracks, {n_sup} supports, every "
+        f"(image, line id) in range of the localization config's "
+        f"detections; stored 2D segments against them: max abs diff "
+        f"{worst:.2e} px")
+    check(worst <= 1e-3, ("map segments differ from the detections", worst))
+
+    q = localization.build_queries(
+        scene, LOCALIZE_QUERIES, image_dir=os.path.join(workdir, "queries"))
+    cfg = default_localization_config()
+    cfg["output_dir"] = os.path.join(workdir, "localization")
+    recorders = {
+        "pose_score": Recorder(est, "pose_score", lambda *a, **k: (
+            -1 if k.get("errors") else a[0].shape[0] * (a[3].shape[0]
+                                                        + a[5].shape[0]))),
+        "trace_roots": Recorder(pnl, "trace_roots",
+                                lambda *a, **k: a[0].shape[0]),
+        "epipolar_iou_grid": Recorder(runner, "epipolar_iou_grid",
+                                      lambda *a, **k: a[0].shape[0]
+                                      * a[1].shape[0]),
+    }
+    kernels = {"pose_score": pose_score.pose_score,
+               "trace_roots": trace_roots.trace_roots,
+               "epipolar_iou_grid": epipolar_iou.epipolar_iou_grid}
+    for k in kernels.values():
+        k.launches = 0
+    # the LO's joint pose LM: solves, rows and synchronized seconds
+    lm = {"solves": 0, "rows": 0, "iterations": 0, "s": 0.0}
+    solve_batch = est.solve_jointloc_batch
+
+    def counted_solve(*args, **kwargs):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = solve_batch(*args, **kwargs)
+        torch.cuda.synchronize()
+        lm["s"] += time.perf_counter() - t_start
+        lm["solves"] += 1
+        lm["rows"] += int(out[0].shape[0])
+        lm["iterations"] += kwargs.get("num_iterations", 50)
+        return out
+
+    est.solve_jointloc_batch = counted_solve
+    prof, stats = StageProfiler(device="cuda"), {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        poses = runner.hybrid_localization(
+            cfg, scene[0], q["imagecols"], q["points"], tracks,
+            q["retrieval"], device="cuda", prof=prof, stats=stats)
+    finally:
+        est.solve_jointloc_batch = solve_batch
+        for r in recorders.values():
+            r.restore()
+    wall = time.perf_counter() - t0
+    log(f"[localize] the LO's pose LM: {lm['solves']} batched solves "
+        f"({lm['rows']} rows, {lm['iterations']} iterations) in "
+        f"{lm['s']:.3f} s, {1e3 * lm['s'] / max(lm['iterations'], 1):.2f} "
+        f"ms an iteration")
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"[localize] {len(poses)} queries in {wall:.3f} s; stage seconds "
+        f"{json.dumps(prof.times)} on {card}; kernel launches "
+        f"{json.dumps(launches)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name, n in launches.items():
+        check(n > 0, f"the localization path did not launch {name}")
+
+    errors = localization.pose_errors(poses, q["gt"])
+    for q_id, (te, re) in errors.items():
+        st = stats[q_id]
+        log(f"[localize] query {q_id}: {te * 100:.2f} cm, {re:.3f} deg; "
+            f"{st['n_line_matches']} line matches, "
+            f"{int(st['ransac']['line_inliers'].sum())} line and "
+            f"{int(st['ransac']['point_inliers'].sum())} point inliers")
+    summary = localization.summarize(errors)
+    ref = localization.summarize(dict(enumerate(
+        REFERENCE_LOCALIZE_ERRORS[:LOCALIZE_QUERIES])))
+    log(f"[localize] {json.dumps(summary)}; the JAX package's run "
+        f"{json.dumps(ref)}")
+    check(summary["n_under"] >= ref["n_under"] - 1,
+          ("queries under 5 cm / 0.5 deg", summary, ref))
+    check(summary["median_t_m"] <= 1.5 * ref["median_t_m"] + 0.002,
+          ("median translation error", summary, ref))
+    check(summary["median_r_deg"] <= 1.5 * ref["median_r_deg"] + 0.05,
+          ("median rotation error", summary, ref))
+    return launches, {k: (r.args, r.kwargs) for k, r in recorders.items()}
+
+
+LOC_TURNS = ("plain", "kernel", "kernel", "plain")
+
+
+def measure_localization_kernels(recorded, launches):
+    """Each localization kernel on the largest input its path gave it:
+    held to the plain version, timed against it in turns, and its bound."""
+    from limap_tpu_torch.ops import epipolar_iou, pose_score, trace_roots
+    from limap_tpu_torch.testing import kernel_checks
+    plain = {"pose_score": pose_score.pose_score_plain,
+             "trace_roots": trace_roots.trace_roots_plain,
+             "epipolar_iou_grid": epipolar_iou.epipolar_iou_grid_plain}
+    kernel = {"pose_score": pose_score.pose_score,
+              "trace_roots": trace_roots.trace_roots,
+              "epipolar_iou_grid": epipolar_iou.epipolar_iou_grid}
+    source = {"pose_score": ("pose_score.cu",
+                             "limap_tpu/estimators/absolute_pose.py:70"),
+              "trace_roots": ("trace_roots.cu",
+                              "limap_tpu/estimators/pnl_solvers.py:142"),
+              "epipolar_iou_grid": (
+                  "epipolar_iou.cu",
+                  "limap_tpu/triangulation/functions.py:149")}
+    entries = []
+    for name, (args, kwargs) in recorded.items():
+        out_k = kernel[name](*args, **kwargs)
+        out_p = plain[name](*args, **kwargs)
+        torch.cuda.synchronize()
+        if name == "trace_roots":
+            res = kernel_checks.compare_trace_roots(
+                out_k, out_p, args[6],
+                kernel_checks.rank_deficient(*args[:5]))
+            check(res["ok"], (name, "on the path's input", res))
+            err = res["max_abs_err"]
+            B, K = args[0].shape[0], args[4].shape[0]
+            n_roots, n_bisect = args[6], args[5]
+            evals = K + 3 * n_roots * n_bisect + 3 * n_roots
+            bms, by = bound(B * evals * OPS_G,
+                            B * 96 + K * 4 + B * 2 * n_roots * 37)
+            shape = {"instances": B, "grid": K - 1, "n_roots": n_roots}
+        elif name == "pose_score":
+            res = kernel_checks.compare_pose_score(
+                out_k, out_p, kernel[name](*args, errors=True),
+                plain[name](*args, errors=True), args[9],
+                kernel_checks.pose_score_spread(args[:9], args[9]))
+            log(f"[kernel] localization pose_score against plain on the "
+                f"path's input: {json.dumps(res)}")
+            check(res["ok"], (name, "on the path's input", res))
+            err = res["max_abs_err"]
+            H, Np, Nl = args[0].shape[0], args[3].shape[0], args[5].shape[0]
+            bms, by = bound(H * (Np * OPS_POINT + Nl * OPS_LINE),
+                            H * 28 + 16 + Np * 20 + Nl * 40
+                            + H * (4 + Np + Nl))
+            shape = {"poses": H, "points": Np, "lines": Nl}
+        else:
+            res = kernel_checks.compare_epipolar(out_k, out_p)
+            check(res["ok"], (name, "on the path's input", res))
+            err = res["max_abs_err"]
+            Nr, Nt = args[1].shape[0], args[0].shape[0]
+            bms, by = bound(Nr * Nt * OPS_PAIR, Nt * 16 + Nr * 24 + Nr * Nt * 4)
+            shape = {"rows": Nr, "cols": Nt}
+        times = {"kernel": [], "plain": []}
+        for which in LOC_TURNS:
+            fn = kernel[name] if which == "kernel" else plain[name]
+            reps = 20 if which == "kernel" else 2
+            times[which].append(cuda_ms(lambda: fn(*args, **kwargs), reps))
+        log(f"[kernel] localization {name} {json.dumps(shape)}: max abs err "
+            f"to plain {err:.3e}; ms in turns {list(LOC_TURNS)}: "
+            f"{json.dumps(times)}; bound {bms:.4f} ms ({by})")
+        entries.append({
+            "name": name, "path": "localization", "route": "cuda",
+            "source": "limap_tpu_torch/csrc/" + source[name][0],
+            "replaces": source[name][1], "launches": launches[name],
+            "max_abs_err": err, "ms": float(np.mean(times["kernel"])),
+            "ms_turns": times["kernel"],
+            "plain_ms": float(np.mean(times["plain"])),
+            "plain_ms_turns": times["plain"], "bound_ms": bms,
+            "bound_by": by, "library_ms": None, **shape})
+    return entries
+
 
 
 def main():
@@ -546,10 +907,15 @@ def main():
         f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
         for m in ("yaml", "cv2", "PIL")))
 
-    # ---- 1. build ----
+    # ---- 1. build: one nvcc a source, all started together ----
+    from limap_tpu_torch.ops import epipolar_iou, pose_score, trace_roots
+    from limap_tpu_torch.testing import kernel_checks
     t0 = time.perf_counter()
-    nnd.build()
-    log(f"[build] nn_min_dist.cu built in {time.perf_counter() - t0:.2f} s")
+    libs = (nnd, trace_roots, pose_score, epipolar_iou)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda m: m.build(), libs))
+    log(f"[build] {len(libs)} kernel libraries built in "
+        f"{time.perf_counter() - t0:.2f} s")
     for stem, (secs, report) in cuda_build.BUILD_INFO.items():
         log(f"[build] {stem}: nvcc {secs:.2f} s\n{report.strip()}")
     kernels = {"nn_min_dist": nnd.nn_min_dist,
@@ -591,6 +957,9 @@ def main():
             check(err <= 1e-5, (name, "vs plain", S, M, err))
     log("[kernel] nn_min_dist, nn_min_dist_scalar == plain at ragged sizes "
         "(max abs err <= 1e-5)")
+    for name, seed, res in kernel_checks.check_all():
+        log(f"[kernel] {name} vs plain, seed {seed}: {json.dumps(res)}")
+        check(res["ok"], (name, "vs plain", seed, res))
 
     # ---- 3. card against CPU on a reduced scene ----
     # Endpoint noise (0.3 px) keeps the proposals' scores off the
@@ -634,6 +1003,9 @@ def main():
         log(f"[kernel] {tuple(qa.shape)} x {tuple(pa.shape)}, {what}: both "
             f"kernels == plain; {int(nnd.nn_min_dist.confirms)} pairs "
             f"confirmed by nn_min_dist")
+
+    # ---- 3b. the PnPL estimator, card against CPU ----
+    localization_card_vs_cpu()
 
     # ---- 4. the main path at full width ----
     for kernel in kernels.values():
@@ -691,16 +1063,26 @@ def main():
         front_end_card_vs_cpu(workdir)
 
     # ---- 7. the pipeline from pixels at full width ----
-    for kernel in kernels.values():
-        kernel.launches = 0
-    pixel_queries, pixel_cloud = from_pixels_full_width(card)
-    pixel_launches = {name: k.launches for name, k in kernels.items()}
-    check(pixel_launches["nn_min_dist"] > 0,
-          "the from-pixels path did not launch nn_min_dist")
-    check(pixel_launches["nn_min_dist_scalar"] == 0,
-          "the from-pixels path launched the yardstick kernel")
-    entries += measure_kernels(kernels, "from_pixels", pixel_queries,
-                               pixel_cloud, pixel_launches)
+    with tempfile.TemporaryDirectory() as workdir:
+        for kernel in kernels.values():
+            kernel.launches = 0
+        pixel_queries, pixel_cloud, scene, runner_tracks = \
+            from_pixels_full_width(card, workdir)
+        pixel_launches = {name: k.launches for name, k in kernels.items()}
+        check(pixel_launches["nn_min_dist"] > 0,
+              "the from-pixels path did not launch nn_min_dist")
+        check(pixel_launches["nn_min_dist_scalar"] == 0,
+              "the from-pixels path launched the yardstick kernel")
+        entries += measure_kernels(kernels, "from_pixels", pixel_queries,
+                                   pixel_cloud, pixel_launches)
+        del pixel_queries, pixel_cloud
+
+        # ---- 8. localization at full width on phase 7's map ----
+        t0 = time.perf_counter()
+        loc_launches, recorded = localization_full_width(
+            scene, runner_tracks, workdir, card)
+        log(f"[localize] phase 8 took {time.perf_counter() - t0:.1f} s")
+    entries += measure_localization_kernels(recorded, loc_launches)
 
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

@@ -60,6 +60,27 @@ class ImageCollection:
     def campose(self, img_id: int) -> CameraPose:
         return self.images[img_id].pose
 
+    def cam(self, cam_id: int) -> Camera:
+        return self.cameras[cam_id]
+
+    def set_camera_pose(self, img_id: int, pose: CameraPose) -> None:
+        self.images[img_id].pose = pose
+
+    def get_camera_pose(self, img_id: int) -> CameraPose:
+        return self.images[img_id].pose
+
+    def get_locations(self) -> List:
+        """Camera centres in sorted image id order."""
+        return [self.campose(i).center() for i in self.get_img_ids()]
+
+    def subset_by_image_ids(self, valid_image_ids) -> "ImageCollection":
+        """The given images and the cameras they use."""
+        valid = set(valid_image_ids)
+        imgs = {k: v for k, v in self.images.items() if k in valid}
+        used_cams = {im.cam_id for im in imgs.values()}
+        cams = {k: v for k, v in self.cameras.items() if k in used_cams}
+        return ImageCollection(cams, imgs)
+
     def image_name(self, img_id: int) -> str:
         return self.images[img_id].image_name
 

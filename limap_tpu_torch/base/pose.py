@@ -8,7 +8,10 @@ EPS = 1e-12
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Broadcasting 3-vector cross product over the last dim."""
+    """Broadcasting 3-vector cross product over the last dim (operands of
+    different ranks too, which torch.linalg.cross refuses)."""
+    if a.dim() != b.dim():
+        a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
 
 

@@ -1,10 +1,13 @@
 """Batched Levenberg-Marquardt over many small independent problems.
 
 Each row of ``params`` is one problem (one 4-DOF line per track in line
-BA).  The Jacobian w.r.t. the tangent comes from forward-mode AD, one
-``torch.func.jvp`` per tangent direction for all rows at once; each
-iteration solves the [T, D, D] damped normal equations by an unrolled
-Cholesky and accepts or rejects per row.
+BA, one 6-DOF pose per local-optimization chain in localization).  The
+Jacobian w.r.t. the tangent comes from forward-mode AD: one
+``torch.func.jvp`` for all rows, vmapped over the D tangent directions
+(eager forward-mode AD pays a large overhead per operation, so one pass
+for all directions instead of one per direction); each iteration solves
+the [T, D, D] damped normal equations by an unrolled Cholesky and
+accepts or rejects per row.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import jvp
+from torch.func import jvp, vmap
 
 from limap_tpu_torch.base.pose import (axis_angle_to_quat, quat_multiply,
                                        so2_rotate)
@@ -79,11 +82,8 @@ def lm_solve(params0: torch.Tensor, residual_fn: Callable,
     n_acc = torch.zeros((T,), dtype=torch.int32, device=params0.device)
     for _ in range(num_iterations):
         f = lambda delta: residual_fn(retract_fn(params, delta), *aux)
-        cols = []
-        for k in range(D):
-            r, jk = jvp(f, (zero,), (basis[k].expand(T, D),))
-            cols.append(jk)
-        J = torch.stack(cols, dim=-1)                        # [T, R, D]
+        r, J = vmap(lambda e: jvp(f, (zero,), (e.expand(T, D),)),
+                    out_dims=(None, -1))(basis)              # J [T, R, D]
         JTJ = J.transpose(1, 2) @ J
         JTr = (J.transpose(1, 2) @ r[..., None])[..., 0]
         cost = torch.sum(r * r, dim=1)
@@ -110,3 +110,11 @@ def retract_quat_so2(params: torch.Tensor,
                           params[..., :4])
     new_w = so2_rotate(params[..., 4:6], delta[..., 3])
     return torch.cat([new_u, new_w], dim=-1)
+
+
+def retract_pose(params: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Pose retraction: params [..., 7] = (qvec[4], tvec[3]), delta
+    [..., 6] = (so(3) tangent[3], translation[3])."""
+    new_q = quat_multiply(axis_angle_to_quat(delta[..., :3]),
+                          params[..., :4])
+    return torch.cat([new_q, params[..., 4:7] + delta[..., 3:6]], dim=-1)

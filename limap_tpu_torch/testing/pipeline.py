@@ -61,6 +61,32 @@ def draw_line(img: np.ndarray, p1, p2, value: int, width: float = 2.0):
     img[y_lo:y_hi + 1, x_lo:x_hi + 1][dist2 <= r * r] = value
 
 
+def ring_pose(frac: float, rng):
+    """(R, t) of a camera at ``frac`` of the way round the scene's ring,
+    looking at the wall, its rotation jittered from ``rng``."""
+    Rm = Rotation.from_rotvec(rng.normal(size=3) * 0.02).as_matrix()
+    C = np.array([3.5 * np.sin(2 * np.pi * frac),
+                  2.5 * np.cos(2 * np.pi * frac),
+                  0.2 * np.sin(4 * np.pi * frac)])
+    return Rm, -Rm @ C
+
+
+def render_view(gt, K, hw, Rm, t, rng) -> np.ndarray:
+    """The uint8 [H, W] image of the GT lines seen from (Rm, t): strokes
+    on a light background, plus Gaussian noise from ``rng``."""
+    h, w = hw
+    img = np.full((h, w), 235, np.uint8)
+    for li, line in enumerate(gt):
+        p1 = K @ (Rm @ line[0] + t)
+        p2 = K @ (Rm @ line[1] + t)
+        if p1[2] <= 0 or p2[2] <= 0:
+            continue
+        draw_line(img, (p1[:2] / p1[2]).astype(int),
+                  (p2[:2] / p2[2]).astype(int), int(15 + (li * 37) % 180))
+    return np.clip(img.astype(np.float64) + rng.normal(size=(h, w)) * 2, 0,
+                   255).astype(np.uint8)
+
+
 def build_scene(n_views=N_VIEWS, n_lines=N_GT_LINES, seed=0, hw=(H, W),
                 n_neighbors=N_NEIGHBORS, image_dir=None):
     """Render the wall-of-lines scene: (imagecols, imgs {img_id: uint8
@@ -87,23 +113,8 @@ def build_scene(n_views=N_VIEWS, n_lines=N_GT_LINES, seed=0, hw=(H, W),
 
     images, imgs = {}, {}
     for k in range(n_views):
-        Rm = Rotation.from_rotvec(rng.normal(size=3) * 0.02).as_matrix()
-        C = np.array([3.5 * np.sin(2 * np.pi * k / n_views),
-                      2.5 * np.cos(2 * np.pi * k / n_views),
-                      0.2 * np.sin(4 * np.pi * k / n_views)])
-        t = -Rm @ C
-        img = np.full((h, w), 235, np.uint8)
-        for li, line in enumerate(gt):
-            p1 = K @ (Rm @ line[0] + t)
-            p2 = K @ (Rm @ line[1] + t)
-            if p1[2] <= 0 or p2[2] <= 0:
-                continue
-            draw_line(img, (p1[:2] / p1[2]).astype(int),
-                      (p2[:2] / p2[2]).astype(int),
-                      int(15 + (li * 37) % 180))
-        img = np.clip(img.astype(np.float64)
-                      + rng.normal(size=(h, w)) * 2, 0,
-                      255).astype(np.uint8)
+        Rm, t = ring_pose(k / n_views, rng)
+        img = render_view(gt, K, hw, Rm, t, rng)
         imgs[k] = img
         name = "none"
         if image_dir is not None:

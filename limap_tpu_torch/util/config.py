@@ -112,6 +112,12 @@ def default_triangulation_config() -> dict:
     return copy.deepcopy(_DEFAULT_TRIANGULATION)
 
 
+def default_localization_config() -> dict:
+    """The contents of ``cfgs/localization/default.yaml`` as a fresh dict,
+    for a machine without PyYAML (a test holds it to the file)."""
+    return copy.deepcopy(_DEFAULT_LOCALIZATION)
+
+
 _DEFAULT_TRIANGULATION = {'cfg_type': 'triangulation',
  'weight_path': None,
  'load_meta': False,
@@ -195,3 +201,40 @@ _DEFAULT_TRIANGULATION = {'cfg_type': 'triangulation',
                 'num_outliers_aggregator': 2,
                 'use_geometric': True,
                 'geometric_alpha': 10.0}}
+
+_DEFAULT_LOCALIZATION = {'cfg_type': 'localization',
+ 'weight_path': None,
+ 'load_det': False,
+ 'use_tmp': False,
+ 'visualize': False,
+ 'max_image_dim': 1600,
+ 'skip_exists': False,
+ 'output_dir': None,
+ 'load_dir': None,
+ 'n_neighbors_loc': 10,
+ 'line2d': {'max_num_2d_segs': 3000,
+            'do_merge_lines': False,
+            'visualize': False,
+            'compute_descinfo': False,
+            'detector': {'method': 'tpu_lsd', 'skip_exists': False}},
+ 'var2d': {'lsd': 2.0, 'tpu_lsd': 2.0},
+ 'localization': {'2d_matcher': 'epipolar',
+                  'IoU_threshold': 0.2,
+                  'reprojection_filter_dist': 10.0,
+                  'epipolar_filter': False,
+                  'ransac': {'method': 'hybrid',
+                             'thres': 10.0,
+                             'thres_point': 10.0,
+                             'thres_line': 10.0,
+                             'weight_point': 1.0,
+                             'weight_line': 1.0},
+                  'optimize': {'loss': 'huber',
+                               'loss_scale': 2.0,
+                               'weight_point': 1.0,
+                               'weight_line': 1.0},
+                  'line_cost_func': 'E2DPerpendicularDist2',
+                  'line_weight': 1.0},
+ 'estimation': {'ransac': {'method': 'hybrid',
+                           'thres_point': 10.0,
+                           'thres_line': 10.0},
+                'optimize': {'loss': 'huber', 'loss_scale': 2.0}}}

@@ -12,6 +12,10 @@ import pytest
 import torch
 
 from limap_tpu_torch.ops import nn_distance as nnd
+from limap_tpu_torch.ops.epipolar_iou import epipolar_iou_grid
+from limap_tpu_torch.ops.pose_score import pose_score
+from limap_tpu_torch.ops.trace_roots import trace_roots
+from limap_tpu_torch.testing import kernel_checks
 from limap_tpu_torch.ops.nn_distance import (nn_min_dist, nn_min_dist_plain,
                                              nn_min_dist_scalar)
 
@@ -125,3 +129,19 @@ def test_tpu_lsd_repeats_on_the_card_and_agrees_with_the_cpu(cuda):
     cpu = detect_segments(img, max_segs=3000, device="cpu")
     offs = np.abs(cpu[:, None, :4] - first[None, :, :4]).max(-1).min(1)
     assert (offs > 0.05).sum() <= 0.02 * len(cpu)
+
+
+@pytest.mark.parametrize("seed,degenerate", kernel_checks.SEEDS)
+@pytest.mark.parametrize("kernel", kernel_checks.KERNELS)
+def test_localization_kernel_vs_plain(cuda, kernel, seed, degenerate):
+    """trace_roots, pose_score and epipolar_iou_grid against their plain
+    versions on seeded inputs, the third degenerate (parallel lines,
+    poses with the scene behind the camera and NaN poses, zero-length
+    segments); tolerances in limap_tpu_torch/testing/kernel_checks.py."""
+    launches = {"trace_roots": trace_roots, "pose_score": pose_score,
+                "epipolar_iou_grid": epipolar_iou_grid}[kernel]
+    n0 = launches.launches
+    res = kernel_checks.check_one(kernel, seed, degenerate)
+    torch.cuda.synchronize()
+    assert launches.launches > n0
+    assert res["ok"], res

@@ -36,7 +36,13 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "line2d/lsd.py", "line2d/line_utils.py",
                 "runners/functions.py", "runners/line_triangulation.py",
                 "testing/pipeline.py", "util/config.py", "util/io.py",
-                "util/profiler.py"):
+                "util/profiler.py", "ops/polynomial.py",
+                "ops/trace_roots.py", "ops/pose_score.py",
+                "ops/epipolar_iou.py", "estimators/p3p.py",
+                "estimators/pnl_solvers.py", "estimators/absolute_pose.py",
+                "optimize/hybrid_localization.py", "base/functions.py",
+                "util/evaluation.py", "runners/hybrid_localization.py",
+                "testing/localization.py", "testing/kernel_checks.py"):
         assert "limap_tpu_torch/" + new in covered, new
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -168,3 +174,61 @@ def test_front_end_entry_points_run_on_cpu_when_asked(no_gpu, entry):
         assert out.device.type == "cpu" and out.dtype == torch.uint8
     if entry == "match_neighbors":
         assert set(out) == {0, 1}
+
+
+def _localization_calls():
+    import importlib
+    from limap_tpu_torch.base.camera import Camera, CameraPose
+    from limap_tpu_torch.estimators import pl_estimate_absolute_pose
+    from limap_tpu_torch.optimize.hybrid_localization import solve_jointloc
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.util.config import default_localization_config
+    runner = importlib.import_module(
+        "limap_tpu_torch.runners.hybrid_localization")
+    rng = np.random.default_rng(0)
+    cam = Camera(K=np.array([[100.0, 0, 30], [0, 100.0, 20], [0, 0, 1]]),
+                 hw=(40, 60))
+    pose = CameraPose()
+    p3 = rng.normal(size=(6, 3)) + [0.0, 0.0, 5.0]
+    p2 = p3[:, :2] / p3[:, 2:] * 100.0 + [30.0, 20.0]
+    l3 = rng.normal(size=(4, 2, 3)) + [0.0, 0.0, 5.0]
+    l2 = l3[..., :2] / l3[..., 2:] * 100.0 + [30.0, 20.0]
+    segs = rng.uniform(0, 40, (5, 4))
+    scene = pipeline.build_scene(n_views=2, n_lines=4, hw=(40, 60),
+                                 n_neighbors=1)
+
+    def localize(device):
+        cfg = default_localization_config()
+        cfg["output_dir"] = "tmp/test_torch_policy_localization"
+        db, q = scene[0].subset_by_image_ids([0]), \
+            scene[0].subset_by_image_ids([1])
+        return runner.hybrid_localization(cfg, db, q, {1: (p3, p2)}, [],
+                                          {1: [0]}, device=device)
+
+    return {
+        "estimate": lambda d: pl_estimate_absolute_pose(
+            {"ransac": {"n_hypotheses": 16, "lo_topk": 1}}, l3,
+            np.arange(4), l2, p3, p2, cam, device=d),
+        "jointloc": lambda d: solve_jointloc(
+            l3[:, 0], l3[:, 1], l2[:, 0], l2[:, 1], p3, p2, cam.kvec(),
+            pose.qvec, pose.tvec, num_iterations=2, device=d),
+        "epipolar": lambda d: runner.match_line_2to2_epipolar_iou(
+            segs, segs, cam, pose, cam, CameraPose(tvec=(1.0, 0, 0)),
+            device=d),
+        "runner": localize,
+    }
+
+
+LOCALIZATION = ["estimate", "jointloc", "epipolar", "runner"]
+
+
+@pytest.mark.parametrize("entry", LOCALIZATION)
+def test_localization_entry_points_raise_without_gpu(no_gpu, entry):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _localization_calls()[entry](None)
+
+
+@pytest.mark.parametrize("entry", ["estimate", "jointloc", "epipolar"])
+def test_localization_entry_points_run_on_cpu_when_asked(no_gpu, entry):
+    out = _localization_calls()[entry]("cpu")
+    assert out is not None

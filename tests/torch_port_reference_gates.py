@@ -7,6 +7,8 @@ root:
         --from-pixels [N_VIEWS]
     JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
         --runner [N_VIEWS]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --localize [N_QUERIES]
 
 Without arguments: the slice from given segments and matches
 (triangulate -> tracks -> filters + remerge -> line BA) on the protocol
@@ -27,6 +29,13 @@ With ``--runner``: limap_tpu.runners.line_triangulation on the same
 rendered scene, its images written as PNG (the JAX package reads images
 through OpenCV), with the config of pipeline.runner_config; the same
 JSON keys.
+
+With ``--localize``: that runner's map of the 100-view scene, then
+limap_tpu.runners.hybrid_localization with the default localization
+config on the first N_QUERIES (default 10) queries of
+limap_tpu_torch/testing/localization.py (rendered between database
+views, with their priors, retrievals and 1000 point matches each):
+per-query pose errors, the count under 5 cm / 0.5 deg and the medians.
 """
 
 import json
@@ -136,6 +145,50 @@ def runner(n_views=100):
         "quality": bench_pipeline.quality_eval(tracks, gt)}))
 
 
+def localize(n_queries=10):
+    import cv2
+    from limap_tpu.base.camera import CameraPose
+    from limap_tpu.base.image_collection import ImageCollection as JCols
+    from limap_tpu.runners import line_triangulation
+    from limap_tpu_torch.testing import localization
+    from limap_tpu_torch.util.config import default_localization_config
+    import importlib
+    runner_mod = importlib.import_module(
+        "limap_tpu.runners.hybrid_localization")
+    scene = pipeline.build_scene(100)
+    port_cols, imgs, nbrs, gt = scene
+    with tempfile.TemporaryDirectory() as workdir:
+        cols = port_cols.as_dict()
+        for i, img in imgs.items():
+            name = os.path.join(workdir, f"img_{i}.png")
+            cv2.imwrite(name, img)
+            cols["images"][i]["image_name"] = name
+        db = JCols.from_dict(cols)
+        cfg = pipeline.runner_config(os.path.join(workdir, "map"),
+                                     n_neighbors=len(nbrs[0]))
+        t0 = time.perf_counter()
+        tracks = line_triangulation(cfg, db, nbrs)
+        map_s = time.perf_counter() - t0
+        q = localization.build_queries(
+            scene, n_queries, image_dir=os.path.join(workdir, "queries"),
+            ext=".png")
+        loc_cfg = default_localization_config()
+        loc_cfg["output_dir"] = os.path.join(workdir, "loc")
+        t0 = time.perf_counter()
+        poses = runner_mod.hybrid_localization(
+            loc_cfg, db, JCols.from_dict(q["imagecols"].as_dict()),
+            q["points"], tracks, q["retrieval"])
+        loc_s = time.perf_counter() - t0
+    from limap_tpu_torch.base.camera import CameraPose as PortPose
+    errors = localization.pose_errors(
+        {k: PortPose(p.qvec, p.tvec) for k, p in poses.items()}, q["gt"])
+    assert all(isinstance(p, CameraPose) for p in poses.values())
+    print(json.dumps({
+        "n_tracks": len(tracks), "map_s": map_s, "localize_s": loc_s,
+        "errors": {str(k): list(v) for k, v in errors.items()},
+        **localization.summarize(errors)}))
+
+
 def main(n_views=100, n_lines=1500, n_neighbors=20):
     t0 = time.perf_counter()
     imagecols, segs, nbrs = bench.build_scene(n_views, n_lines, n_neighbors)
@@ -169,5 +222,7 @@ if __name__ == "__main__":
         from_pixels(*map(int, sys.argv[2:3]))
     elif sys.argv[1:2] == ["--runner"]:
         runner(*map(int, sys.argv[2:3]))
+    elif sys.argv[1:2] == ["--localize"]:
+        localize(*map(int, sys.argv[2:3]))
     else:
         main()
