@@ -39,10 +39,21 @@ Phases, in order; any failure exits non-zero:
      trace_roots kernels, LO, f64 polish), with quality gates; then the
      three localization kernels held to their plain versions and timed on
      that path's own inputs.
+  9. fit and merge at full width on phase 7's images, each with the
+     analytic depth of the wall: line_fitnmerge (tpu_lsd, one batched
+     RANSAC over every segment with the line_ransac kernel, the linker's
+     edge test with the linker_edges kernel, connected components,
+     reprojection filter and remerge), with quality gates; then both
+     kernels held to their plain versions and timed on that path's
+     whole inputs.
 Phase 2 also holds the localization kernels (trace_roots, pose_score,
-epipolar_iou_grid) to their plain versions on seeded inputs, and phase 3b,
-after phase 3, runs the PnPL estimator on the card and on the CPU on one
-problem: the same hypotheses scored alike, and the same final pose.
+epipolar_iou_grid) and the fit-and-merge kernels (line_ransac,
+linker_edges) to their plain versions on seeded inputs; phase 3b, after
+phase 3, runs the PnPL estimator on the card and on the CPU on one
+problem (the same hypotheses scored alike, and the same final pose), and
+phase 9a, before phase 9, runs line_fitnmerge on the card and on the CPU
+on a reduced scene with depth: the same fitted segments, tracks and
+lines.
 
 Prints the kernels' JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.
@@ -148,6 +159,28 @@ REFERENCE_LOCALIZE_ERRORS = [
     (0.0011226444781994402, 0.0),
     (0.006061203991863717, 0.02797645330429077),
     (0.0006540772026187505, 0.0)]
+# The JAX package's CPU run of line_fitnmerge on phase 7's 100 images,
+# each with the analytic depth of the wall, cfgs/fitnmerge/default.yaml
+# and the scene's 10 neighbours (tests/torch_port_reference_gates.py
+# --fitnmerge 100): tracks of any size, of >= 4 images, segments an
+# image, fitted segments and quality_eval at tau = 0.05 (its runner took
+# 899.8 s on the CPU, 818.9 s of it fit_3d_segs).
+REFERENCE_FITNMERGE = {
+    "n_tracks_all": 338, "n_tracks": 223, "avg_segs": 491.04,
+    "n_fitted": 49104, "recall_0.05": 294.8346017004919,
+    "precision_0.05": 100.0, "gt_coverage_0.05": 91.21050249543315}
+# the phase-7 tolerances, the fitted segments held as the detections
+FITNMERGE_GATES = (
+    ("avg_segs", "relative", 0.002), ("n_fitted", "relative", 0.002),
+    ("n_tracks_all", "relative", 0.02),
+    ("n_tracks", "relative", 0.05), ("recall_0.05", "relative", 0.03),
+    ("gt_coverage_0.05", "points", 2.5), ("precision_0.05", "points", 2.5))
+# Card against CPU on fit and merge (phase 9a): fitted endpoints within
+# 0.1 mm (lines 10 m away; the TLS axis of the card's batched eigensolver
+# rounds otherwise), track lines within 1 mm.
+FIT_TOL_M = 1e-4
+FNM_LINE_TOL_M = 1e-3
+
 # Card against CPU on one PnPL problem (phase 3b): the same hypotheses
 # scored alike (rtol 1e-5; an order may differ only among scores within
 # 1e-5 of each other) and final poses within 1 mm and 0.01 deg.
@@ -486,8 +519,8 @@ def runner_full_width(scene, workdir, card):
         tracks
 
 
-def hold_to_gates(what, measured, ref):
-    for name, unit, slack in FROM_PIXELS_GATES:
+def hold_to_gates(what, measured, ref, gates=FROM_PIXELS_GATES):
+    for name, unit, slack in gates:
         got = measured[name]
         margin = slack if unit == "points" else ref[name] * slack
         log(f"[{what}] gate {name}: {got:.4f} against the reference's "
@@ -816,6 +849,29 @@ def localization_full_width(scene, tracks, workdir, card):
 LOC_TURNS = ("plain", "kernel", "kernel", "plain")
 
 
+def timed_entry(name, path, source, replaces, launches, kernel, plain, args,
+                kwargs, err, bound_ms, bound_by, shape, reps):
+    """A kernel's entry of the kernels line: the kernel and its plain
+    version timed in turns (LOC_TURNS; ``reps`` = (kernel runs, plain
+    runs) a turn) on the input it was held to the plain version on."""
+    times = {"kernel": [], "plain": []}
+    for which in LOC_TURNS:
+        fn = kernel if which == "kernel" else plain
+        n = reps[0] if which == "kernel" else reps[1]
+        times[which].append(cuda_ms(lambda: fn(*args, **kwargs), n))
+    log(f"[kernel] {path} {name} {json.dumps(shape)}: max abs err to plain "
+        f"{err:.3e}; ms in turns {list(LOC_TURNS)}: {json.dumps(times)}; "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"name": name, "path": path, "route": "cuda",
+            "source": "limap_tpu_torch/csrc/" + source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err,
+            "ms": float(np.mean(times["kernel"])),
+            "ms_turns": times["kernel"],
+            "plain_ms": float(np.mean(times["plain"])),
+            "plain_ms_turns": times["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, **shape}
+
+
 def measure_localization_kernels(recorded, launches):
     """Each localization kernel on the largest input its path gave it:
     held to the plain version, timed against it in turns, and its bound."""
@@ -872,25 +928,270 @@ def measure_localization_kernels(recorded, launches):
             Nr, Nt = args[1].shape[0], args[0].shape[0]
             bms, by = bound(Nr * Nt * OPS_PAIR, Nt * 16 + Nr * 24 + Nr * Nt * 4)
             shape = {"rows": Nr, "cols": Nt}
-        times = {"kernel": [], "plain": []}
-        for which in LOC_TURNS:
-            fn = kernel[name] if which == "kernel" else plain[name]
-            reps = 20 if which == "kernel" else 2
-            times[which].append(cuda_ms(lambda: fn(*args, **kwargs), reps))
-        log(f"[kernel] localization {name} {json.dumps(shape)}: max abs err "
-            f"to plain {err:.3e}; ms in turns {list(LOC_TURNS)}: "
-            f"{json.dumps(times)}; bound {bms:.4f} ms ({by})")
-        entries.append({
-            "name": name, "path": "localization", "route": "cuda",
-            "source": "limap_tpu_torch/csrc/" + source[name][0],
-            "replaces": source[name][1], "launches": launches[name],
-            "max_abs_err": err, "ms": float(np.mean(times["kernel"])),
-            "ms_turns": times["kernel"],
-            "plain_ms": float(np.mean(times["plain"])),
-            "plain_ms_turns": times["plain"], "bound_ms": bms,
-            "bound_by": by, "library_ms": None, **shape})
+        entries.append(timed_entry(
+            name, "localization", *source[name], launches[name],
+            kernel[name], plain[name], args, kwargs, err, bms, by, shape,
+            (20, 2)))
     return entries
 
+
+
+def fit_rows(fitted):
+    """{img_id: rows of fitted (non-zero) segments}."""
+    return {i: np.flatnonzero(np.abs(v).sum((1, 2)) > 0)
+            for i, v in fitted.items()}
+
+
+def fitnmerge_card_vs_cpu(workdir):
+    """Phase 9a: line_fitnmerge on the card, then on the CPU from the
+    card's detections, on 6 rendered views of 240x320 with depth; both
+    draw the same RANSAC hypotheses (seed 0)."""
+    from limap_tpu_torch.runners import line_fitnmerge
+    from limap_tpu_torch.testing import fitnmerge
+
+    imagecols, _, nbrs, _, depths = fitnmerge.build_scene(
+        n_views=6, n_lines=30, hw=(240, 320), n_neighbors=4,
+        image_dir=os.path.join(workdir, "images"))
+    tracks, fitted = {}, {}
+    for dev in ("cuda", "cpu"):
+        cfg = fitnmerge.config(os.path.join(workdir, dev), n_neighbors=4)
+        cfg["n_visible_views"] = 3
+        if dev == "cpu":
+            cfg.update(load_det=True, load_dir=os.path.join(workdir, "cuda"))
+        tracks[dev] = line_fitnmerge(cfg, copy.deepcopy(imagecols), depths,
+                                     neighbors=copy.deepcopy(nbrs),
+                                     device=dev)
+        fitted[dev] = np.load(os.path.join(workdir, dev,
+                                           "fitted_3d_segs.npy"),
+                              allow_pickle=True).item()
+    rows = {dev: fit_rows(f) for dev, f in fitted.items()}
+    check(all(np.array_equal(rows["cuda"][i], rows["cpu"][i])
+              for i in rows["cpu"]), "card and CPU fit different segments")
+    fit_err = max((endpoint_error(x, y) for i, r in rows["cpu"].items()
+                   for x, y in zip(fitted["cuda"][i][r], fitted["cpu"][i][r])),
+                  default=0.0)
+    n_fit = sum(len(r) for r in rows["cpu"].values())
+    keys = {dev: sorted(map(key, t)) for dev, t in tracks.items()}
+    log(f"[fitnmerge card-vs-cpu] {n_fit} fitted segments on both devices, "
+        f"endpoints {fit_err:.2e} m apart; tracks {len(tracks['cuda'])} on "
+        f"the card, {len(tracks['cpu'])} on the CPU")
+    check(n_fit > 100, ("too few fitted segments", n_fit))
+    check(fit_err <= FIT_TOL_M, ("fitted endpoints card vs CPU", fit_err))
+    check(keys["cuda"] == keys["cpu"] and len(keys["cpu"]) > 10,
+          "card and CPU tracks differ")
+    cpu = {key(x): x for x in tracks["cpu"]}
+    line_err = max(endpoint_error(x.line, cpu[key(x)].line)
+                   for x in tracks["cuda"])
+    log(f"[fitnmerge card-vs-cpu] identical tracks and supports; lines "
+        f"{line_err:.2e} m apart")
+    check(line_err <= FNM_LINE_TOL_M, ("track lines card vs CPU", line_err))
+
+
+# FP32 operations of line_ransac, counted from csrc/line_ransac.cu (a
+# multiply-add as two, a sqrt as one): 17 a distance, per (segment,
+# hypothesis, valid sample).
+OPS_RANSAC_DIST = 17
+# FP32 operations of each test of linker_edges, counted from
+# csrc/linker_edges.cu for D-dimensional segments (an add, multiply,
+# divide, sqrt, exp, acos, min, max, abs or compare as one); a distance's
+# test includes its score (6), and in 3D the pair's uncertainty (4).
+OPS_LINKER_TEST = {"angle": lambda D: 2 * D + 5,
+                   "overlap": lambda D: 12 * D + 14,
+                   "smartangle": lambda D: 14,
+                   "perp": lambda D: 20 * D + 17 + 4 * (D == 3),
+                   "innerseg": lambda D: 54 * D + 32 + 4 * (D == 3)}
+PASSES = {"angle": lambda v, th: v <= th, "overlap": lambda v, th: v > th}
+# a segment projected into a view (two points, 40 each, and its 2D
+# direction); a line's 3D and 2D directions
+OPS_PROJECT_SEG, OPS_LINE = 89, 22
+
+
+def linker_work(l2d, l3d, mask, views, nbrs, nmask, cfg2d, cfg3d):
+    """FP32 operations the edge test needs on this input: each test of a
+    pair of valid lines counted only where the pair reaches it (a pair
+    stops at its first failed test: the 3D check, then a self pair's 2D
+    check, or a cross pair's two projected 2D checks), each valid line's
+    directions once, and, per live neighbour slot, the projections of
+    both images' valid lines.  Returns (operations, pairs per stage)."""
+    from limap_tpu_torch.base import line_geometry as lg
+    from limap_tpu_torch.base.camera import CameraViewsBatch
+    from limap_tpu_torch.base.lines import Segments
+    from limap_tpu_torch.testing.fitnmerge_checks import linker_tests
+
+    reached = {}
+
+    def run(checks, live):
+        ops = 0
+        for stage, (l1, l2, cfg, D, u) in enumerate(checks):
+            for name, v, th in linker_tests(l1, l2, cfg, u):
+                if name not in OPS_LINKER_TEST:
+                    continue  # innerseg's overlap conditions, counted in it
+                n = int(live.sum())
+                key = f"{stage}_{D}d_{name}"
+                reached[key] = reached.get(key, 0) + n
+                ops += n * OPS_LINKER_TEST[name](D)
+                live = live & PASSES.get(name, lambda v, th: v >= th)(v, th)
+        return ops
+
+    I, L = mask.shape
+    cnt = mask.sum(1).tolist()
+    u = l3d.uncertainty
+    iu = torch.triu(torch.ones((L, L), dtype=torch.bool, device=mask.device),
+                    diagonal=1)
+    ops = OPS_LINE * sum(cnt)
+    for i in range(I):
+        row3 = Segments(l3d.start[i][:, None], l3d.end[i][:, None])
+        row2 = Segments(l2d.start[i][:, None], l2d.end[i][:, None])
+        col3 = Segments(l3d.start[i][None], l3d.end[i][None])
+        col2 = Segments(l2d.start[i][None], l2d.end[i][None])
+        ops += run([(row3, col3, cfg3d, 3,
+                     torch.minimum(u[i][:, None], u[i][None])),
+                    (row2, col2, cfg2d, 2, None)],
+                   mask[i][:, None] & mask[i][None] & iu)
+        js = nbrs[i][nmask[i]].long()
+        if not len(js):
+            continue
+        col3 = Segments(l3d.start[js][:, None], l3d.end[js][:, None])
+        col2 = Segments(l2d.start[js][:, None], l2d.end[js][:, None])
+        vj = CameraViewsBatch(*(x[js][:, None, None] for x in views))
+        vi = CameraViewsBatch(*(x[i] for x in views))
+        ops += run([(row3, col3, cfg3d, 3,
+                     torch.minimum(u[i][:, None], u[js][:, None])),
+                    (lg.project_segments(row3, vj), col2, cfg2d, 2, None),
+                    (lg.project_segments(col3, vi), row2, cfg2d, 2, None)],
+                   mask[i][:, None] & mask[js][:, None])
+        ops += OPS_PROJECT_SEG * sum(cnt[i] + cnt[j] for j in js.tolist())
+    return ops, reached
+
+
+def fitnmerge_full_width(scene, workdir, card):
+    """Phase 9: line_fitnmerge on phase 7's scene with the wall's depth,
+    gated against the JAX package's run; returns the kernels' launches
+    and their recorded inputs."""
+    from limap_tpu_torch.base.depth_reader_base import ArrayDepthReader
+    from limap_tpu_torch.fitting import fitting
+    from limap_tpu_torch.merging import merging
+    from limap_tpu_torch.ops import line_ransac, linker_edges
+    from limap_tpu_torch.testing import fitnmerge
+
+    t0 = time.perf_counter()
+    imagecols, imgs, nbrs, gt = scene
+    depths = {i: ArrayDepthReader(fitnmerge.wall_depth(imagecols.camview(i)))
+              for i in imagecols.get_img_ids()}
+    log(f"[fitnmerge] depth maps of the wall for {len(depths)} views in "
+        f"{time.perf_counter() - t0:.1f} s")
+    recorders = {
+        "line_ransac": Recorder(fitting, "line_ransac",
+                                lambda *a, **k: a[0].shape[0]),
+        "linker_edges": Recorder(merging, "linker_edges",
+                                 lambda *a, **k: a[2].numel()),
+    }
+    kernels = {"line_ransac": line_ransac.line_ransac,
+               "linker_edges": linker_edges.linker_edges}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        r = fitnmerge.run(device="cuda", workdir=workdir,
+                          scene=(imagecols, imgs, nbrs, gt, depths))
+    finally:
+        for rec in recorders.values():
+            rec.restore()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    tracks = r.pop("linetracks")
+    log(f"[fitnmerge] line_fitnmerge, {len(depths)} views, {wall:.3f} s in "
+        f"all; stage seconds {json.dumps(r['stages_s'])} on {card}; kernel "
+        f"launches {json.dumps(launches)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[fitnmerge] avg segments per image {r['avg_segs']:.2f}; "
+        f"{r['n_fitted']} fitted segments; {r['n_tracks_all']} tracks; "
+        f"quality_eval {json.dumps(r['quality'])}")
+    for name, n in launches.items():
+        check(n > 0, f"the fit-and-merge path did not launch {name}")
+    check(np.isfinite([x.line for x in tracks]).all(),
+          "non-finite lines from fit and merge")
+    measured = dict(r["quality"], n_tracks_all=r["n_tracks_all"],
+                    avg_segs=r["avg_segs"], n_fitted=r["n_fitted"])
+    hold_to_gates("fitnmerge", measured, REFERENCE_FITNMERGE,
+                  FITNMERGE_GATES)
+    return launches, {k: (rec.args, rec.kwargs)
+                      for k, rec in recorders.items()}
+
+
+def measure_fitnmerge_kernels(recorded, launches):
+    """Kernels D and E on the whole inputs the fit-and-merge path gave
+    them: held to the plain version, timed against it in turns, and
+    their bounds."""
+    from limap_tpu_torch.ops import line_ransac, linker_edges
+    from limap_tpu_torch.ops.connected_components import \
+        connected_components
+    from limap_tpu_torch.testing import fitnmerge_checks as fc
+    entries = []
+
+    args, _ = recorded["line_ransac"]
+    points, valid, th, idx_a, idx_b = args
+    out_k = line_ransac.line_ransac(*args)
+    out_p = line_ransac.line_ransac_plain(*args)
+    res = fc.compare_line_ransac(out_k, out_p, args)
+    log(f"[kernel] fitnmerge line_ransac against plain on the path's "
+        f"input: {json.dumps(res)}")
+    check(res["ok"] and res["rows_differ"] == 0,
+          ("line_ransac", "on the path's input", res))
+    N, S = valid.shape
+    H = idx_a.shape[1]
+    n_valid = int(valid.sum())
+    bms, by = bound(n_valid * H * OPS_RANSAC_DIST,
+                    N * S * 13 + N * 4 + N * H * 8 + N * S + N * 12)
+    shape = {"segments": N, "samples": S, "hypotheses": H,
+             "valid_samples": n_valid}
+    entries.append(timed_entry(
+        "line_ransac", "fitnmerge", "line_ransac.cu",
+        "limap_tpu/fitting/fitting.py:73", launches["line_ransac"],
+        line_ransac.line_ransac, line_ransac.line_ransac_plain, args, {},
+        res["max_abs_err"], bms, by, shape, (5, 1)))
+
+    args, _ = recorded["linker_edges"]
+    l2d, l3d, mask, views, nbrs, nmask, cfg2d, cfg3d = args
+    out_k = linker_edges.linker_edges(*args)
+    out_p = linker_edges.linker_edges_plain(*args)
+    host = lambda x: x.cpu().numpy()
+    arrays = (host(l2d.start), host(l2d.end), host(l3d.start),
+              host(l3d.end), host(l3d.uncertainty), host(mask),
+              host(views.kvec), host(views.qvec), host(views.tvec),
+              host(nbrs), host(nmask))
+    from limap_tpu_torch.base.line_linker import LineLinker
+    res = fc.compare_linker_edges(out_k, out_p, arrays,
+                                  LineLinker(cfg2d, cfg3d))
+    I, L = mask.shape
+    K = nbrs.shape[1]
+    labels = []
+    for bits in (out_k, out_p):
+        e = linker_edges.edges_from_bits(*bits, nbrs, L)
+        labels.append(connected_components(
+            I * L, e, torch.ones(len(e), dtype=torch.bool, device=e.device)))
+    res["labels_equal"] = bool(torch.equal(labels[0], labels[1]))
+    log(f"[kernel] fitnmerge linker_edges against plain on the path's input "
+        f"({I} images x {L} lines x {K} neighbours): {json.dumps(res)}")
+    # at full width every flip must sit within FLIP_TOL of a threshold
+    check(res["ok"] and res["labels_equal"] and res["flips_in_spread"] == 0,
+          ("linker_edges", "on the path's input", res))
+    n_pairs = linker_edges.n_valid_pairs(mask, nbrs, nmask)
+    ops, reached = linker_work(*args)
+    log(f"[kernel] fitnmerge linker_edges: pairs reaching each test "
+        f"(check_test): {json.dumps(reached)}; {ops} operations")
+    W = linker_edges.n_words(L)
+    bms, by = bound(ops, I * L * (16 + 24 + 4 + 1) + I * 44 + I * K * 5
+                    + I * (K + 1) * L * W * 4)
+    shape = {"images": I, "lines": L, "neighbours": K,
+             "valid_pairs": n_pairs, "operations": ops}
+    entries.append(timed_entry(
+        "linker_edges", "fitnmerge", "linker_edges.cu",
+        "limap_tpu/merging/merging.py:76", launches["linker_edges"],
+        linker_edges.linker_edges, linker_edges.linker_edges_plain, args,
+        {}, res["max_abs_err"], bms, by, shape, (5, 1)))
+    return entries
 
 
 def main():
@@ -908,10 +1209,12 @@ def main():
         for m in ("yaml", "cv2", "PIL")))
 
     # ---- 1. build: one nvcc a source, all started together ----
-    from limap_tpu_torch.ops import epipolar_iou, pose_score, trace_roots
-    from limap_tpu_torch.testing import kernel_checks
+    from limap_tpu_torch.ops import (epipolar_iou, line_ransac,
+                                     linker_edges, pose_score, trace_roots)
+    from limap_tpu_torch.testing import fitnmerge_checks, kernel_checks
     t0 = time.perf_counter()
-    libs = (nnd, trace_roots, pose_score, epipolar_iou)
+    libs = (nnd, trace_roots, pose_score, epipolar_iou, line_ransac,
+            linker_edges)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda m: m.build(), libs))
     log(f"[build] {len(libs)} kernel libraries built in "
@@ -960,6 +1263,9 @@ def main():
     for name, seed, res in kernel_checks.check_all():
         log(f"[kernel] {name} vs plain, seed {seed}: {json.dumps(res)}")
         check(res["ok"], (name, "vs plain", seed, res))
+    for name, case, res in fitnmerge_checks.check_all():
+        log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
+        check(res["ok"], (name, "vs plain", case, res))
 
     # ---- 3. card against CPU on a reduced scene ----
     # Endpoint noise (0.3 px) keeps the proposals' scores off the
@@ -1082,7 +1388,22 @@ def main():
         loc_launches, recorded = localization_full_width(
             scene, runner_tracks, workdir, card)
         log(f"[localize] phase 8 took {time.perf_counter() - t0:.1f} s")
-    entries += measure_localization_kernels(recorded, loc_launches)
+        entries += measure_localization_kernels(recorded, loc_launches)
+        del recorded
+
+        # ---- 9a. fit and merge, card against CPU ----
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as small:
+            fitnmerge_card_vs_cpu(small)
+        log(f"[fitnmerge card-vs-cpu] phase 9a took "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # ---- 9. fit and merge at full width on phase 7's images ----
+        t0 = time.perf_counter()
+        fnm_launches, recorded = fitnmerge_full_width(
+            scene, os.path.join(workdir, "fitnmerge"), card)
+        entries += measure_fitnmerge_kernels(recorded, fnm_launches)
+        log(f"[fitnmerge] phase 9 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

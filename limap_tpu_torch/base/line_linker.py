@@ -83,6 +83,11 @@ class LineLinker3dConfig:
                                    use_perp=False, use_innerseg=True,
                                    use_scaleinv=False)
 
+    def to_avgtest_merging(self) -> "LineLinker3dConfig":
+        return dataclasses.replace(self, use_angle=True, use_overlap=False,
+                                   use_perp=True, use_innerseg=False,
+                                   use_scaleinv=False)
+
 
 def _gated(score, score_th):
     """Zero the scores below the threshold."""
@@ -137,6 +142,27 @@ def score_2d(l1: Segments, l2: Segments, cfg: LineLinker2dConfig):
                             cfg.th_innerseg * cfg.multiplier), cfg.score_th)
         score = torch.minimum(score, s)
     return score
+
+
+def check_2d(l1: Segments, l2: Segments, cfg: LineLinker2dConfig):
+    """Joint 2D connection test, broadcasting.  The angle check uses the
+    raw threshold, not the gated score, so this is not ``score_2d > 0``."""
+    ok = _ones(l1, l2, torch.bool)
+    if cfg.use_angle:
+        ok = ok & (ld.angle(l1, l2) <= cfg.th_angle)
+    if cfg.use_overlap:
+        ok = ok & (ld.compute_bioverlap(l1, l2) > cfg.th_overlap)
+    if cfg.use_angle and cfg.use_overlap and cfg.use_smartangle:
+        ok = ok & (_smartangle_score(l1, l2, cfg) >= cfg.score_th)
+    if cfg.use_perp:
+        s = expscore(ld.dist_endpoints_perpendicular(l1, l2),
+                     cfg.th_perp * cfg.multiplier)
+        ok = ok & (s >= cfg.score_th)
+    if cfg.use_innerseg:
+        s = expscore(ld.dist_innerseg(l1, l2),
+                     cfg.th_innerseg * cfg.multiplier)
+        ok = ok & (s >= cfg.score_th)
+    return ok
 
 
 def score_3d(l1: Segments, l2: Segments, cfg: LineLinker3dConfig):
@@ -194,3 +220,28 @@ def check_3d(l1: Segments, l2: Segments, cfg: LineLinker3dConfig):
                      cfg.th_scaleinv * cfg.multiplier)
         ok = ok & (s >= cfg.score_th)
     return ok
+
+
+@dataclasses.dataclass(frozen=True)
+class LineLinker:
+    """Joint 2D + 3D linker."""
+
+    linker_2d: LineLinker2dConfig = LineLinker2dConfig()
+    linker_3d: LineLinker3dConfig = LineLinker3dConfig()
+
+    @classmethod
+    def from_dicts(cls, d2d=None, d3d=None) -> "LineLinker":
+        return cls(LineLinker2dConfig.from_dict(d2d),
+                   LineLinker3dConfig.from_dict(d3d))
+
+    def score_2d(self, l1, l2):
+        return score_2d(l1, l2, self.linker_2d)
+
+    def check_2d(self, l1, l2):
+        return check_2d(l1, l2, self.linker_2d)
+
+    def score_3d(self, l1, l2):
+        return score_3d(l1, l2, self.linker_3d)
+
+    def check_3d(self, l1, l2):
+        return check_3d(l1, l2, self.linker_3d)

@@ -38,6 +38,9 @@ class LineTrack:
     def count_images(self) -> int:
         return len(set(self.image_id_list))
 
+    def length(self) -> float:
+        return float(np.linalg.norm(self.line[1] - self.line[0]))
+
     def as_dict(self) -> dict:
         return {
             "line": self.line.tolist(),

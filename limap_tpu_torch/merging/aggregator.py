@@ -12,6 +12,7 @@ import torch
 from limap_tpu_torch.base.lines import EPS, Segments
 
 _BIG = 1e30
+EIGH_CHUNK = 16384
 
 
 def principal_direction(points: torch.Tensor, mask: torch.Tensor,
@@ -24,8 +25,13 @@ def principal_direction(points: torch.Tensor, mask: torch.Tensor,
         center = torch.sum(points * m, dim=-2) / torch.clamp(cnt, min=1.0)
     centered = (points - center[..., None, :]) * m
     cov = torch.einsum("...pi,...pj->...ij", centered, centered)
-    # ascending eigenvalues: the principal axis is the last column
-    direc = torch.linalg.eigh(cov).eigenvectors[..., :, 2]
+    # ascending eigenvalues: the principal axis is the last column.  The
+    # card's batched eigensolver refuses 32768 matrices or more at once
+    flat = cov.reshape(-1, 3, 3)
+    direc = torch.cat([torch.linalg.eigh(flat[k:k + EIGH_CHUNK]).eigenvectors
+                       [..., :, 2] for k in range(0, max(len(flat), 1),
+                                                  EIGH_CHUNK)])
+    direc = direc.reshape(cov.shape[:-1])
     return direc / (torch.linalg.vector_norm(direc, dim=-1, keepdim=True)
                     + EPS), center
 

@@ -1,14 +1,18 @@
-"""The batch filter and remerge chain over a padded :class:`TrackBatch`.
+"""Track building, filtering and remerging.
 
-Reprojection filter -> [remerge fixpoint -> reprojection filter] ->
-sensitivity -> overlap.  The per-support tests run on the device; the
+Fit and merge: :func:`merge_to_linetracks` builds tracks from per-image
+3D segments (the linker's edge test, then connected components).  The
+batch filter and remerge chain over a padded :class:`TrackBatch`:
+reprojection filter -> [remerge fixpoint -> reprojection filter] ->
+sensitivity -> overlap; the per-support tests run on the device and the
 only host work is the remerge regrouping on the :class:`HostTrackBatch`
-mirror, whose support fields never change on the device.
+mirror, whose support fields never change on the device.  The list path
+(:func:`remerge`) regroups host :class:`LineTrack` lists.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -16,13 +20,95 @@ import torch
 from limap_tpu_torch.base import line_dists as ld
 from limap_tpu_torch.base import line_geometry as lg
 from limap_tpu_torch.base.camera import CameraViewsBatch
-from limap_tpu_torch.base.line_linker import LineLinker3dConfig, check_3d
+from limap_tpu_torch.base.line_linker import (LineLinker, LineLinker3dConfig,
+                                              check_3d)
 from limap_tpu_torch.base.lines import Segments
-from limap_tpu_torch.base.linetrack import (HostTrackBatch, TrackBatch,
+from limap_tpu_torch.base.linetrack import (HostTrackBatch, LineTrack,
+                                            TrackBatch,
                                             batch_from_flat_supports,
-                                            distinct_count)
+                                            distinct_count, tracks_to_batch)
 from limap_tpu_torch.merging.aggregator import aggregate_tracks
 from limap_tpu_torch.ops.connected_components import connected_components
+from limap_tpu_torch.ops.linker_edges import edges_from_bits, linker_edges
+
+
+def set_uncertainty_segs3d(seg3d: Segments, views: CameraViewsBatch,
+                           var2d: float = 5.0) -> Segments:
+    """Attach the per-view depth uncertainty of each segment."""
+    return seg3d._replace(
+        uncertainty=lg.compute_uncertainty(seg3d, views, var2d))
+
+
+def merge_to_linetracks(all_lines_2d: Segments, all_lines_3d: Segments,
+                        line_mask: torch.Tensor, views: CameraViewsBatch,
+                        neighbors: torch.Tensor,
+                        neighbor_mask: torch.Tensor, linker: LineLinker,
+                        image_ids=None,
+                        num_outliers: int = 0) -> List[LineTrack]:
+    """Tracks from per-image segments: fields [I, L, 2] / [I, L, 3] (3D
+    with uncertainty), ``line_mask`` [I, L], ``views`` [I], dense
+    ``neighbors`` [I, K] rows with ``neighbor_mask``.  The linker's edge
+    test (``ops/linker_edges.py``) runs over all self and neighbour
+    pairs; tracks are the connected components of its edges with >= 2
+    lines, grouped as :func:`_tracks_from_labels` says."""
+    I, L = line_mask.shape
+    if image_ids is None:
+        image_ids = np.arange(I)
+    self_bits, cross_bits = linker_edges(
+        all_lines_2d, all_lines_3d, line_mask, views,
+        neighbors.to(torch.int32), neighbor_mask, linker.linker_2d,
+        linker.linker_3d.to_spatial_merging())
+    edges = edges_from_bits(self_bits, cross_bits, neighbors, L)
+    labels = connected_components(
+        I * L, edges, torch.ones(len(edges), dtype=torch.bool,
+                                 device=edges.device))
+    deg = torch.bincount(edges.reshape(-1), minlength=I * L)
+    valid_node = (deg > 0) & line_mask.reshape(-1)
+    return _tracks_from_labels(
+        labels.cpu().numpy(), valid_node.cpu().numpy(), I, L, image_ids,
+        all_lines_2d, all_lines_3d, num_outliers)
+
+
+def _tracks_from_labels(labels, valid_node, I, L, image_ids, all_lines_2d,
+                        all_lines_3d, num_outliers) -> List[LineTrack]:
+    """Group the valid nodes by component label (nodes ascending within a
+    group, groups by ascending label), keep groups of >= 2 lines, and
+    aggregate each group's 3D segments with their uncertainties; a
+    support's score is its 3D length."""
+    host = lambda x, d: x.reshape(I * L, d).cpu().numpy()
+    l2s, l2e = host(all_lines_2d.start, 2), host(all_lines_2d.end, 2)
+    l3s, l3e = host(all_lines_3d.start, 3), host(all_lines_3d.end, 3)
+    unc = (all_lines_3d.uncertainty.reshape(I * L).cpu().numpy()
+           if all_lines_3d.uncertainty is not None else np.ones(I * L))
+    length3d = np.linalg.norm(l3e - l3s, axis=-1)
+    node_ids = np.nonzero(valid_node)[0]
+    lab = labels[node_ids]
+    order = np.argsort(lab, kind="stable")
+    node_ids, lab = node_ids[order], lab[order]
+    groups = np.split(node_ids, np.nonzero(np.diff(lab))[0] + 1)
+    groups = [g for g in groups if len(g) >= 2]
+    if not groups:
+        return []
+    tracks = [LineTrack(
+        image_id_list=[int(image_ids[n // L]) for n in g],
+        line_id_list=[int(n % L) for n in g],
+        line2d_list=[np.stack([l2s[n], l2e[n]]) for n in g],
+        line3d_list=[np.stack([l3s[n], l3e[n]]) for n in g],
+        score_list=[float(length3d[n]) for n in g],
+        node_id_list=[int(n) for n in g]) for g in groups]
+    device = all_lines_3d.start.device
+    id2idx = {int(img): i for i, img in enumerate(image_ids)}
+    batch = tracks_to_batch(tracks, id2idx, device=device)
+    u_pad = np.ones(tuple(batch.mask.shape), np.float32)
+    for gi, g in enumerate(groups):
+        u_pad[gi, :len(g)] = unc[g]
+    seg3d = batch.line3d._replace(uncertainty=torch.as_tensor(u_pad,
+                                                              device=device))
+    agg = aggregate_tracks(seg3d, batch.score, batch.mask, num_outliers)
+    lines = torch.stack([agg.start, agg.end], 1).cpu().numpy()
+    for tr, line in zip(tracks, lines):
+        tr.line = line.astype(np.float64)
+    return tracks
 
 
 def _support_views(batch: TrackBatch,
@@ -51,12 +137,18 @@ def filter_tracks_by_reprojection(batch: TrackBatch, views: CameraViewsBatch,
     return batch._replace(line=agg, mask=new_mask, track_mask=keep_track)
 
 
+def check_sensitivity(batch: TrackBatch, views: CameraViewsBatch,
+                      th_angular3d: float) -> torch.Tensor:
+    """Per-support sensitivity test -> [T, S]."""
+    sens = lg.sensitivity(batch.line.expand(1), _support_views(batch, views))
+    return (sens <= th_angular3d) & batch.mask
+
+
 def filter_tracks_by_sensitivity(batch: TrackBatch, views: CameraViewsBatch,
                                  th_angular3d: float,
                                  min_support_ns: int) -> TrackBatch:
     """Keep tracks with >= N distinct well-conditioned images."""
-    sens = lg.sensitivity(batch.line.expand(1), _support_views(batch, views))
-    ok = (sens <= th_angular3d) & batch.mask
+    ok = check_sensitivity(batch, views, th_angular3d)
     return batch._replace(track_mask=batch.track_mask & (
         distinct_count(batch.img_index, ok) >= min_support_ns))
 
@@ -70,6 +162,12 @@ def filter_tracks_by_overlap(batch: TrackBatch, views: CameraViewsBatch,
     ok = (ld.compute_overlap(proj, batch.line2d) >= th_overlap) & batch.mask
     return batch._replace(track_mask=batch.track_mask & (
         distinct_count(batch.img_index, ok) >= min_support_ns))
+
+
+def filter_tracks_by_num_images(batch: TrackBatch,
+                                n_visible_views: int) -> TrackBatch:
+    return batch._replace(track_mask=batch.track_mask
+                          & (batch.count_images() >= n_visible_views))
 
 
 def remerge_labels(batch: TrackBatch, views: CameraViewsBatch,
@@ -185,3 +283,52 @@ def filter_chain_batch(batch: TrackBatch, views: CameraViewsBatch,
         batch, views, f2d.get("th_overlap", 0.05),
         f2d.get("th_overlap_num_supports", 3))
     return batch, host
+
+
+def remerge_once(tracks: List[LineTrack], views: CameraViewsBatch,
+                 id2idx: Dict[int, int], cfg3d: LineLinker3dConfig,
+                 num_outliers: int = 2) -> List[LineTrack]:
+    """One remerge pass over host tracks: the pairwise check of their
+    lines (:func:`remerge_labels`), groups in order of first appearance
+    over ascending track index (their supports concatenated), and each
+    group re-aggregated with the per-support uncertainty."""
+    if len(tracks) <= 1:
+        return tracks
+    device = views.kvec.device
+    batch = tracks_to_batch(tracks, id2idx, device=device)
+    labels, _ = remerge_labels(batch, views, cfg3d.to_spatial_merging(),
+                               batch.track_mask)
+    groups: Dict[int, List[int]] = {}
+    for ti, lab in enumerate(labels[:len(tracks)].tolist()):
+        groups.setdefault(lab, []).append(ti)
+    new_tracks = []
+    for members in groups.values():
+        tr = LineTrack()
+        for ti in members:
+            src = tracks[ti]
+            tr.image_id_list += src.image_id_list
+            tr.line_id_list += src.line_id_list
+            tr.line2d_list += src.line2d_list
+            tr.line3d_list += src.line3d_list
+            tr.score_list += src.score_list
+            tr.node_id_list += src.node_id_list
+        new_tracks.append(tr)
+    nb = _aggregate_batch(tracks_to_batch(new_tracks, id2idx, device=device),
+                          views, num_outliers)
+    lines = torch.stack([nb.line.start, nb.line.end], 1).cpu().numpy()
+    for tr, line in zip(new_tracks, lines):
+        tr.line = line.astype(np.float64)
+    return new_tracks
+
+
+def remerge(tracks: List[LineTrack], views: CameraViewsBatch,
+            id2idx: Dict[int, int], cfg3d: LineLinker3dConfig,
+            num_outliers: int = 2, max_iters: int = 10) -> List[LineTrack]:
+    """Remerge passes until the track count stops changing."""
+    num = len(tracks)
+    for _ in range(max_iters):
+        tracks = remerge_once(tracks, views, id2idx, cfg3d, num_outliers)
+        if len(tracks) == num:
+            break
+        num = len(tracks)
+    return tracks

@@ -59,3 +59,11 @@ def load_library(source: str) -> ctypes.CDLL:
         os.replace(tmp, lib)
         BUILD_INFO[stem] = (time.perf_counter() - t0, proc.stderr)
     return ctypes.CDLL(lib)
+
+
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """A kernel wrapper's input check: ``t`` has the dtype, shape and
+    device the kernel was written for."""
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name}: {dtype} {shape} on {device} expected, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")

@@ -24,6 +24,7 @@ import torch
 
 from limap_tpu_torch.base.camera import CameraViewsBatch
 from limap_tpu_torch.base.lines import Segments
+from limap_tpu_torch.ops.cuda_build import check_tensor
 
 SOURCE = "pose_score.cu"
 
@@ -91,10 +92,7 @@ def build() -> ctypes.CDLL:
 
 
 def _checked(name, t, shape, device):
-    if t.dtype != torch.float32 or tuple(t.shape) != shape \
-            or t.device != device:
-        raise ValueError(f"{name}: fp32 {shape} on {device} expected, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    check_tensor(name, t, torch.float32, shape, device)
     return t.contiguous()
 
 

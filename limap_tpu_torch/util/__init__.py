@@ -1,10 +1,21 @@
-"""Small shared helpers."""
+"""Small shared helpers, and the config, evaluation and io modules."""
 
 import dataclasses
+import importlib
 
 import numpy as np
 
-__all__ = ["shape_bucket", "dataclass_from_dict"]
+__all__ = ["config", "evaluation", "io", "shape_bucket",
+           "dataclass_from_dict"]
+_SUBMODULES = ("config", "evaluation", "io")
+
+
+def __getattr__(name):
+    # the submodules import the track containers, which import this
+    # package, so they load on first access
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def shape_bucket(n: int, fine: int = 128, min_bucket: int = 8) -> int:

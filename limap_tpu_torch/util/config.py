@@ -112,6 +112,12 @@ def default_triangulation_config() -> dict:
     return copy.deepcopy(_DEFAULT_TRIANGULATION)
 
 
+def default_fitnmerge_config() -> dict:
+    """The contents of ``cfgs/fitnmerge/default.yaml`` as a fresh dict,
+    for a machine without PyYAML (a test holds it to the file)."""
+    return copy.deepcopy(_DEFAULT_FITNMERGE)
+
+
 def default_localization_config() -> dict:
     """The contents of ``cfgs/localization/default.yaml`` as a fresh dict,
     for a machine without PyYAML (a test holds it to the file)."""
@@ -238,3 +244,57 @@ _DEFAULT_LOCALIZATION = {'cfg_type': 'localization',
                            'thres_point': 10.0,
                            'thres_line': 10.0},
                 'optimize': {'loss': 'huber', 'loss_scale': 2.0}}}
+
+_DEFAULT_FITNMERGE = {'cfg_type': 'fitnmerge',
+ 'weight_path': None,
+ 'load_meta': False,
+ 'load_det': False,
+ 'load_fit': False,
+ 'use_tmp': False,
+ 'n_visible_views': 4,
+ 'n_neighbors': 100,
+ 'visualize': False,
+ 'max_image_dim': 1600,
+ 'skip_exists': False,
+ 'output_dir': None,
+ 'output_folder': 'fitnmerge_finaltracks',
+ 'load_dir': None,
+ 'sfm': {'reuse': False,
+         'min_triangulation_angle': 1.0,
+         'neighbor_type': 'dice',
+         'ranges': {'range_robust': [0.05, 0.95], 'k_stretch': 1.25}},
+ 'line2d': {'max_num_2d_segs': 3000,
+            'do_merge_lines': False,
+            'visualize': False,
+            'compute_descinfo': False,
+            'detector': {'method': 'tpu_lsd', 'skip_exists': False}},
+ 'var2d': {'lsd': 2.0, 'tpu_lsd': 2.0},
+ 'fitting': {'var2d': -1.0, 'ransac_th': 0.75, 'min_percentage_inliers': 0.9},
+ 'merging': {'var2d': -1.0,
+             'linker3d': {'score_th': 0.5,
+                          'th_angle': 8.0,
+                          'th_overlap': 0.01,
+                          'th_smartoverlap': 0.1,
+                          'th_smartangle': 1.0,
+                          'th_perp': 0.75,
+                          'th_innerseg': 0.75},
+             'linker2d': {'score_th': 0.5,
+                          'th_angle': 5.0,
+                          'th_perp': 2.0,
+                          'th_overlap': 0.05}},
+ 'remerging': {'disable': False,
+               'linker3d': {'score_th': 0.5,
+                            'th_angle': 5.0,
+                            'th_overlap': 0.001,
+                            'th_smartoverlap': 0.1,
+                            'th_smartangle': 1.0,
+                            'th_perp': 0.5,
+                            'th_innerseg': 0.5}},
+ 'filtering2d': {'th_angular_2d': 8.0, 'th_perp_2d': 5.0},
+ 'refinement': {'disable': True,
+                'constant_pose': True,
+                'constant_line': False,
+                'min_num_images': 4,
+                'num_outliers_aggregator': 2,
+                'use_geometric': True,
+                'geometric_alpha': 10.0}}

@@ -15,7 +15,7 @@ from limap_tpu_torch.ops import nn_distance as nnd
 from limap_tpu_torch.ops.epipolar_iou import epipolar_iou_grid
 from limap_tpu_torch.ops.pose_score import pose_score
 from limap_tpu_torch.ops.trace_roots import trace_roots
-from limap_tpu_torch.testing import kernel_checks
+from limap_tpu_torch.testing import fitnmerge_checks, kernel_checks
 from limap_tpu_torch.ops.nn_distance import (nn_min_dist, nn_min_dist_plain,
                                              nn_min_dist_scalar)
 
@@ -145,3 +145,45 @@ def test_localization_kernel_vs_plain(cuda, kernel, seed, degenerate):
     torch.cuda.synchronize()
     assert launches.launches > n0
     assert res["ok"], res
+
+
+@pytest.mark.parametrize("case", fitnmerge_checks.RANSAC_CASES)
+def test_line_ransac_kernel_vs_plain(cuda, case):
+    """The RANSAC scoring kernel against its plain version at ragged
+    sizes, with invalid samples (NaN points among them), all-invalid rows
+    and points exactly on the threshold: equal masks, counts and best
+    hypotheses."""
+    from limap_tpu_torch.ops.line_ransac import line_ransac
+    n0 = line_ransac.launches
+    res = fitnmerge_checks.check_line_ransac(*case)
+    torch.cuda.synchronize()
+    assert line_ransac.launches == n0 + 1
+    assert res["ok"] and res["rows_differ"] == 0, res
+
+
+@pytest.mark.parametrize("config", fitnmerge_checks.LINKER_CONFIGS)
+@pytest.mark.parametrize("case", fitnmerge_checks.LINKER_CASES)
+def test_linker_edges_kernel_vs_plain(cuda, case, config):
+    """The linker's edge test against its plain version at ragged sizes,
+    with masked lines, dead neighbour slots and pairs built just inside
+    and outside each threshold, under two linker configs: equal bits but
+    for flips within rounding of a threshold, no more of them than the
+    plain version's own one-ulp spread plus one."""
+    from limap_tpu_torch.ops.linker_edges import linker_edges
+    n0 = linker_edges.launches
+    res = fitnmerge_checks.check_linker_edges(*case, config)
+    torch.cuda.synchronize()
+    assert linker_edges.launches == n0 + 1
+    assert res["ok"], res
+
+
+def test_fitnmerge_kernels_refuse_what_they_cannot_take(cuda):
+    from limap_tpu_torch.ops.line_ransac import MAX_SAMPLES, line_ransac
+    pts = torch.zeros((2, MAX_SAMPLES + 1, 3), device="cuda")
+    valid = torch.ones((2, MAX_SAMPLES + 1), dtype=torch.bool, device="cuda")
+    idx = torch.zeros((2, 4), dtype=torch.int32, device="cuda")
+    th = torch.ones(2, device="cuda")
+    with pytest.raises(ValueError, match="samples"):
+        line_ransac(pts, valid, th, idx, idx)
+    with pytest.raises(ValueError, match="idx_a"):
+        line_ransac(pts[:, :8], valid[:, :8], th, idx.cpu(), idx)

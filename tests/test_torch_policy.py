@@ -42,7 +42,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "estimators/pnl_solvers.py", "estimators/absolute_pose.py",
                 "optimize/hybrid_localization.py", "base/functions.py",
                 "util/evaluation.py", "runners/hybrid_localization.py",
-                "testing/localization.py", "testing/kernel_checks.py"):
+                "testing/localization.py", "testing/kernel_checks.py",
+                "base/depth_reader_base.py", "base/p3d_reader_base.py",
+                "ops/line_ransac.py", "ops/linker_edges.py",
+                "fitting/fitting.py", "runners/line_fitnmerge.py",
+                "testing/fitnmerge.py", "testing/fitnmerge_checks.py"):
         assert "limap_tpu_torch/" + new in covered, new
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -232,3 +236,84 @@ def test_localization_entry_points_raise_without_gpu(no_gpu, entry):
 def test_localization_entry_points_run_on_cpu_when_asked(no_gpu, entry):
     out = _localization_calls()[entry]("cpu")
     assert out is not None
+
+
+# Public names of the JAX package's subpackages that the port does not
+# have yet, each with the ROADMAP queue-1 item that brings it.  Every
+# other name of a JAX subpackage's __all__ must be exported by the port's
+# subpackage of the same name.
+QUEUED_NAMES = {
+    "base": {"infline2d_from_segment": "4", "intersect_infinite_lines_2d": "4",
+             "pad_segments": "4", "segments2d_from_numpy": "4"},
+    "evaluation": {"RefLineEvaluator": "9", "point_segment_distance": "9"},
+    "ops": {"count_component_sizes": "15b"},
+    "optimize": {"RefinementConfig": "12", "line_refinement": "12",
+                 "solve_line_refinement": "12"},
+}
+SUBPACKAGES = ("base", "merging", "optimize", "evaluation", "ops", "util",
+               "runners", "fitting", "estimators", "line2d")
+
+
+@pytest.mark.parametrize("name", SUBPACKAGES)
+def test_subpackages_export_the_jax_public_names(name):
+    import importlib
+    ref = importlib.import_module(f"limap_tpu.{name}")
+    port = importlib.import_module(f"limap_tpu_torch.{name}")
+    queued = QUEUED_NAMES.get(name, {})
+    missing = [n for n in ref.__all__
+               if n not in queued and not (n in port.__all__
+                                           and hasattr(port, n))]
+    assert not missing, missing
+    # a queued name really is missing, so the list stays true
+    assert not [n for n in queued if hasattr(port, n)]
+
+
+def _fitnmerge_calls():
+    from limap_tpu_torch.base import ArrayDepthReader, ArrayP3DReader
+    from limap_tpu_torch.runners import (fit_3d_segs,
+                                         fit_3d_segs_with_points3d,
+                                         line_fitnmerge,
+                                         line_fitting_with_points3d)
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.util.config import default_fitnmerge_config
+    scene = pipeline.build_scene(n_views=2, n_lines=4, hw=(40, 60),
+                                 n_neighbors=1)
+    cols = scene[0]
+    segs = {i: np.array([[5.0, 5, 30, 20], [10, 30, 50, 10]], np.float32)
+            for i in cols.get_img_ids()}
+    depths = {i: ArrayDepthReader(np.full((40, 60), 10.0, np.float32))
+              for i in segs}
+    p3ds = {i: ArrayP3DReader(np.ones((40, 60, 3), np.float32))
+            for i in segs}
+
+    def cfg():
+        c = default_fitnmerge_config()
+        c["output_dir"] = "tmp/test_torch_policy_fitnmerge"
+        return c
+
+    return {
+        "fit_3d_segs": lambda d: fit_3d_segs(segs, cols, depths, {},
+                                             device=d),
+        "fit_points3d": lambda d: fit_3d_segs_with_points3d(
+            segs, cols, p3ds, {}, device=d),
+        "line_fitnmerge": lambda d: line_fitnmerge(cfg(), cols, depths,
+                                                   scene[2], device=d),
+        "line_fitting_with_points3d": lambda d: line_fitting_with_points3d(
+            cfg(), cols, p3ds, scene[2], device=d),
+    }
+
+
+FITNMERGE = ["fit_3d_segs", "fit_points3d", "line_fitnmerge",
+             "line_fitting_with_points3d"]
+
+
+@pytest.mark.parametrize("entry", FITNMERGE)
+def test_fitnmerge_entry_points_raise_without_gpu(no_gpu, entry):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _fitnmerge_calls()[entry](None)
+
+
+@pytest.mark.parametrize("entry", ["fit_3d_segs", "fit_points3d"])
+def test_fitnmerge_entry_points_run_on_cpu_when_asked(no_gpu, entry):
+    out = _fitnmerge_calls()[entry]("cpu")
+    assert set(out) == {0, 1} and out[0].shape == (2, 2, 3)

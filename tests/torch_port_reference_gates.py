@@ -9,6 +9,8 @@ root:
         --runner [N_VIEWS]
     JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
         --localize [N_QUERIES]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --fitnmerge [N_VIEWS]
 
 Without arguments: the slice from given segments and matches
 (triangulate -> tracks -> filters + remerge -> line BA) on the protocol
@@ -36,6 +38,14 @@ config on the first N_QUERIES (default 10) queries of
 limap_tpu_torch/testing/localization.py (rendered between database
 views, with their priors, retrievals and 1000 point matches each):
 per-query pose errors, the count under 5 cm / 0.5 deg and the medians.
+
+With ``--fitnmerge``: limap_tpu.runners.line_fitnmerge on the same
+rendered scene (default 100 views), its images as PNG and each view's
+analytic depth of the wall plane (limap_tpu_torch/testing/fitnmerge.py),
+with cfgs/fitnmerge/default.yaml and the scene's 10 neighbours: the
+track counts (all, and of >= 4 images), the average segments an image,
+the fitted segments, quality_eval and the runner's stage seconds.  Eager
+JAX compiles anew for every image's segment count: ~7 s an image.
 """
 
 import json
@@ -189,6 +199,37 @@ def localize(n_queries=10):
         **localization.summarize(errors)}))
 
 
+def fitnmerge(n_views=100):
+    import cv2
+    from limap_tpu.base.depth_reader_base import ArrayDepthReader
+    from limap_tpu.runners import line_fitnmerge
+    from limap_tpu.util.config import load_config
+    from limap_tpu_torch.testing import fitnmerge as port_fitnmerge
+    port_cols, imgs, nbrs, gt, depths = port_fitnmerge.build_scene(n_views)
+    with tempfile.TemporaryDirectory() as workdir:
+        cols = port_cols.as_dict()
+        for i, img in imgs.items():
+            name = os.path.join(workdir, f"img_{i}.png")
+            cv2.imwrite(name, img)
+            cols["images"][i]["image_name"] = name
+        cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "cfgs", "fitnmerge", "default.yaml"))
+        out = os.path.join(workdir, "out")
+        cfg.update(output_dir=out, n_neighbors=len(nbrs[0]))
+        t0 = time.perf_counter()
+        tracks = line_fitnmerge(
+            cfg, ImageCollection.from_dict(cols),
+            {i: ArrayDepthReader(d.depth) for i, d in depths.items()}, nbrs)
+        total = time.perf_counter() - t0
+        summary = port_fitnmerge.summarize(tracks, out, gt)
+    print(json.dumps({
+        "n_views": n_views, "n_tracks_all": summary["n_tracks_all"],
+        "n_tracks_nv4": summary["quality"]["n_tracks"],
+        "avg_segs": summary["avg_segs"], "n_fitted": summary["n_fitted"],
+        "total_s": total, "stages_s": summary["stages_s"],
+        "quality": summary["quality"]}))
+
+
 def main(n_views=100, n_lines=1500, n_neighbors=20):
     t0 = time.perf_counter()
     imagecols, segs, nbrs = bench.build_scene(n_views, n_lines, n_neighbors)
@@ -224,5 +265,7 @@ if __name__ == "__main__":
         runner(*map(int, sys.argv[2:3]))
     elif sys.argv[1:2] == ["--localize"]:
         localize(*map(int, sys.argv[2:3]))
+    elif sys.argv[1:2] == ["--fitnmerge"]:
+        fitnmerge(*map(int, sys.argv[2:3]))
     else:
         main()
