@@ -46,6 +46,19 @@ Phases, in order; any failure exits non-zero:
      reprojection filter and remerge), with quality gates; then both
      kernels held to their plain versions and timed on that path's
      whole inputs.
+ 10. the exhaustive matcher at full width on phase 7's images:
+     line_triangulation with use_exhaustive_matcher (tpu_lsd, no
+     descriptors, no matcher; kernel F enumerates every line against every
+     line of the 10 neighbours and keeps the survivors of its culls,
+     kernel G scores them), with quality gates from the port's own CPU
+     run; then GT evaluation through nn_min_dist, and F and G held to
+     their plain versions and timed on that path's whole input.
+Phase 2 also holds the triangulator's kernels (tri_propose, F, in both
+input forms, and tri_score, G) to their plain versions on seeded inputs;
+phases 4 and 7 hold F and G to them on their paths' whole inputs; phase
+10a, before phase 10, runs the exhaustive runner on the card and on the
+CPU on a reduced rendered scene (the same segments) and requires the same
+tracks and supports.
 Phase 2 also holds the localization kernels (trace_roots, pose_score,
 epipolar_iou_grid) and the fit-and-merge kernels (line_ransac,
 linker_edges) to their plain versions on seeded inputs; phase 3b, after
@@ -175,6 +188,19 @@ FITNMERGE_GATES = (
     ("n_tracks_all", "relative", 0.02),
     ("n_tracks", "relative", 0.05), ("recall_0.05", "relative", 0.03),
     ("gt_coverage_0.05", "points", 2.5), ("precision_0.05", "points", 2.5))
+# The PORT's runner with the exhaustive matcher on the CPU, with the
+# plain versions of F and G, on phase 7's images as .npy
+# (tests/torch_port_reference_gates.py --exhaustive 100).  The JAX
+# package gives no reference here: its exhaustive path keeps each line's
+# first 64 raw candidates before any cull, drops 240,295,632 of them and
+# makes 0 tracks of these images (the same run; the port's took 952.8 s,
+# 842.4 s of it the plain F and G).
+REFERENCE_EXHAUSTIVE = {
+    "n_tracks_all": 609, "n_tracks": 424, "avg_segs": 491.05,
+    "recall_0.05": 284.63913875541346, "precision_0.05": 89.38679245283019,
+    "gt_coverage_0.05": 77.91622021388247}
+# the phase-7 tolerances, without the matches
+EXHAUSTIVE_GATES = tuple(g for g in FROM_PIXELS_GATES if g[0] != "n_matches")
 # Card against CPU on fit and merge (phase 9a): fitted endpoints within
 # 0.1 mm (lines 10 m away; the TLS axis of the card's batched eigensolver
 # rounds otherwise), track lines within 1 mm.
@@ -898,7 +924,9 @@ def measure_localization_kernels(recorded, launches):
         if name == "trace_roots":
             res = kernel_checks.compare_trace_roots(
                 out_k, out_p, args[6],
-                kernel_checks.rank_deficient(*args[:5]))
+                kernel_checks.rank_deficient(*args[:5]), args[:5])
+            log(f"[kernel] localization trace_roots against plain on the "
+                f"path's input: {json.dumps(res)}")
             check(res["ok"], (name, "on the path's input", res))
             err = res["max_abs_err"]
             B, K = args[0].shape[0], args[4].shape[0]
@@ -1194,6 +1222,258 @@ def measure_fitnmerge_kernels(recorded, launches):
     return entries
 
 
+# bytes a proposal takes in and out of kernels F and G: F writes 9 floats
+# and ok (and, exhaustive, the word); G reads ok and writes the score in
+# every bucket slot (SLOT_BYTES_G), and reads the 9 floats and the word
+# of an ok proposal alone (OK_BYTES_G)
+ROW_BYTES_F, SLOT_BYTES_G, OK_BYTES_G = 37, 5, 40
+F_SOURCE, G_SOURCE = "tri_propose.cu", "tri_score.cu"
+F_REPLACES = "limap_tpu/triangulation/triangulator.py:221"
+G_REPLACES = "limap_tpu/triangulation/triangulator.py:342"
+
+
+def triangulator_recorders():
+    """Recorders of kernels F and G's largest inputs on a path."""
+    from limap_tpu_torch.ops import tri_propose, tri_score
+    numel = lambda i: (lambda *a, **k: a[i].numel())
+    return {"propose": Recorder(tri_propose, "propose", numel(5)),
+            "count_exhaustive": Recorder(tri_propose, "count_exhaustive",
+                                         numel(5)),
+            "propose_exhaustive": Recorder(
+                tri_propose, "propose_exhaustive",
+                lambda *a, **k: a[5].numel() * a[6]),
+            "score": Recorder(tri_score, "score", numel(7))}
+
+
+def triangulator_launches():
+    from limap_tpu_torch.ops import tri_propose, tri_score
+    return {"tri_propose": tri_propose.propose.launches,
+            "tri_score": tri_score.score.launches}
+
+
+def reset_triangulator_launches():
+    """Zero F's and G's counts; call it before triangulator_recorders
+    wraps the functions that carry them."""
+    from limap_tpu_torch.ops import tri_propose, tri_score
+    tri_propose.propose.launches = 0
+    tri_score.score.launches = 0
+
+
+def measure_score(path, args, launches):
+    """Kernel G on a path's largest input: held to the plain version on
+    the same proposals, timed in turns, and its bound."""
+    from limap_tpu_torch.ops import tri_score
+    from limap_tpu_torch.testing import tri_checks
+    cfg, L, K, l2d, cam, words, meta, tri, ok = args
+    res = tri_checks.compare_score(
+        *args, tri_score.score(*args, return_scores=True),
+        tri_score.score_plain(*args, return_scores=True))
+    log(f"[kernel] {path} tri_score against plain on the path's input: "
+        f"{json.dumps(res)}")
+    check(res["ok_to_plain"], ("tri_score", path, res))
+    work = tri_checks.score_work(cfg, L, K, words, meta, tri, ok)
+    ops = tri_checks.operations(work, tri_checks.OPS_G)
+    N, T = ok.shape
+    # in: l2d, cam, meta, ok of every slot, an ok proposal's row and word;
+    # out: every slot's score, the floats and ints of each line
+    bms, by = bound(ops, l2d.numel() * 4 + cam.numel() * 4
+                    + meta.numel() * 4 + N * T * SLOT_BYTES_G
+                    + int(ok.sum()) * OK_BYTES_G + N * 40
+                    + N * (T + 1) * 4)
+    log(f"[kernel] {path} tri_score: ordered pairs reaching each stage "
+        f"{json.dumps(work)}; {ops} operations")
+    shape = {"lines": N, "width": T, "neighbours": K,
+             "ok_proposals": int(ok.sum()), "operations": ops, **work}
+    return timed_entry("tri_score", path, G_SOURCE, G_REPLACES,
+                       launches["tri_score"], tri_score.score,
+                       tri_score.score_plain, args, {}, res["max_abs_err"],
+                       bms, by, shape, (3, 1))
+
+
+def measure_triangulator_kernels(path, recorded, launches):
+    """Kernels F (form a) and G on a matcher path's largest inputs."""
+    from limap_tpu_torch.ops import tri_propose
+    from limap_tpu_torch.testing import tri_checks
+    args, kwargs = recorded["propose"]
+    check(args is not None, (path, "kernel F saw no input"))
+    args = args + (kwargs.get("ranges"),) if len(args) == 7 else args
+    cfg, L, K, l2d, cam, words, meta, ranges = args
+    out_k = tri_propose.propose(*args)
+    res = tri_checks.compare_propose(*args[:7], out_k,
+                                     tri_propose.propose_plain(*args), ranges)
+    log(f"[kernel] {path} tri_propose against plain on the path's input: "
+        f"{json.dumps(res)}")
+    check(res["ok_to_plain"], ("tri_propose", path, res))
+    work = tri_checks.words_work(*args[:7], out_k[1], ranges)
+    ops = tri_checks.operations(work, tri_checks.ops_f(cfg))
+    N, T = out_k[1].shape
+    bms, by = bound(ops, l2d.numel() * 4 + cam.numel() * 4 + N * T * 4
+                    + meta.numel() * 4 + N * T * ROW_BYTES_F)
+    log(f"[kernel] {path} tri_propose: candidates reaching each stage "
+        f"{json.dumps(work)}; {ops} operations")
+    shape = {"lines": N, "width": T, "neighbours": K, "operations": ops,
+             **work}
+    entries = [timed_entry("tri_propose", path, F_SOURCE, F_REPLACES,
+                           launches["tri_propose"], tri_propose.propose,
+                           tri_propose.propose_plain, args, {},
+                           res["max_abs_err"], bms, by, shape, (3, 1))]
+    args, _ = recorded["score"]
+    entries.append(measure_score(path, args, launches))
+    return entries
+
+
+def measure_exhaustive_kernels(recorded, launches):
+    """Kernels F (form b: the count and the write, timed together) and G
+    on the exhaustive path's whole inputs."""
+    from limap_tpu_torch.ops import tri_propose
+    from limap_tpu_torch.testing import tri_checks
+    cargs, _ = recorded["count_exhaustive"]
+    wargs, _ = recorded["propose_exhaustive"]
+    check(cargs is not None and wargs is not None,
+          "the exhaustive path gave kernel F no input")
+    cfg, L, K, l2d, cam, meta, ranges = cargs
+    W = wargs[6]
+    check(wargs[5].shape == meta.shape,
+          ("the exhaustive path split its images into groups", W))
+    counts_k = tri_propose.count_exhaustive(*cargs)
+    counts_p = tri_propose.count_exhaustive_plain(*cargs)
+    out_k = tri_propose.propose_exhaustive(*cargs[:6], W, ranges)
+    out_p = tri_propose.propose_exhaustive_plain(*cargs[:6], W, ranges)
+    res = tri_checks.compare_exhaustive(*cargs[:6], counts_k, counts_p,
+                                        out_k, out_p, ranges)
+    log(f"[kernel] exhaustive tri_propose against plain on the path's whole "
+        f"input: {json.dumps(res)}")
+    check(res["ok_to_plain"], ("tri_propose exhaustive", res))
+    del out_p
+    work = tri_checks.exhaustive_work(*cargs[:6], counts_k, ranges)
+    ops = tri_checks.operations(work, tri_checks.ops_f(cfg))
+    N = counts_k.shape[0]
+    bms, by = bound(ops, l2d.numel() * 4 + cam.numel() * 4
+                    + meta.numel() * 4 + N * 4
+                    + int(counts_k.sum()) * (ROW_BYTES_F + 4))
+    log(f"[kernel] exhaustive tri_propose: candidates reaching each stage "
+        f"{json.dumps(work)}; {ops} operations")
+
+    def kernel():
+        return (tri_propose.count_exhaustive(*cargs),
+                tri_propose.propose_exhaustive(*cargs[:6], W, ranges))
+
+    def plain():
+        return (tri_propose.count_exhaustive_plain(*cargs),
+                tri_propose.propose_exhaustive_plain(*cargs[:6], W, ranges))
+
+    shape = {"lines": N, "width": W, "neighbours": K,
+             "survivors_max": res["survivors_max"], "operations": ops,
+             **work}
+    entries = [timed_entry("tri_propose", "exhaustive", F_SOURCE, F_REPLACES,
+                           launches["tri_propose"], kernel, plain, (), {},
+                           res["max_abs_err"], bms, by, shape, (1, 1))]
+    words, tri, ok = out_k
+    sargs = (cfg, L, K, l2d, cam, words.reshape(-1, L, W), meta, tri, ok)
+    entries.append(measure_score("exhaustive", sargs, launches))
+    return entries
+
+
+def exhaustive_card_vs_cpu(workdir):
+    """Phase 10a: the exhaustive runner on the CPU, then on the card with
+    the CPU's segments (phase 6 holds the detectors to each other), on 6
+    rendered views of 240x320: the same tracks and supports."""
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline
+
+    imagecols, _, nbrs, _ = pipeline.build_scene(
+        n_views=6, n_lines=30, hw=(240, 320), n_neighbors=4,
+        image_dir=os.path.join(workdir, "images"))
+    tracks, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        cfg = pipeline.exhaustive_runner_config(os.path.join(workdir, dev),
+                                                n_neighbors=4)
+        cfg["n_visible_views"] = 3
+        cfg["triangulation"]["fullscore_th"] = 0.5
+        if dev == "cuda":
+            cfg.update(load_det=True, load_dir=os.path.join(workdir, "cpu"))
+        tracks[dev] = line_triangulation(cfg, imagecols, nbrs, device=dev)
+        with open(os.path.join(workdir, dev, "metrics.json")) as f:
+            stats[dev] = json.load(f)["exhaustive"]
+    log(f"[exhaustive card-vs-cpu] proposals card {json.dumps(stats['cuda'])}"
+        f", CPU {json.dumps(stats['cpu'])}")
+    check(len(tracks["cuda"]) == len(tracks["cpu"]) > 10,
+          ("exhaustive track count", len(tracks["cuda"]), len(tracks["cpu"])))
+    check(sorted(map(key, tracks["cuda"])) == sorted(map(key, tracks["cpu"])),
+          "card and CPU exhaustive supports differ")
+    err, tied = hold_card_to_cpu(tracks["cuda"], tracks["cpu"])
+    log(f"[exhaustive card-vs-cpu] {len(tracks['cuda'])} tracks, identical "
+        f"supports; line error {err:.2e} m; near-tied tracks {tied}")
+
+
+def exhaustive_full_width(scene, workdir, card):
+    """Phase 10: the exhaustive runner on phase 7's images, gated against
+    the port's CPU run; GT evaluation through nn_min_dist.  Returns the
+    recorded inputs of F and G, their launches and the evaluation's
+    queries and cloud."""
+    from limap_tpu_torch.evaluation.evaluator import (PointCloudEvaluator,
+                                                      report_error_to_gt)
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.testing.synthetic import gt_point_cloud
+    from limap_tpu_torch.util import io as limapio
+
+    imagecols, _, nbrs, gt = scene
+    cfg = pipeline.exhaustive_runner_config(workdir,
+                                            n_neighbors=len(nbrs[0]))
+    reset_triangulator_launches()
+    recorders = triangulator_recorders()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        tracks = line_triangulation(cfg, imagecols, nbrs, device="cuda")
+    finally:
+        for rec in recorders.values():
+            rec.restore()
+    wall = time.perf_counter() - t0
+    launches = triangulator_launches()
+    with open(os.path.join(workdir, "metrics.json")) as f:
+        metrics = json.load(f)
+    segs = limapio.read_all_segments_from_folder(os.path.join(
+        workdir, "line_detections", "tpu_lsd", "segments"))
+    check(not os.path.exists(os.path.join(workdir, "line_matchings")),
+          "the exhaustive runner matched descriptors")
+    quality = pipeline.quality_eval(tracks, gt)
+    log(f"[exhaustive] line_triangulation, use_exhaustive_matcher, "
+        f"{len(nbrs)} views, {wall:.3f} s in all; stage seconds "
+        f"{json.dumps(metrics['stages_s'])} on {card}; kernel launches "
+        f"{json.dumps(launches)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[exhaustive] proposals {json.dumps(metrics['exhaustive'])}; "
+        f"overflow_edges {metrics['overflow_edges']}; {len(tracks)} tracks; "
+        f"quality_eval {json.dumps(quality)}")
+    for name, n in launches.items():
+        check(n > 0, f"the exhaustive path did not launch {name}")
+    check(metrics["overflow_edges"] == 0, "the exhaustive path dropped edges")
+    check(np.isfinite([x.line for x in tracks]).all(),
+          "non-finite lines from the exhaustive runner")
+    measured = dict(quality, n_tracks_all=len(tracks),
+                    avg_segs=float(np.mean([len(v) for v in segs.values()])))
+    hold_to_gates("exhaustive", measured, REFERENCE_EXHAUSTIVE,
+                  EXHAUSTIVE_GATES)
+    t0 = time.perf_counter()
+    evaluator = PointCloudEvaluator(gt_point_cloud(
+        gt.astype(np.float32), 500), device="cuda")
+    lines = np.stack([x.line for x in tracks])
+    rep = report_error_to_gt(evaluator, lines, TAUS, 1000)
+    torch.cuda.synchronize()
+    log(f"[exhaustive] evaluation against the GT cloud "
+        f"({len(lines) * 1000} queries x {evaluator.points.shape[0]} points) "
+        f"in {time.perf_counter() - t0:.3f} s: recall {rep['recall']}; "
+        f"precision {rep['precision']}")
+    check(all(np.isfinite(rep["recall"][tau]) for tau in TAUS)
+          and 0 < rep["recall"][0.01] <= rep["recall"][0.1],
+          ("GT evaluation of the exhaustive tracks", rep))
+    recorded = {k: (rec.args, rec.kwargs) for k, rec in recorders.items()}
+    return (recorded, launches, evaluation_queries(tracks, 1000),
+            evaluator.points)
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
@@ -1210,11 +1490,13 @@ def main():
 
     # ---- 1. build: one nvcc a source, all started together ----
     from limap_tpu_torch.ops import (epipolar_iou, line_ransac,
-                                     linker_edges, pose_score, trace_roots)
-    from limap_tpu_torch.testing import fitnmerge_checks, kernel_checks
+                                     linker_edges, pose_score, trace_roots,
+                                     tri_propose, tri_score)
+    from limap_tpu_torch.testing import (fitnmerge_checks, kernel_checks,
+                                         tri_checks)
     t0 = time.perf_counter()
     libs = (nnd, trace_roots, pose_score, epipolar_iou, line_ransac,
-            linker_edges)
+            linker_edges, tri_propose, tri_score)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda m: m.build(), libs))
     log(f"[build] {len(libs)} kernel libraries built in "
@@ -1266,6 +1548,14 @@ def main():
     for name, case, res in fitnmerge_checks.check_all():
         log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
         check(res["ok"], (name, "vs plain", case, res))
+    for name, case, res in tri_checks.check_all():
+        log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
+        check(res["ok_to_plain"], (name, "vs plain", case, res))
+        if name == "tri_propose exhaustive" and case.startswith("6x120"):
+            # a line of more than 64 survivors, and lines of none (the
+            # zero-length segment among them)
+            check(res["survivors_max"] > 64 and res["lines_without"] > 0,
+                  ("seeded exhaustive survivors", res))
 
     # ---- 3. card against CPU on a reduced scene ----
     # Endpoint noise (0.3 px) keeps the proposals' scores off the
@@ -1316,10 +1606,21 @@ def main():
     # ---- 4. the main path at full width ----
     for kernel in kernels.values():
         kernel.launches = 0
+    reset_triangulator_launches()
+    recorders = triangulator_recorders()
     torch.cuda.reset_peak_memory_stats()
-    tracks, rep, stages, n_queries, cloud = run_slice(
-        "cuda", n_views=100, n_lines=1500, n_neighbors=20)
+    try:
+        tracks, rep, stages, n_queries, cloud = run_slice(
+            "cuda", n_views=100, n_lines=1500, n_neighbors=20)
+    finally:
+        for rec in recorders.values():
+            rec.restore()
     main_launches = {name: k.launches for name, k in kernels.items()}
+    tri_launches = triangulator_launches()
+    tri_recorded = {k: (r.args, r.kwargs) for k, r in recorders.items()}
+    log(f"[full] triangulator kernel launches {json.dumps(tri_launches)}")
+    for name, n in tri_launches.items():
+        check(n > 0, f"the main path did not launch {name}")
     launches = main_launches["nn_min_dist"]
     peak = torch.cuda.max_memory_allocated()
     log(f"[full] stage seconds {json.dumps(stages)}")
@@ -1363,6 +1664,9 @@ def main():
     for entry in entries:
         entry["evaluate_stage_s"] = evaluate_s[entry["name"]]
     del queries, cloud, evaluator
+    entries += measure_triangulator_kernels("segments_given", tri_recorded,
+                                            tri_launches)
+    del tri_recorded
 
     # ---- 6. front end and runner, card against CPU ----
     with tempfile.TemporaryDirectory() as workdir:
@@ -1372,16 +1676,30 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         for kernel in kernels.values():
             kernel.launches = 0
-        pixel_queries, pixel_cloud, scene, runner_tracks = \
-            from_pixels_full_width(card, workdir)
+        reset_triangulator_launches()
+        recorders = triangulator_recorders()
+        try:
+            pixel_queries, pixel_cloud, scene, runner_tracks = \
+                from_pixels_full_width(card, workdir)
+        finally:
+            for rec in recorders.values():
+                rec.restore()
         pixel_launches = {name: k.launches for name, k in kernels.items()}
+        tri_launches = triangulator_launches()
+        tri_recorded = {k: (r.args, r.kwargs) for k, r in recorders.items()}
+        log(f"[from-pixels] triangulator kernel launches "
+            f"{json.dumps(tri_launches)}")
+        for name, n in tri_launches.items():
+            check(n > 0, f"the from-pixels path did not launch {name}")
         check(pixel_launches["nn_min_dist"] > 0,
               "the from-pixels path did not launch nn_min_dist")
         check(pixel_launches["nn_min_dist_scalar"] == 0,
               "the from-pixels path launched the yardstick kernel")
         entries += measure_kernels(kernels, "from_pixels", pixel_queries,
                                    pixel_cloud, pixel_launches)
-        del pixel_queries, pixel_cloud
+        entries += measure_triangulator_kernels("from_pixels", tri_recorded,
+                                                tri_launches)
+        del pixel_queries, pixel_cloud, tri_recorded
 
         # ---- 8. localization at full width on phase 7's map ----
         t0 = time.perf_counter()
@@ -1404,6 +1722,31 @@ def main():
             scene, os.path.join(workdir, "fitnmerge"), card)
         entries += measure_fitnmerge_kernels(recorded, fnm_launches)
         log(f"[fitnmerge] phase 9 took {time.perf_counter() - t0:.1f} s")
+        del recorded
+
+        # ---- 10a. the exhaustive matcher, card against CPU ----
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as small:
+            exhaustive_card_vs_cpu(small)
+        log(f"[exhaustive card-vs-cpu] phase 10a took "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # ---- 10. the exhaustive matcher at full width ----
+        t0 = time.perf_counter()
+        for kernel in kernels.values():
+            kernel.launches = 0
+        recorded, ex_launches, ex_queries, ex_cloud = exhaustive_full_width(
+            scene, os.path.join(workdir, "exhaustive"), card)
+        nn_launches = {name: k.launches for name, k in kernels.items()}
+        check(nn_launches["nn_min_dist"] > 0,
+              "the exhaustive path did not launch nn_min_dist")
+        check(nn_launches["nn_min_dist_scalar"] == 0,
+              "the exhaustive path launched the yardstick kernel")
+        entries += measure_kernels(kernels, "exhaustive", ex_queries,
+                                   ex_cloud, nn_launches)
+        del ex_queries, ex_cloud
+        entries += measure_exhaustive_kernels(recorded, ex_launches)
+        log(f"[exhaustive] phase 10 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

@@ -1,6 +1,7 @@
-"""Infinite 3D lines: Plücker coordinates, the minimal (orthonormal)
-parameterization the optimizer works in, their projection into views,
-and the re-trim of a segment from its 2D supports."""
+"""Infinite lines: 2D homogeneous coordinates, 3D Plücker coordinates,
+the minimal (orthonormal) parameterization the optimizer works in, their
+projection into views, and the re-trim of a segment from its 2D or 3D
+supports."""
 
 from __future__ import annotations
 
@@ -20,12 +21,46 @@ def _normalize(v):
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + EPS)
 
 
+def infline2d_from_segment(seg: Segments) -> torch.Tensor:
+    """Normalized homogeneous coords [..., 3] of a 2D segment's line."""
+    return seg.coords()
+
+
+def infline2d_from_point_direction(p: torch.Tensor,
+                                   direc: torch.Tensor) -> torch.Tensor:
+    """(point, unit direction) -> normalized homogeneous coords."""
+    coor = torch.stack([direc[..., 1], -direc[..., 0],
+                        -direc[..., 1] * p[..., 0]
+                        + direc[..., 0] * p[..., 1]], dim=-1)
+    return _normalize(coor)
+
+
+def infline2d_direction(coords: torch.Tensor) -> torch.Tensor:
+    """Unit direction of homogeneous line(s)."""
+    return _normalize(torch.stack([coords[..., 1], -coords[..., 0]], -1))
+
+
 def infline2d_point_projection(coords: torch.Tensor,
                                q: torch.Tensor) -> torch.Tensor:
     """Perpendicular foot of 2D point(s) q on homogeneous line(s)."""
     a, b, c = coords[..., 0], coords[..., 1], coords[..., 2]
     d = (a * q[..., 0] + b * q[..., 1] + c) / (a * a + b * b + EPS)
     return torch.stack([q[..., 0] - a * d, q[..., 1] - b * d], dim=-1)
+
+
+def infline2d_point_distance(coords: torch.Tensor,
+                             q: torch.Tensor) -> torch.Tensor:
+    a, b, c = coords[..., 0], coords[..., 1], coords[..., 2]
+    return torch.abs(a * q[..., 0] + b * q[..., 1] + c) / torch.sqrt(
+        a * a + b * b + EPS)
+
+
+def intersect_infinite_lines_2d(c1: torch.Tensor, c2: torch.Tensor):
+    """Intersection of two homogeneous 2D lines: (point [..., 2], valid)."""
+    p_homo = _normalize(cross(c1, c2))
+    valid = torch.abs(p_homo[..., 2]) >= EPS
+    z = torch.where(valid, p_homo[..., 2], torch.ones_like(p_homo[..., 2]))
+    return p_homo[..., :2] / z[..., None], valid
 
 
 class InfiniteLines3d(NamedTuple):
@@ -35,6 +70,11 @@ class InfiniteLines3d(NamedTuple):
     m: torch.Tensor
 
     @classmethod
+    def from_point_direction(cls, p, direc) -> "InfiniteLines3d":
+        direc = _normalize(direc)
+        return cls(d=direc, m=cross(p, direc))
+
+    @classmethod
     def from_segments(cls, seg: Segments) -> "InfiniteLines3d":
         d = seg.direction()
         return cls(d=d, m=cross(seg.start, d))
@@ -42,6 +82,26 @@ class InfiniteLines3d(NamedTuple):
     def point(self) -> torch.Tensor:
         """Closest point to the origin."""
         return cross(self.d, self.m)
+
+    def point_projection(self, q: torch.Tensor) -> torch.Tensor:
+        """Perpendicular foot of q on the line."""
+        return q + cross(self.d, self.m + cross(self.d, q))
+
+    def point_distance(self, q: torch.Tensor) -> torch.Tensor:
+        return torch.linalg.vector_norm(q - self.point_projection(q), dim=-1)
+
+    def project_from_infinite_line(self, other: "InfiniteLines3d"
+                                   ) -> torch.Tensor:
+        """The point of this line closest to the line ``other``."""
+        l1, m1, l2, m2 = self.d, self.m, other.d, other.m
+        cr = cross(l1, l2)
+        p = (-cross(m1, cross(l2, cr))
+             + torch.sum(m2 * cr, dim=-1, keepdim=True) * l1)
+        return p / (torch.sum(cr * cr, dim=-1, keepdim=True) + EPS)
+
+    def project_to_infinite_line(self, other: "InfiniteLines3d"
+                                 ) -> torch.Tensor:
+        return other.project_from_infinite_line(self)
 
     def projection(self, views: CameraViewsBatch) -> torch.Tensor:
         """2D homogeneous line coords in the views."""
@@ -162,3 +222,27 @@ def segment_from_infinite_line_2d_supports(
                         (values.shape[-1] - 1 - k)[..., None])[..., 0]
     return Segments(start=p_ref + direction * t_lo[..., None],
                     end=p_ref + direction * t_hi[..., None])
+
+
+def segment_from_infinite_line_3d_supports(
+        line: InfiniteLines3d, line3d: Segments, support_mask: torch.Tensor,
+        num_outliers: int = 2) -> Segments:
+    """Re-trim a segment of one line (fields [3]) from its supporting 3D
+    segments [S, 3], anchored on the projection of the first valid
+    support's start; the trim count is clamped as in the 2D variant."""
+    direction = line.d
+    first = int(torch.argmax(support_mask.to(torch.int32)))
+    p_ref = line.point_projection(line3d.start[first])
+    ts = torch.sum((line3d.start - p_ref) * direction, dim=-1)
+    te = torch.sum((line3d.end - p_ref) * direction, dim=-1)
+    values = torch.cat([ts, te], dim=-1)
+    mask2 = torch.cat([support_mask, support_mask], dim=-1)
+    big = 1e30
+    lo_vals = torch.sort(torch.where(mask2, values,
+                                     torch.full_like(values, big))).values
+    hi_vals = torch.sort(torch.where(mask2, values,
+                                     torch.full_like(values, -big))).values
+    n_valid = 2 * int(support_mask.sum())
+    k = min(max(num_outliers, 0), max((n_valid - 1) // 2, 0))
+    return Segments(start=p_ref + direction * lo_vals[k],
+                    end=p_ref + direction * hi_vals[values.shape[0] - 1 - k])

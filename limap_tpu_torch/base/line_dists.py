@@ -1,8 +1,8 @@
-"""Line-to-line distances used by the linkers and the track filters.
+"""Line-to-line distances: the reference's seventeen types, the
+infinite-line distances and the ``compute_distance`` dispatcher.
 
-Every function takes two broadcasting :class:`Segments`.  Only the
-distances the ported linkers, filters and the 2D segment merging call
-are here; the rest of the reference's seventeen wait for a later slice.
+Every function takes two broadcasting :class:`Segments`; undefined
+cases (non-overlapping inner segments) give ``MAX_DIST``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,21 @@ def angle(l1: Segments, l2: Segments) -> torch.Tensor:
     """Angle between directions in degrees."""
     c = torch.clamp(cosine(l1, l2), -1.0, 1.0)
     return torch.rad2deg(torch.arccos(c))
+
+
+def dist_angular(l1: Segments, l2: Segments) -> torch.Tensor:
+    return 1.0 - cosine(l1, l2)
+
+
+def dist_midpoint(l1: Segments, l2: Segments) -> torch.Tensor:
+    return torch.linalg.vector_norm(l1.midpoint() - l2.midpoint(), dim=-1)
+
+
+def dist_endpoints(l1: Segments, l2: Segments) -> torch.Tensor:
+    """Minimum over the two endpoint pairings."""
+    n = lambda a, b: torch.linalg.vector_norm(a - b, dim=-1)
+    return torch.minimum(n(l1.start, l2.start) + n(l1.end, l2.end),
+                         n(l1.start, l2.end) + n(l1.end, l2.start))
 
 
 def _perp_dist_point_to_infline(p, origin, direction):
@@ -48,6 +63,48 @@ def dist_endpoints_perpendicular(l1, l2) -> torch.Tensor:
                          dist_endpoints_perpendicular_oneway(l2, l1))
 
 
+def dist_midpoint_perpendicular(l1: Segments, l2: Segments) -> torch.Tensor:
+    """Mean of each midpoint's distance to the other infinite line."""
+    d12 = _perp_dist_point_to_infline(l1.midpoint(), l2.start,
+                                      l2.direction())
+    d21 = _perp_dist_point_to_infline(l2.midpoint(), l1.start,
+                                      l1.direction())
+    return 0.5 * (d12 + d21)
+
+
+def dist_endpoints_perpendicular_scaleinv_line3dpp_oneway(l1, l2):
+    """Line3D++ scale-invariant perpendicular distance over l1's depths."""
+    ds, de = dists_endpoints_perpendicular_oneway(l1, l2)
+    return torch.maximum(ds / (l1.depths[..., 0] + EPS),
+                         de / (l1.depths[..., 1] + EPS))
+
+
+def dist_endpoints_perpendicular_scaleinv_line3dpp(l1, l2):
+    return torch.maximum(
+        dist_endpoints_perpendicular_scaleinv_line3dpp_oneway(l1, l2),
+        dist_endpoints_perpendicular_scaleinv_line3dpp_oneway(l2, l1))
+
+
+def dist_endpoints_perpendicular_scaleinv_oneway(l1, l2):
+    """Perpendicular distance over the depth interpolated along l2;
+    ``MAX_DIST`` where an endpoint projects before l2's start."""
+    ds, de = dists_endpoints_perpendicular_oneway(l1, l2)
+    dir2 = l2.direction()
+    len2 = l2.length()
+    a_s = torch.sum((l1.start - l2.start) * dir2, dim=-1) / (len2 + EPS)
+    a_e = torch.sum((l1.end - l2.start) * dir2, dim=-1) / (len2 + EPS)
+    z0, z1 = l2.depths[..., 0], l2.depths[..., 1]
+    val = torch.maximum(ds / (z0 + a_s * (z1 - z0)),
+                        de / (z0 + a_e * (z1 - z0)))
+    bad = (a_s < 100 * EPS) | (a_e < 100 * EPS)
+    return torch.where(bad, torch.full_like(val, MAX_DIST), val)
+
+
+def dist_endpoints_perpendicular_scaleinv(l1, l2):
+    return torch.maximum(dist_endpoints_perpendicular_scaleinv_oneway(l1, l2),
+                         dist_endpoints_perpendicular_scaleinv_oneway(l2, l1))
+
+
 def dist_endpoints_scaleinv_oneway(l1, l2) -> torch.Tensor:
     """Aligned endpoint distance over l1's depths."""
     ds = torch.linalg.vector_norm(l1.start - l2.start, dim=-1)
@@ -69,6 +126,15 @@ def compute_overlap(l1: Segments, l2: Segments) -> torch.Tensor:
 
 def compute_bioverlap(l1, l2) -> torch.Tensor:
     return torch.maximum(compute_overlap(l1, l2), compute_overlap(l2, l1))
+
+
+def dist_endpoints_scaleinv(l1, l2) -> torch.Tensor:
+    return torch.maximum(dist_endpoints_scaleinv_oneway(l1, l2),
+                         dist_endpoints_scaleinv_oneway(l2, l1))
+
+
+def dist_overlap(l1, l2) -> torch.Tensor:
+    return 1.0 - compute_bioverlap(l1, l2)
 
 
 def _innerseg(l1: Segments, l2: Segments):
@@ -122,3 +188,85 @@ def dist_minpoint_oneway(l1: Segments, l2: Segments) -> torch.Tensor:
 def dist_minpoint(l1, l2) -> torch.Tensor:
     return torch.minimum(dist_minpoint_oneway(l1, l2),
                          dist_minpoint_oneway(l2, l1))
+
+
+def infinite_dist_perpendicular(l1: Segments, l2: Segments) -> torch.Tensor:
+    """Least distance between the two infinite 3D lines."""
+    C0 = l1.start - l2.start
+    Cp = l1.end - l1.start
+    Cq = l2.start - l2.end
+    dot = lambda a, b: torch.sum(a * b, dim=-1)
+    A11, A22, A12 = dot(Cp, Cp), dot(Cq, Cq), dot(Cp, Cq)
+    B1, B2 = -dot(C0, Cp), -dot(C0, Cq)
+    det = A11 * A22 - A12 * A12
+    par = det < EPS
+    det_safe = torch.where(par, torch.ones_like(det), det)
+    p = torch.where(par, B1 / (A11 + EPS), (B1 * A22 - B2 * A12) / det_safe)
+    q = torch.where(par, torch.zeros_like(det),
+                    (A11 * B2 - A12 * B1) / det_safe)
+    return torch.linalg.vector_norm(C0 + Cp * p[..., None] + Cq * q[..., None],
+                                    dim=-1)
+
+
+def infinite_perpendicular_scaleinv_line3dpp(l1, l2) -> torch.Tensor:
+    """Scale-invariant infinite perpendicular distance, one way, over
+    l1's depths."""
+    z1, z2 = l1.depths[..., 0], l1.depths[..., 1]
+    vec2 = l2.end - l2.start
+    v = vec2 / (torch.linalg.vector_norm(vec2, dim=-1, keepdim=True) + EPS)
+    dz = (z2 - z1)[..., None]
+    Ck = l1.start - (l1.end - l1.start) * (z1[..., None] / (dz + EPS)) \
+        - l2.start
+    Cz = (l1.end - l1.start) / (dz + EPS)
+    CkTv = torch.sum(Ck * v, dim=-1)
+    A = torch.sum(Ck * Ck, dim=-1) - CkTv ** 2
+    B = torch.sum(Ck * Cz, dim=-1) - CkTv * torch.sum(Cz * v, dim=-1)
+    k = -B / (A + EPS)
+    w = Ck * k[..., None] + Cz
+    d2 = torch.sum(w * w, dim=-1) - torch.sum(w * v, dim=-1) ** 2
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def infinite_dist_perpendicular_scaleinv_line3dpp(l1, l2) -> torch.Tensor:
+    return torch.minimum(infinite_perpendicular_scaleinv_line3dpp(l1, l2),
+                         infinite_perpendicular_scaleinv_line3dpp(l2, l1))
+
+
+_DISPATCH = {
+    "angular": angle,
+    "angular_dist": dist_angular,
+    "endpoints": dist_endpoints,
+    "midpoint": dist_midpoint,
+    "midpoint_perpendicular": dist_midpoint_perpendicular,
+    "overlap": compute_overlap,
+    "bioverlap": compute_bioverlap,
+    "overlap_dist": dist_overlap,
+    "perpendicular_oneway": dist_endpoints_perpendicular_oneway,
+    "perpendicular": dist_endpoints_perpendicular,
+    "innerseg": dist_innerseg,
+    "perpendicular_scaleinv_line3dpp_oneway":
+        dist_endpoints_perpendicular_scaleinv_line3dpp_oneway,
+    "perpendicular_scaleinv_line3dpp":
+        dist_endpoints_perpendicular_scaleinv_line3dpp,
+    "perpendicular_scaleinv_oneway":
+        dist_endpoints_perpendicular_scaleinv_oneway,
+    "perpendicular_scaleinv": dist_endpoints_perpendicular_scaleinv,
+    "endpoints_scaleinv_oneway": dist_endpoints_scaleinv_oneway,
+    "endpoints_scaleinv": dist_endpoints_scaleinv,
+}
+DIST_TYPES = tuple(_DISPATCH)
+_3D_ONLY = frozenset(k for k in _DISPATCH if "scaleinv" in k)
+
+
+def compute_distance(l1: Segments, l2: Segments, dist_type: str):
+    """The distance named ``dist_type`` (one of ``DIST_TYPES``)."""
+    if dist_type not in _DISPATCH:
+        raise ValueError(f"unknown distance type {dist_type!r}")
+    if dist_type in _3D_ONLY and l1.dim == 2:
+        raise ValueError(f"{dist_type} is not supported for 2D lines")
+    return _DISPATCH[dist_type](l1, l2)
+
+
+def pairwise(l1: Segments, l2: Segments, dist_type: str) -> torch.Tensor:
+    """All-pairs distance matrix [N, M] of two segment batches."""
+    return compute_distance(l1.expand(1), l2.expand(0), dist_type)

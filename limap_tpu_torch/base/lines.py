@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from limap_tpu_torch.base.pose import cross
@@ -20,6 +21,10 @@ class Segments(NamedTuple):
     score: Optional[torch.Tensor] = None
     depths: Optional[torch.Tensor] = None
     uncertainty: Optional[torch.Tensor] = None
+
+    @property
+    def dim(self) -> int:
+        return self.start.shape[-1]
 
     def length(self) -> torch.Tensor:
         return torch.linalg.vector_norm(self.end - self.start, dim=-1)
@@ -43,3 +48,46 @@ class Segments(NamedTuple):
         axis (the reference's ``_expand``)."""
         return Segments(*(None if x is None else x.unsqueeze(dim)
                           for x in self))
+
+    @classmethod
+    def from_flat(cls, arr: torch.Tensor, score=None, depths=None,
+                  uncertainty=None) -> "Segments":
+        """From [..., 4] (2D), [..., 5] (2D and a score column) or
+        [..., >= 6] (3D) flat rows."""
+        n = arr.shape[-1]
+        if n not in (4, 5) and n < 6:
+            raise ValueError(f"bad segment array width {n}")
+        d = 2 if n in (4, 5) else 3
+        if n == 5 and score is None:
+            score = arr[..., 4]
+        return cls(arr[..., :d], arr[..., d:2 * d], score, depths,
+                   uncertainty)
+
+
+def segments2d_from_numpy(segs: np.ndarray, device=None) -> Segments:
+    """Segments from an (N, 4) or (N, 5) detection array, on ``device``
+    (``None`` means cuda)."""
+    from limap_tpu_torch import resolve_device
+    segs = np.asarray(segs, dtype=np.float32)
+    if segs.ndim != 2 or segs.shape[-1] not in (4, 5):
+        raise ValueError(f"expected (N,4|5) array, got {segs.shape}")
+    return Segments.from_flat(torch.as_tensor(
+        segs, device=resolve_device(device)))
+
+
+def pad_segments(segs: Segments, n: int, fill: float = 0.0):
+    """Pad along the leading axis to length ``n``: (padded segments,
+    [n] mask, True on the real entries)."""
+    cur = segs.start.shape[0]
+    if cur > n:
+        raise ValueError(f"cannot pad {cur} segments down to {n}")
+
+    def pad(x):
+        if x is None:
+            return None
+        tail = torch.full((n - cur,) + tuple(x.shape[1:]), fill,
+                          dtype=x.dtype, device=x.device)
+        return torch.cat([x, tail])
+
+    mask = torch.arange(n, device=segs.start.device) < cur
+    return Segments(*(pad(x) for x in segs)), mask

@@ -132,6 +132,16 @@ class BaseDetector:
             self.save_descinfo(folder, img_id, descinfo)
         return folder
 
+    def detect_and_extract_all_images(self, output_folder, imagecols,
+                                      skip_exists: bool = False):
+        """Detection then description of every image: (segments by
+        image id, descriptor folder)."""
+        all_segs = self.detect_all_images(output_folder, imagecols,
+                                          skip_exists)
+        folder = self.extract_all_images(output_folder, imagecols, all_segs,
+                                         skip_exists)
+        return all_segs, folder
+
 
 class BaseMatcher:
     """Abstract matcher."""
@@ -187,6 +197,14 @@ class BaseMatcher:
                                               get_descinfo(ng))
             self.save_match(matches_folder, img_id, matches)
         return matches_folder
+
+    def match_all_exhaustive_pairs(self, output_folder, image_ids,
+                                   descinfo_folder,
+                                   skip_exists: bool = False):
+        """Match every image with every other one."""
+        neighbors = {i: [j for j in image_ids if j != i] for i in image_ids}
+        return self.match_all_neighbors(output_folder, image_ids, neighbors,
+                                        descinfo_folder, skip_exists)
 
 
 # ----------------------------------------------------------- factories

@@ -7,6 +7,8 @@ from limap_tpu_torch.merging.merging import (
     filter_chain_batch, filter_tracks_by_num_images, filter_tracks_by_overlap,
     filter_tracks_by_reprojection, filter_tracks_by_sensitivity,
     merge_to_linetracks, remerge, remerge_batch, set_uncertainty_segs3d)
+from limap_tpu_torch.merging.strategies import (
+    compute_track_labels_avg, compute_track_labels_exhaustive)
 
 __all__ = [
     "aggregate_tracks", "principal_direction", "check_reprojection",
@@ -14,5 +16,6 @@ __all__ = [
     "filter_tracks_by_num_images", "filter_tracks_by_overlap",
     "filter_tracks_by_reprojection", "filter_tracks_by_sensitivity",
     "merge_to_linetracks", "remerge", "remerge_batch",
-    "set_uncertainty_segs3d",
+    "set_uncertainty_segs3d", "compute_track_labels_avg",
+    "compute_track_labels_exhaustive",
 ]

@@ -43,10 +43,7 @@ def line_triangulation(cfg: dict, imagecols, neighbors: Optional[dict] = None,
     cfg = runners.setup(cfg)
     prof = StageProfiler(device=device)
     tri_dict = cfg["triangulation"]
-    if tri_dict.get("use_exhaustive_matcher", False):
-        raise NotImplementedError(
-            "the exhaustive matcher is not ported yet (ROADMAP.md queue 1 "
-            "item 4); use the descriptor matcher")
+    use_exhaustive = tri_dict.get("use_exhaustive_matcher", False)
     if tri_dict.get("use_vp", False):
         raise NotImplementedError(
             "VP triangulation is not ported yet (ROADMAP.md queue 1 "
@@ -80,16 +77,18 @@ def line_triangulation(cfg: dict, imagecols, neighbors: Optional[dict] = None,
             ranges if ranges is not None
             else runners.compute_pose_ranges(imagecols))
 
-    # [B] 2D segments + descriptors
+    # [B] 2D segments (+ descriptors unless matching exhaustively)
     with prof.stage("detect_describe"):
         all_2d_segs, descinfo_folder = runners.compute_2d_segs(
-            cfg, imagecols, device=device)
+            cfg, imagecols, compute_descinfo=not use_exhaustive,
+            device=device)
 
     # [C] matches
-    with prof.stage("match"):
-        matches_dir = runners.compute_matches(
-            cfg, descinfo_folder, imagecols.get_img_ids(), neighbors,
-            device=device)
+    if not use_exhaustive:
+        with prof.stage("match"):
+            matches_dir = runners.compute_matches(
+                cfg, descinfo_folder, imagecols.get_img_ids(), neighbors,
+                device=device)
 
     # [D] triangulation
     triangulator = GlobalLineTriangulator(
@@ -97,12 +96,20 @@ def line_triangulation(cfg: dict, imagecols, neighbors: Optional[dict] = None,
     triangulator.init(all_2d_segs, imagecols)
     triangulator.set_ranges(ranges)
     with prof.stage("triangulate_score"):
-        matches_by_image = {
-            img_id: np.load(
-                os.path.join(matches_dir, f"matches_{img_id}.npy"),
-                allow_pickle=True).item()
-            for img_id in imagecols.get_img_ids()}
-        triangulator.triangulate_all(matches_by_image)
+        if use_exhaustive:
+            # every line against every line of each neighbour, all
+            # images in as few kernel calls as memory allows
+            triangulator.triangulate_all_exhaustive(
+                {i: neighbors[i] for i in imagecols.get_img_ids()})
+            print(f"exhaustive matcher: {triangulator.exhaustive_stats}",
+                  flush=True)
+        else:
+            matches_by_image = {
+                img_id: np.load(
+                    os.path.join(matches_dir, f"matches_{img_id}.npy"),
+                    allow_pickle=True).item()
+                for img_id in imagecols.get_img_ids()}
+            triangulator.triangulate_all(matches_by_image)
     with prof.stage("track_build"):
         tb, tb_host = triangulator.compute_track_batch(return_host=True)
 
@@ -146,8 +153,9 @@ def line_triangulation(cfg: dict, imagecols, neighbors: Optional[dict] = None,
     metrics = {"stages_s": prof.report(),
                "tracks": report_track_stats(
                    linetracks, cfg["n_visible_views"]),
-               "overflow_edges": int(getattr(triangulator,
-                                             "overflow_edges", 0))}
+               "overflow_edges": int(triangulator.overflow_edges)}
+    if use_exhaustive:
+        metrics["exhaustive"] = triangulator.exhaustive_stats
     with open(os.path.join(cfg["dir_save"], "metrics.json"), "w") as f:
         json.dump(metrics, f, indent=1)
 

@@ -23,7 +23,9 @@ from scipy.spatial.transform import Rotation
 
 from limap_tpu_torch.ops.pose_score import (ScoreParams, pose_score,
                                             pose_score_plain)
-from limap_tpu_torch.ops.trace_roots import (alpha_grid, family_eval,
+from limap_tpu_torch.base.pose import cross
+from limap_tpu_torch.ops.trace_roots import (alpha_grid, any_perp,
+                                             family_eval, rot_axis_angle,
                                              trace_roots, trace_roots_plain)
 from limap_tpu_torch.ops.epipolar_iou import (epipolar_iou_grid,
                                               epipolar_iou_grid_plain)
@@ -42,12 +44,19 @@ from limap_tpu_torch.ops.epipolar_iou import (epipolar_iou_grid,
 # rounding noise on any device.  Such rank-deficient instances (max |det|
 # on the grid under RANK_TOL; the C are normalized, so a conditioned
 # instance has max |det| of order 1e-3 or more) are counted and their
-# double roots left out of the comparison.
+# double roots left out of the comparison.  Where two roots lie close,
+# G is small between them and its float32 sign is noise over a stretch
+# of the circle, so a bisected root may land anywhere in that stretch:
+# a root beyond ROOTS_SIMPLE_TOL of the plain one is settled in float64
+# (:func:`root_witness`), never by a share of free slots.
 ROOTS_SIMPLE_TOL = 1e-3
 RANK_TOL = 1e-4
 ROOTS_FLAG_SHARE = 0.01
 ROOTS_DOUBLE_TOL = 2e-3
 ROOTS_UNPAIRED_SHARE = 0.02
+WITNESS_FACTOR = 4.0
+WITNESS_POINTS = 16
+WITNESS_ALPHA = 4 * 2.0 ** -22      # four float32 ulps of pi
 # The scores and errors are held to the plain version within what
 # rounding can explain.  Contracted multiply-adds and the block reduction
 # round differently from torch's eager ops, and some terms amplify
@@ -115,19 +124,104 @@ def rank_deficient(v1, n1, C2, C3, alphas) -> np.ndarray:
     return (det.abs().amax(1) < RANK_TOL).cpu().numpy()
 
 
-def compare_trace_roots(out, ref, n_roots: int, deficient) -> dict:
+def root_alpha(R, v1, n1):
+    """The family angle of rotations R [M, 3, 3] of the instances'
+    (v1, n1) [M, 3]: R v1 = d(alpha) = cos(alpha) u + sin(alpha) w."""
+    u = any_perp(n1)
+    w = cross(n1, u)
+    d = (R @ v1[:, :, None])[..., 0]
+    return torch.atan2((d * w).sum(-1) / (w * w).sum(-1), (d * u).sum(-1))
+
+
+def family_rotation(alpha, v1, n1, C2, C3):
+    """The rotation of the family at ``alpha``, in the data's dtype."""
+    _, beta, _, d, R0 = family_eval(alpha, v1, n1, C2, C3)
+    return rot_axis_angle(d, beta) @ R0
+
+
+def root_witness(args, inst, Rk, Rp):
+    """Float64 witness of bisected roots where the kernel's rotation Rk
+    and the plain one Rp [M, 3, 3] of instances ``inst`` [M] differ by
+    more than ROOTS_SIMPLE_TOL.  ``args`` = (v1, n1, C2, C3, alphas).
+    A root passes when float64 shows it is a root to float32's
+    resolution: the kernel's family angle lies in the plain root's grid
+    cell (the same root), the family's G there is within WITNESS_FACTOR
+    times the plain version's own float32 error of G (measured at
+    WITNESS_POINTS angles from one root to the other) of zero, and its
+    rotation within ROOTS_SIMPLE_TOL of the float64 family's at that
+    angle, plus how far that rotation moves within WITNESS_ALPHA of the
+    angle, plus WITNESS_FACTOR times the plain version's own float32
+    error of the rotation there.  Returns ([M] bool, [M] dicts)."""
+    idx = torch.as_tensor(np.asarray(inst), device=args[0].device)
+    data = [a[idx] for a in args[:4]]
+    d64 = [a.double() for a in data]
+    grid = args[4].double()
+    ak, ap = (root_alpha(torch.as_tensor(R, device=idx.device).double(),
+                         d64[0], d64[1]) for R in (Rk, Rp))
+    cell = lambda a: torch.searchsorted(grid, a.contiguous()) - 1
+    same_cell = cell(ak) == cell(ap)
+    t = torch.linspace(0.0, 1.0, WITNESS_POINTS, dtype=torch.float64,
+                       device=idx.device)
+    pts = ap[:, None] + (ak - ap)[:, None] * t                 # [M, P]
+    unsq = lambda x: [a[:, None] for a in x]
+    g32 = family_eval(pts.float(), *unsq(data))[0].double()
+    g64 = family_eval(pts.float().double(), *unsq(d64))[0]
+    e32 = (g32 - g64).abs().amax(1)
+    G = family_eval(ak, *d64)[0]
+    # the float64 rotation at the kernel's angle and at WITNESS_ALPHA
+    # either side of it (a few float32 ulps of an angle near pi): where
+    # the second angle beta is ill-conditioned the rotation moves by more
+    # than ROOTS_SIMPLE_TOL within the angle's float32 resolution
+    delta = WITNESS_ALPHA * ak.new_tensor([0.0, -1.0, 1.0])
+    R64 = family_rotation(ak[:, None] + delta, *unsq(d64))     # [M, 3, ...]
+    spread = (R64[:, 1:] - R64[:, :1]).abs().amax((-1, -2, -3))
+    # the plain version's own float32 error of the rotation at that angle
+    # (beta comes from Nc, Ns and det, differences of products that all
+    # run small between two close roots)
+    a32 = ak.float()
+    r32_err = (family_rotation(a32, *data).double()
+               - family_rotation(a32.double(), *d64)).abs().amax((-1, -2))
+    r_err = (torch.as_tensor(Rk, device=idx.device).double()
+             - R64[:, 0]).abs().amax((-1, -2))
+    ok = same_cell & (G.abs() <= WITNESS_FACTOR * e32) \
+        & (r_err <= ROOTS_SIMPLE_TOL + spread + WITNESS_FACTOR * r32_err)
+    detail = [{"instance": int(i), "alpha_diff": float(k - p),
+               "same_cell": bool(c), "g64": float(g), "g32_err": float(e),
+               "rotation_err": float(r), "rotation_spread": float(sp),
+               "rotation32_err": float(r3)}
+              for i, k, p, c, g, e, r, sp, r3 in zip(
+                  inst, ak.tolist(), ap.tolist(), same_cell.tolist(),
+                  G.abs().tolist(), e32.tolist(), r_err.tolist(),
+                  spread.tolist(), r32_err.tolist())]
+    return ok.cpu().numpy(), detail
+
+
+def compare_trace_roots(out, ref, n_roots: int, deficient,
+                        args=None) -> dict:
     """Kernel (R, ok) against plain (R, ok), per instance 2 n_roots slots:
     the bisected roots slot by slot (validity flags that differ, the
     largest rotation error where both are valid), the double roots as
     sets (the largest error of a root to its nearest partner, and the
     roots without one within ROOTS_DOUBLE_TOL) on the instances that are
-    not rank-deficient (``deficient`` [B] bool, see RANK_TOL)."""
+    not rank-deficient (``deficient`` [B] bool, see RANK_TOL).  A
+    bisected root beyond ROOTS_SIMPLE_TOL passes only on a float64
+    witness (:func:`root_witness`), which needs the inputs ``args``
+    (v1, n1, C2, C3, alphas)."""
     (Rk, okk), (Rp, okp) = ([x.cpu().numpy() for x in o] for o in (out, ref))
     shape = (len(okp), 2, n_roots)         # instance, branch, slot
     Rk, Rp = Rk.reshape(shape + (9,)), Rp.reshape(shape + (9,))
     okk, okp = okk.reshape(shape), okp.reshape(shape)
     both = okk[:, 0] & okp[:, 0]
-    err = np.abs(Rk[:, 0] - Rp[:, 0]).max(-1)[both]
+    err_all = np.abs(Rk[:, 0] - Rp[:, 0]).max(-1)
+    err = err_all[both]
+    beyond = both & (err_all > ROOTS_SIMPLE_TOL)
+    witnessed = np.zeros_like(beyond)
+    detail = []
+    if args is not None and beyond.any():
+        n, s = np.nonzero(beyond)
+        witnessed[n, s], detail = root_witness(
+            args, n, Rk[n, 0, s].reshape(-1, 3, 3),
+            Rp[n, 0, s].reshape(-1, 3, 3))
     # double roots: pairwise distances within an instance
     dk, dp = okk[:, 1] & ~deficient[:, None], okp[:, 1] & ~deficient[:, None]
     dist = np.abs(Rk[:, 1, :, None] - Rp[:, 1, None, :]).max(-1)
@@ -137,6 +231,9 @@ def compare_trace_roots(out, ref, n_roots: int, deficient) -> dict:
            "rank_deficient": int(deficient.sum()),
            "simple_flag_diffs": int((okk[:, 0] != okp[:, 0]).sum()),
            "simple_max_err": float(err.max(initial=0.0)),
+           "simple_beyond_tol": int(beyond.sum()),
+           "simple_witnessed": int(witnessed.sum()),
+           "witness": detail[:8],
            "double_valid": int(dk.sum() + dp.sum()),
            "double_unpaired": int((paired > ROOTS_DOUBLE_TOL).sum()),
            "double_max_err": float(paired[paired <= ROOTS_DOUBLE_TOL]
@@ -144,7 +241,7 @@ def compare_trace_roots(out, ref, n_roots: int, deficient) -> dict:
     res["max_abs_err"] = max(res["simple_max_err"], res["double_max_err"])
     res["ok"] = bool(
         res["simple_flag_diffs"] <= ROOTS_FLAG_SHARE * max(res["valid"], 1)
-        and res["simple_max_err"] <= ROOTS_SIMPLE_TOL
+        and res["simple_beyond_tol"] == res["simple_witnessed"]
         and res["double_unpaired"]
         <= ROOTS_UNPAIRED_SHARE * max(res["double_valid"], 1))
     return res
@@ -327,7 +424,8 @@ def check_one(kernel: str, seed: int, degenerate: bool = False,
         return compare_trace_roots(trace_roots(*args, grid, 48, n_roots),
                                    trace_roots_plain(*args, grid, 48,
                                                      n_roots), n_roots,
-                                   rank_deficient(*args, grid))
+                                   rank_deficient(*args, grid),
+                                   args + [grid])
     if kernel == "pose_score":
         args = [on(x) for x in pose_score_inputs(seed, degenerate=degenerate)]
         params = ScoreParams.from_thresholds(10.0, 10.0)

@@ -250,6 +250,15 @@ def runner_config(output_dir, n_neighbors=N_NEIGHBORS) -> dict:
     return cfg
 
 
+def exhaustive_runner_config(output_dir, n_neighbors=N_NEIGHBORS) -> dict:
+    """:func:`runner_config` with ``use_exhaustive_matcher``: no
+    descriptors and no matcher; every line is proposed against every
+    line of each neighbour."""
+    cfg = runner_config(output_dir, n_neighbors)
+    cfg["triangulation"]["use_exhaustive_matcher"] = True
+    return cfg
+
+
 def run(n_views=N_VIEWS, scene=None, device=None):
     """One pass of the pipeline from pixels with per-stage wall-clock
     (each stage ends with a device synchronize).  ``scene`` is a

@@ -1,14 +1,16 @@
-"""Global multi-view line triangulator: bucketed proposals, scoring and
-track building.
+"""Global multi-view line triangulator: proposals, scoring and track
+building.
 
-Every image's candidate match edges are bucketed on the host into up to
-``Tc`` slots per line (``[G, L, Tc]`` int32 edge words, ``(b << 7) |
-slot``, -1 = empty).  One bucket program per group of images then
-triangulates every (line, edge) pair, scores all pairs of proposals of a
-line against each other (``[TT, TT, N]``, the reference's O(tris^2)
-loop), keeps one support per neighbour image, picks the best proposal
-per line and packs its valid edges.  Results stay on the device until
-the clustering step (edge gate + connected components) has run.
+With a matcher, every image's candidate match edges are bucketed on the
+host into up to ``Tc`` slots per line (``[G, L, Tc]`` int32 edge words,
+``(b << 7) | slot``, -1 = empty).  With the exhaustive matcher, kernel
+F enumerates each line against every line of each neighbour and keeps
+the survivors of its culls, all of them, compacted per line.  Either way
+kernel G then scores all pairs of proposals of a line against each
+other (the reference's O(tris^2) loop), keeps one support per neighbour
+image, picks the best proposal per line and packs its valid edges.
+Results stay on the device until the clustering step (edge gate +
+connected components, or the host strategies) has run.
 """
 
 from __future__ import annotations
@@ -21,24 +23,24 @@ import numpy as np
 import torch
 
 from limap_tpu_torch import resolve_device
-from limap_tpu_torch.base import line_geometry as lgeo
-from limap_tpu_torch.base.camera import CameraViewsBatch
 from limap_tpu_torch.base.image_collection import ImageCollection
 from limap_tpu_torch.base.line_linker import (LineLinker2dConfig,
-                                              LineLinker3dConfig, score_2d,
-                                              score_3d)
+                                              LineLinker3dConfig, score_3d)
 from limap_tpu_torch.base.lines import Segments
-from limap_tpu_torch.base.linetrack import batch_from_flat_supports
+from limap_tpu_torch.base.linetrack import (LineTrack,
+                                             batch_from_flat_supports,
+                                             tracks_to_batch)
 from limap_tpu_torch.merging.aggregator import aggregate_tracks
-from limap_tpu_torch.ops import hostops
+from limap_tpu_torch.merging.strategies import (
+    compute_track_labels_avg, compute_track_labels_exhaustive)
+from limap_tpu_torch.ops import hostops, tri_propose, tri_score
 from limap_tpu_torch.ops.connected_components import connected_components
-from limap_tpu_torch.triangulation import functions as trifun
 from limap_tpu_torch.util import dataclass_from_dict, shape_bucket
 
-# bytes of [L, TT, TT] scoring intermediates one bucket program may keep
-# alive; eager torch holds every intermediate of score_3d/score_2d of a
-# group at once, so this bounds the images per group
+# bytes of proposal rows (tri, ok, words, scores: 46 a proposal) one
+# group of images may hold on the device
 GROUP_BYTES = 2e9
+PROPOSAL_BYTES = 46
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +93,8 @@ def bucket_program(cfg: TriangulatorConfig, L: int, K: int, T: int,
                    l2d_packed: torch.Tensor, cam_packed: torch.Tensor,
                    words: torch.Tensor, meta: torch.Tensor,
                    ranges=None):
-    """Triangulate, score and select over one group of G images.
+    """Triangulate, score and select over one group of G images: kernel
+    F on the bucketed edge words, then kernel G.
 
     l2d_packed [I, L, 6] (sx, sy, ex, ey, ok, pad); cam_packed [I, 12]
     (kvec, qvec, tvec, pad); words [G, L, T] int32 edge words; meta
@@ -100,139 +103,20 @@ def bucket_program(cfg: TriangulatorConfig, L: int, K: int, T: int,
     score) and ints [G, L, T + 1] (packed valid edges as global node
     ids, -1 padded, then their count).
     """
-    if cfg.use_vp and not cfg.disable_vp_triangulation:
-        raise NotImplementedError("VP triangulation is not ported yet")
-    if cfg.disable_algebraic_triangulation:
-        raise NotImplementedError(
-            "only the algebraic / endpoint proposal bank is ported")
-    G = words.shape[0]
-    N = G * L
-    I = cam_packed.shape[0]
-    dev = words.device
-    l2d_flat = l2d_packed.reshape(I * L, 6)
-    nbr_table = meta[:, :K].long()                              # [G, K]
-    row_ids = meta[:, K].long()                                 # [G]
-
-    word = words.reshape(N, T)
-    tvalid = word >= 0
-    w = torch.clamp(word, min=0)
-    b = (w >> 7).long()
-    slot = (w & 0x7F).long()
-
-    g_ids = torch.arange(G, device=dev).repeat_interleave(L)    # [N]
-    ng_row = nbr_table.reshape(G * K)[
-        g_ids[:, None] * K + torch.clamp(slot, 0, K - 1)]
-    ng_row = torch.clamp(ng_row, min=0)                         # [N, T]
-    own = l2d_packed[row_ids].reshape(N, 6)
-    nb = l2d_flat[ng_row * L + b]                               # [N, T, 6]
-    cam1 = cam_packed[row_ids].repeat_interleave(L, 0)[:, None]  # [N, 1, 12]
-    cam2 = cam_packed[ng_row]                                   # [N, T, 12]
-    l1 = Segments(own[:, None, 0:2], own[:, None, 2:4])
-    l2 = Segments(nb[..., 0:2], nb[..., 2:4])
-    v1 = CameraViewsBatch(cam1[..., 0:4], cam1[..., 4:8], cam1[..., 8:11])
-    v2 = CameraViewsBatch(cam2[..., 0:4], cam2[..., 4:8], cam2[..., 8:11])
-    valid = tvalid & (own[:, None, 4] > 0.5) & (nb[..., 4] > 0.5)
-
-    # degeneracy: ray-plane angles, epipolar IoU, sensitivity
-    n2 = trifun.get_normal_direction(l2, v2)
-
-    def ray_angle(p):
-        c = torch.abs(torch.sum(n2 * v1.ray_direction(p), -1))
-        return 90.0 - torch.rad2deg(torch.arccos(torch.clamp(c, 0, 1)))
-
-    ok = ((ray_angle(l1.start) >= cfg.line_tri_angle_threshold)
-          & (ray_angle(l1.end) >= cfg.line_tri_angle_threshold))
-    ok = ok & (trifun.compute_epipolar_iou(l1, v1, l2, v2)
-               >= cfg.IoU_threshold)
-    if cfg.use_endpoints_triangulation:
-        tri = trifun.triangulate_line_by_endpoints(l1, v1, l2, v2)
-    else:
-        tri = trifun.triangulate_line_algebraic(l1, v1, l2, v2)
-    s1 = lgeo.sensitivity(tri, v1)
-    s2 = lgeo.sensitivity(tri, v2)
-    ok = ok & ~((s1 > cfg.sensitivity_threshold)
-                & (s2 > cfg.sensitivity_threshold))
-    tri_ok = ok & valid & (tri.score > 0)
-    if ranges is not None:
-        tri_ok = tri_ok & trifun.test_line_inside_ranges(tri, ranges)
-    tri_unc = torch.minimum(lgeo.compute_uncertainty(tri, v1, cfg.var2d),
-                            lgeo.compute_uncertainty(tri, v2, cfg.var2d))
-    TT = T
-    tri_start, tri_end, tri_depths = tri.start, tri.end, tri.depths
-
-    # scoring: [TT, TT, N] pairwise min(3D, 2D) linker, N minor
-    tS = tri_start.transpose(0, 1)                      # [TT, N, 3]
-    tE = tri_end.transpose(0, 1)
-    tD = tri_depths.transpose(0, 1)
-    tU = tri_unc.T                                      # [TT, N]
-    tOK = tri_ok.T
-    slotT = slot.T
-    l_i = Segments(tS[:, None], tE[:, None], depths=tD[:, None],
-                   uncertainty=tU[:, None])             # [TT, 1, N]
-    l_j = Segments(tS[None], tE[None], depths=tD[None],
-                   uncertainty=tU[None])                # [1, TT, N]
-    s3d = score_3d(l_i, l_j, cfg.linker3d.to_shared_parent_scoring())
-    # 2D: project tri_i into tri_j's neighbour view, compare with tri_j's
-    # matched 2D segment
-    vj = CameraViewsBatch(v2.kvec.transpose(0, 1)[None],
-                          v2.qvec.transpose(0, 1)[None],
-                          v2.tvec.transpose(0, 1)[None])  # [1, TT, N]
-    proj = lgeo.project_segments(Segments(tS[:, None], tE[:, None]), vj)
-    s2d = score_2d(proj, Segments(l2.start.transpose(0, 1)[None],
-                                  l2.end.transpose(0, 1)[None]),
-                   cfg.linker2d)
-    s = torch.minimum(s3d, s2d)
-    del s3d, s2d, proj
-    # pairs sharing a slot (the diagonal included) never support
-    pair_ok = tOK[:, None] & tOK[None] & (slotT[:, None] != slotT[None])
-    s = torch.where(pair_ok, s, torch.zeros_like(s))
-    # one support per neighbour image: max per (i, slot of j), then the
-    # sum over the K slots in slot order
-    per_slot = torch.zeros((TT, K, N), dtype=s.dtype, device=dev)
-    per_slot.scatter_reduce_(1, slotT[None].expand(TT, TT, N), s,
-                             reduce="amax", include_self=True)
-    scoresT = torch.zeros((TT, N), dtype=s.dtype, device=dev)
-    for k in range(K):
-        scoresT = scoresT + per_slot[:, k]
-    scores = torch.where(tri_ok, scoresT.T, torch.full_like(tri_unc, -1.0))
-
-    # best tri (first on ties) + packed valid edges
-    r = torch.arange(N, device=dev)
-    best = torch.argmax(scores, dim=1)
-    has_any = tri_ok[r, best]
-    best_unc = torch.where(has_any, tri_unc[r, best],
-                           torch.full_like(tri_unc[:, 0], 1e30))
-    best_score = torch.where(has_any, scores[r, best],
-                             torch.full_like(tri_unc[:, 0], -1.0))
-    valid_e = tri_ok & (scores >= cfg.fullscore_th)
-    if cfg.max_valid_conns < TT:
-        rank = torch.argsort(torch.argsort(-scores, dim=1, stable=True),
-                             dim=1, stable=True)
-        valid_e = valid_e & (rank < cfg.max_valid_conns)
-    ng_global = ng_row * L + b
-    cnt = torch.clamp(valid_e.sum(1), max=T)
-    # stable pack of the valid edges; argsort of a bool is not defined
-    # stably, so sort the int view
-    pack_order = torch.argsort((~valid_e).to(torch.int32), dim=1,
-                               stable=True)
-    packed = torch.gather(ng_global, 1, pack_order[:, :T])
-    padded = torch.where(torch.arange(T, device=dev)[None] < cnt[:, None],
-                         packed, torch.full_like(packed, -1))
-    floats = torch.cat([tri_start[r, best], tri_end[r, best],
-                        tri_depths[r, best], best_unc[:, None],
-                        best_score[:, None]], dim=1).reshape(G, L, 10)
-    ints = torch.cat([padded, cnt[:, None]], dim=1).to(
-        torch.int32).reshape(G, L, T + 1)
-    return floats, ints
+    tri, ok = tri_propose.propose(cfg, L, K, l2d_packed, cam_packed, words,
+                                  meta, ranges)
+    return tri_score.score(cfg, L, K, l2d_packed, cam_packed, words, meta,
+                           tri, ok)
 
 
 class GlobalLineTriangulator:
-    """Image-incremental triangulator over bucketed batch programs.
+    """Image-incremental triangulator over kernels F and G.
 
       tri = GlobalLineTriangulator(cfg, device=...)
       tri.init(all_2d_segs, imagecols)
-      tri.triangulate_all(matches_by_image)
-      batch = tri.compute_track_batch()
+      tri.triangulate_all(matches_by_image)    # or, without a matcher,
+      tri.triangulate_all_exhaustive(neighbors)
+      batch = tri.compute_track_batch()        # or compute_line_tracks()
     """
 
     def __init__(self, cfg: TriangulatorConfig = TriangulatorConfig(),
@@ -272,8 +156,11 @@ class GlobalLineTriangulator:
         self._cam_packed = torch.cat(
             [vb.kvec, vb.qvec, vb.tvec,
              torch.zeros((I, 1), device=self.device)], dim=1)
-        self._dev_results = None
+        self.n_lines = mask.sum(1)
+        self._outs = []
         self._host = None
+        self.overflow_edges = 0
+        self.exhaustive_stats = None
 
     def set_ranges(self, ranges) -> None:
         if ranges is not None:
@@ -285,12 +172,8 @@ class GlobalLineTriangulator:
     def _gather_edges(self, rows: List[int], matches_list: List[dict]):
         """Per-image candidate edges (slot-major, stable), the global slot
         count K and the bucket width Tc."""
-        T = self.cfg.max_tris_per_node
         L = self.L
-        K = max((len(m) for m in matches_list), default=1) or 1
-        if K > 127:
-            raise ValueError("at most 127 neighbours per image: the edge "
-                             "word keeps the slot in 7 bits")
+        K = self._slot_count(matches_list)
         per_key, per_val, nbr_rows = [], [], []
         max_count = 1
         for matches in matches_list:
@@ -312,15 +195,28 @@ class GlobalLineTriangulator:
             else:
                 per_key.append(np.zeros(0, np.int64))
                 per_val.append(np.zeros(0, np.int32))
-        # bucket width: the next multiple of 8 covering the most edges of
-        # a line (2 / 4 for tiny scenes), capped at max_tris_per_node
-        if max_count <= 2:
-            Tc = 2
-        elif max_count <= 4:
-            Tc = 4
-        else:
-            Tc = int(8 * ((max_count + 7) // 8))
-        return per_key, per_val, nbr_rows, K, min(T, Tc)
+        # bucket width: the cover of the most edges of a line, capped at
+        # max_tris_per_node
+        Tc = min(self.cfg.max_tris_per_node,
+                 tri_propose.bucket_width(max_count))
+        return per_key, per_val, nbr_rows, K, Tc
+
+    @staticmethod
+    def _slot_count(neighbor_lists) -> int:
+        K = max((len(m) for m in neighbor_lists), default=1) or 1
+        if K > 127:
+            raise ValueError("at most 127 neighbours per image: the edge "
+                             "word keeps the slot in 7 bits")
+        return K
+
+    def _meta(self, nbr_rows, rows, K):
+        """[g, K + 1] int32: neighbour rows by slot (-1 padded), then the
+        image's own row."""
+        meta = np.full((len(rows), K + 1), -1, np.int32)
+        for i, (nr, row) in enumerate(zip(nbr_rows, rows)):
+            meta[i, :len(nr)] = nr
+            meta[i, K] = row
+        return meta
 
     def _fill_group(self, per_key, per_val, nbr_rows, rows, g0, g1, K, Tc):
         """Dense [g, L, Tc] edge words and [g, K + 1] meta for images
@@ -331,19 +227,57 @@ class GlobalLineTriangulator:
         key = np.concatenate(kk) if kk else np.zeros(0, np.int64)
         vals = np.concatenate(per_val[g0:g1]) if g else np.zeros(0, np.int32)
         words, overflow = hostops.bucket_scene(key, vals, g * L, Tc)
-        meta = np.full((g, K + 1), -1, np.int32)
-        for i in range(g0, g1):
-            nr = nbr_rows[i]
-            meta[i - g0, :len(nr)] = nr
-            meta[i - g0, K] = rows[i]
+        meta = self._meta(nbr_rows[g0:g1], rows[g0:g1], K)
         return words.reshape(g, L, Tc), meta, overflow
 
+    def _groups(self, n: int, width: int):
+        """Image ranges [g0, g1) holding at most GROUP_BYTES of proposal
+        rows of bucket width ``width``, equalized over the groups."""
+        per_img = self.L * max(width, 1) * PROPOSAL_BYTES
+        size = int(max(1, min(n, GROUP_BYTES // per_img)))
+        size = -(-n // -(-n // size)) if n else 1
+        return [(g0, min(g0 + size, n)) for g0 in range(0, n, size)]
+
+    def _device(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
     # ---------------------------------------------------- triangulation
+    def _run_matched(self, rows, matches_list):
+        """Kernel F form (a) + kernel G over groups of images; returns the
+        outputs and the dropped edges."""
+        per_key, per_val, nbr_rows, K, Tc = self._gather_edges(
+            rows, matches_list)
+        overflow = 0
+        outs = []
+        for g0, g1 in self._groups(len(rows), Tc):
+            words, meta, ovf = self._fill_group(per_key, per_val, nbr_rows,
+                                                rows, g0, g1, K, Tc)
+            overflow += ovf
+            floats, ints = bucket_program(
+                self.cfg, self.L, K, Tc, self._l2d_packed, self._cam_packed,
+                self._device(words), self._device(meta), self.ranges)
+            outs.append((rows[g0:g1], floats, ints))
+        return outs, overflow
+
+    def _record(self, outs, overflow, reset):
+        if reset:
+            self._outs = []
+            self.overflow_edges = 0
+        self._outs += outs
+        self.overflow_edges += overflow
+        self._host = None
+        if overflow:
+            warnings.warn(
+                f"{overflow} candidate edges dropped by the "
+                f"max_tris_per_node={self.cfg.max_tris_per_node} bucket; "
+                f"raise it for full recall", stacklevel=3)
+
     def triangulate_all(self, matches_by_image: Dict[int, Dict[int,
                                                                np.ndarray]]
                         ) -> None:
-        """Triangulate and score every image, in groups of images sized
-        by ``GROUP_BYTES``; the results stay on the device."""
+        """Triangulate and score every image with matches, in groups of
+        images sized by ``GROUP_BYTES``; the results stay on the device
+        and replace earlier ones."""
         rows, matches_list = [], []
         for img_id in self.img_ids:
             m = matches_by_image.get(img_id)
@@ -351,53 +285,97 @@ class GlobalLineTriangulator:
                 continue
             rows.append(self.id2idx[img_id])
             matches_list.append(m)
-        if not rows:
-            return
-        per_key, per_val, nbr_rows, K, Tc = self._gather_edges(
-            rows, matches_list)
-        n = len(rows)
-        # as many images as GROUP_BYTES of [L, TT, TT] intermediates
-        # allow, equalized over the groups
-        per_img = self.L * (Tc * Tc) * 4 * 12
-        group_size = int(max(1, min(n, GROUP_BYTES // max(per_img, 1))))
-        n_groups = -(-n // group_size)
-        group_size = -(-n // n_groups)
-        overflow = 0
+        if rows:
+            self._record(*self._run_matched(rows, matches_list), reset=True)
+
+    def triangulate_image(self, img_id: int,
+                          matches: Dict[int, np.ndarray]) -> None:
+        """Triangulate and score one image against its matched
+        neighbours ({neighbour id: [M, 2] line pairs}); the result
+        replaces the image's earlier one."""
+        self._record(*self._run_matched([self.id2idx[img_id]], [matches]),
+                     reset=False)
+
+    def triangulate_image_exhaustive(self, img_id: int,
+                                     neighbors: List[int]) -> None:
+        """Every line of the image against every line of each neighbour
+        (no matcher); the result replaces the image's earlier one."""
+        self._record(*self._run_exhaustive({img_id: neighbors}),
+                     reset=False)
+
+    def triangulate_all_exhaustive(self, neighbors: Dict[int, List[int]]
+                                   ) -> None:
+        """The exhaustive matcher for every image of ``neighbors``
+        ({img_id: [neighbour ids]}); the results replace earlier ones.
+        ``exhaustive_stats`` keeps the candidate pairs and the survivors
+        (total, largest a line) and the bucket width."""
+        if any(i in neighbors for i in self.img_ids):
+            self._record(*self._run_exhaustive(neighbors), reset=True)
+
+    def _run_exhaustive(self, neighbors):
+        """Kernel F counts each line's survivors, the bucket takes the
+        cover of the largest count (no cap, nothing dropped), then F
+        writes the survivors and G scores them, in groups of images sized
+        by ``GROUP_BYTES``; returns the outputs, their edge columns cut
+        to the largest valid count (the bucket is as wide as the most
+        survivors of a line, its valid edges far fewer), and no dropped
+        edges."""
+        ids = [i for i in self.img_ids if i in neighbors]
+        rows = [self.id2idx[i] for i in ids]
+        nbr_rows = [[self.id2idx[ng] for ng in sorted(neighbors[i])]
+                    for i in ids]
+        K = self._slot_count(nbr_rows)
+        meta = self._device(self._meta(nbr_rows, rows, K))
+        cfg, L = self.cfg, self.L
+        counts = tri_propose.count_exhaustive(
+            cfg, L, K, self._l2d_packed, self._cam_packed, meta, self.ranges)
+        max_count = int(counts.max())
+        W = tri_propose.bucket_width(max_count)
         outs = []
-        for g0 in range(0, n, group_size):
-            g1 = min(g0 + group_size, n)
-            words, meta, ovf = self._fill_group(per_key, per_val, nbr_rows,
-                                                rows, g0, g1, K, Tc)
-            overflow += ovf
-            floats, ints = bucket_program(
-                self.cfg, self.L, K, Tc, self._l2d_packed, self._cam_packed,
-                torch.as_tensor(words, device=self.device),
-                torch.as_tensor(meta, device=self.device), self.ranges)
+        for g0, g1 in self._groups(len(rows), W):
+            m = meta[g0:g1]
+            words, tri, ok = tri_propose.propose_exhaustive(
+                cfg, L, K, self._l2d_packed, self._cam_packed, m, W,
+                self.ranges)
+            floats, ints = tri_score.score(
+                cfg, L, K, self._l2d_packed, self._cam_packed,
+                words.reshape(g1 - g0, L, W), m, tri, ok)
             outs.append((rows[g0:g1], floats, ints))
-        self.overflow_edges = overflow
-        if overflow:
-            warnings.warn(
-                f"{overflow} candidate edges dropped by the "
-                f"max_tris_per_node={self.cfg.max_tris_per_node} bucket; "
-                f"raise it for full recall", stacklevel=2)
-        self._dev_results = (outs, Tc)
-        self._host = None
+        w = max([1] + [int(i[..., -1].max()) for _, _, i in outs
+                       if i.numel()])
+        outs = [(r, f, torch.cat([i[..., :w], i[..., -1:]], -1))
+                for r, f, i in outs]
+        n_lines = self.n_lines
+        self.exhaustive_stats = {
+            "candidate_pairs": int(sum(
+                int(n_lines[r]) * int(sum(n_lines[nr])) for r, nr in
+                zip(rows, nbr_rows))),
+            "survivors_total": int(counts.sum()),
+            "survivors_max": max_count, "bucket_width": W,
+            "groups": len(outs)}
+        return outs, 0
 
     def _tables(self):
         """Full [I, L, 10] float and [I, L, Tc + 1] int tables on the
-        device, rows not triangulated left empty."""
-        outs, Tc = self._dev_results
+        device, rows not triangulated left empty; a row triangulated
+        twice keeps its last result."""
         I, L = len(self.img_ids), self.L
+        Tc = max(ints.shape[-1] - 1 for _, _, ints in self._outs)
         floats_all = torch.zeros((I, L, 10), device=self.device)
         floats_all[..., 8] = 1e30
         floats_all[..., 9] = -1.0
         ints_all = torch.full((I, L, Tc + 1), -1, dtype=torch.int32,
                               device=self.device)
         ints_all[..., Tc] = 0
-        for rows, floats, ints in outs:
+        for rows, floats, ints in self._outs:
             rsub = torch.as_tensor(rows, device=self.device)
+            w = ints.shape[-1] - 1
             floats_all[rsub] = floats
-            ints_all[rsub] = ints
+            ints_all[rsub] = torch.cat([
+                ints[..., :w],
+                torch.full(ints.shape[:-1] + (Tc - w,), -1,
+                           dtype=torch.int32, device=self.device),
+                ints[..., w:]], -1)
         return floats_all, ints_all, Tc
 
     def host_state(self):
@@ -446,15 +424,15 @@ class GlobalLineTriangulator:
 
     def _cluster_labels_device(self):
         """Edge gate (3D linker on the best tris of both ends) and
-        connected components on the device; only the labels, the
-        has-edge flags and the float table come to the host."""
+        connected components on the device, over the filled edge slots
+        only; the labels, the has-edge flags and the float table come to
+        the host."""
         floats_all, ints_all, Tc = self._tables()
         N = floats_all.shape[0] * floats_all.shape[1]
         f = floats_all.reshape(N, 10)
         dst = ints_all.reshape(N, Tc + 1)[:, :Tc].long()
-        valid = dst >= 0
-        d = torch.clamp(dst, min=0)
-        src = torch.arange(N, device=self.device)[:, None].expand(N, Tc)
+        src, col = torch.nonzero(dst >= 0, as_tuple=True)
+        d = dst[src, col]
         # score the sorted pair, as the host path's undirected edge list
         # does (score_3d is not symmetric under uncertainty scaling)
         lo = torch.minimum(src, d)
@@ -464,14 +442,12 @@ class GlobalLineTriangulator:
             Segments(flo[..., 0:3], flo[..., 3:6], uncertainty=flo[..., 8]),
             Segments(fhi[..., 0:3], fhi[..., 3:6], uncertainty=fhi[..., 8]),
             self.cfg.linker3d.to_spatial_merging())
-        keep = valid & (escore > 0) & (flo[..., 9] > 0) & (fhi[..., 9] > 0)
-        edges = torch.stack([src.reshape(-1), d.reshape(-1)], 1)
-        keep_f = keep.reshape(-1)
-        labels = connected_components(N, edges, keep_f)
+        keep = (escore > 0) & (flo[..., 9] > 0) & (fhi[..., 9] > 0)
+        labels = connected_components(N, torch.stack([src, d], 1), keep)
         has_edge = torch.zeros(N, dtype=torch.uint8, device=self.device)
-        k8 = keep_f.to(torch.uint8)
-        has_edge.scatter_reduce_(0, lo.reshape(-1), k8, reduce="amax")
-        has_edge.scatter_reduce_(0, hi.reshape(-1), k8, reduce="amax")
+        k8 = keep.to(torch.uint8)
+        has_edge.scatter_reduce_(0, lo, k8, reduce="amax")
+        has_edge.scatter_reduce_(0, hi, k8, reduce="amax")
         labels = labels.cpu().numpy().astype(np.int64)
         has_edge = has_edge.cpu().numpy().astype(bool)
         fh = f.cpu().numpy()
@@ -484,14 +460,22 @@ class GlobalLineTriangulator:
 
     def _cluster_labels(self):
         """Valid undirected edges -> linker-gated edges -> node labels.
-        Returns (labels, und, b_start, b_end, b_unc, b_score) or None."""
-        if self._dev_results is None:
+        Returns (labels, und, b_start, b_end, b_unc, b_score) or None.
+
+        ``greedy`` (the default) is connected components; ``exhaustive``
+        and ``avg`` are the host strategies of ``merging/strategies.py``
+        over the gated edges sorted by score.  A node those strategies
+        leave alone keeps a label of its own, so it forms no track (the
+        JAX package gives all such nodes one shared label, which groups
+        them into one track)."""
+        strategy = self.cfg.merging_strategy
+        if strategy not in ("greedy", "exhaustive", "avg"):
+            raise ValueError(
+                f"unknown merging_strategy {strategy!r}; expected "
+                "'greedy', 'exhaustive' or 'avg'")
+        if not self._outs:
             return None
-        if self.cfg.merging_strategy != "greedy":
-            raise NotImplementedError(
-                f"merging_strategy {self.cfg.merging_strategy!r} is not "
-                "ported yet; only 'greedy' is")
-        if self.cfg.min_num_outer_edges <= 0:
+        if self.cfg.min_num_outer_edges <= 0 and strategy == "greedy":
             return self._cluster_labels_device()
         best_line3d, b_unc, b_score, dst, _ = self.host_state()
         I, L = len(self.img_ids), self.L
@@ -509,7 +493,7 @@ class GlobalLineTriangulator:
         b_end = best_line3d[..., 1, :].reshape(I * L, 3)
         b_unc = b_unc.reshape(I * L)
         b_score = b_score.reshape(I * L)
-        t = lambda a: torch.as_tensor(a, device=self.device)
+        t = self._device
         escore = score_3d(
             Segments(t(b_start[und[:, 0]]), t(b_end[und[:, 0]]),
                      uncertainty=t(b_unc[und[:, 0]])),
@@ -518,15 +502,26 @@ class GlobalLineTriangulator:
             self.cfg.linker3d.to_spatial_merging()).cpu().numpy()
         keep = ((escore > 0) & (b_score[und[:, 0]] > 0)
                 & (b_score[und[:, 1]] > 0))
-        und = und[keep]
+        und, escore = und[keep], escore[keep]
         if len(und) == 0:
             return None
-        e = t(und)
-        labels = connected_components(
-            I * L, e, torch.ones(len(und), dtype=torch.bool,
-                                 device=self.device))
-        return (labels.cpu().numpy().astype(np.int64), und, b_start, b_end,
-                b_unc, b_score)
+        if strategy == "greedy":
+            labels = connected_components(
+                I * L, t(und), torch.ones(len(und), dtype=torch.bool,
+                                          device=self.device))
+            labels = labels.cpu().numpy().astype(np.int64)
+        else:
+            nodes = np.unique(und.reshape(-1))
+            remap = np.full(I * L, -1, np.int64)
+            remap[nodes] = np.arange(len(nodes))
+            fn = (compute_track_labels_avg if strategy == "avg"
+                  else compute_track_labels_exhaustive)
+            sub = fn(remap[und], escore,
+                     np.stack([b_start[nodes], b_end[nodes]], axis=1),
+                     nodes // L, self.cfg.linker3d)
+            labels = np.arange(I * L)
+            labels[nodes] = np.where(sub >= 0, I * L + sub, nodes)
+        return labels, und, b_start, b_end, b_unc, b_score
 
     def _grouped_nodes(self, labels, und):
         """Nodes with >= 1 valid edge sorted by label, keeping components
@@ -566,13 +561,48 @@ class GlobalLineTriangulator:
             l2[nodes].reshape(-1, 2, 2),
             np.stack([b_start[nodes], b_end[nodes]], 1),
             b_score[nodes].astype(np.float32),
-            num_tracks=int(track_of[-1]) + 1, return_slots=True, return_host=return_host, device=self.device)
+            num_tracks=int(track_of[-1]) + 1, return_slots=True,
+            return_host=return_host, device=self.device)
         # aggregation with the triangulation uncertainty
         u_pad = np.ones(batch.mask.shape, np.float32)
         u_pad[ti, si] = b_unc[nodes]
-        seg3d = batch.line3d._replace(
-            uncertainty=torch.as_tensor(u_pad, device=self.device))
+        seg3d = batch.line3d._replace(uncertainty=self._device(u_pad))
         agg = aggregate_tracks(seg3d, batch.score, batch.mask,
                                self.cfg.num_outliers_aggregator)
         batch = batch._replace(line=agg)
         return (batch, rest[0]) if return_host else batch
+
+    def compute_line_tracks(self) -> List[LineTrack]:
+        """Host :class:`LineTrack` objects: each track's supports (image,
+        line, 2D segment, best proposal, score, node id) and its line
+        aggregated with the triangulation uncertainty."""
+        res = self._cluster_labels()
+        if res is None:
+            return []
+        labels, und, b_start, b_end, b_unc, b_score = res
+        nodes, track_of = self._grouped_nodes(labels, und)
+        if not len(nodes):
+            return []
+        L = self.L
+        groups = np.split(nodes, np.nonzero(np.diff(track_of))[0] + 1)
+        l2 = self.lines2d.reshape(-1, 2, 2)
+        img_ids_arr = np.asarray(self.img_ids)
+        tracks = [LineTrack(
+            image_id_list=[int(img_ids_arr[n // L]) for n in g],
+            line_id_list=[int(n % L) for n in g],
+            line2d_list=[l2[n] for n in g],
+            line3d_list=[np.stack([b_start[n], b_end[n]]) for n in g],
+            score_list=[float(b_score[n]) for n in g],
+            node_id_list=[int(n) for n in g]) for g in groups]
+        batch = tracks_to_batch(tracks, self.id2idx, device=self.device)
+        u_pad = np.ones(batch.mask.shape, np.float32)
+        for gi, g in enumerate(groups):
+            n = min(len(g), u_pad.shape[1])
+            u_pad[gi, :n] = b_unc[g[:n]]
+        seg3d = batch.line3d._replace(uncertainty=self._device(u_pad))
+        agg = aggregate_tracks(seg3d, batch.score, batch.mask,
+                               self.cfg.num_outliers_aggregator)
+        agg_s, agg_e = agg.start.cpu().numpy(), agg.end.cpu().numpy()
+        for i, tr in enumerate(tracks):
+            tr.line = np.stack([agg_s[i], agg_e[i]])
+        return tracks

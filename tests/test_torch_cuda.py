@@ -15,7 +15,8 @@ from limap_tpu_torch.ops import nn_distance as nnd
 from limap_tpu_torch.ops.epipolar_iou import epipolar_iou_grid
 from limap_tpu_torch.ops.pose_score import pose_score
 from limap_tpu_torch.ops.trace_roots import trace_roots
-from limap_tpu_torch.testing import fitnmerge_checks, kernel_checks
+from limap_tpu_torch.testing import (fitnmerge_checks, kernel_checks,
+                                     tri_checks)
 from limap_tpu_torch.ops.nn_distance import (nn_min_dist, nn_min_dist_plain,
                                              nn_min_dist_scalar)
 
@@ -187,3 +188,66 @@ def test_fitnmerge_kernels_refuse_what_they_cannot_take(cuda):
         line_ransac(pts, valid, th, idx, idx)
     with pytest.raises(ValueError, match="idx_a"):
         line_ransac(pts[:, :8], valid[:, :8], th, idx.cpu(), idx)
+
+
+TRI_CASES = [(name, case) for case in ("6x120, 0.3 px", "4x40, endpoints")
+             for name in ("tri_propose words", "tri_score words",
+                          "tri_propose exhaustive", "tri_score exhaustive")]
+
+
+@pytest.fixture(scope="module")
+def tri_results():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return {(name, case): res
+            for name, case, res in tri_checks.check_all("cuda")}
+
+
+@pytest.mark.parametrize("name,case", TRI_CASES)
+def test_triangulator_kernels_vs_plain(tri_results, name, case):
+    res = tri_results[(name, case)]
+    assert res["ok_to_plain"], res
+
+
+def test_triangulator_kernels_count_their_launches(cuda):
+    from limap_tpu_torch.ops import tri_propose, tri_score
+    tri, matches = tri_checks.seeded_inputs(n_views=3, n_lines=20)
+    n_f, n_g = tri_propose.propose.launches, tri_score.score.launches
+    tri.triangulate_all(matches)
+    assert tri_propose.propose.launches == n_f + 1
+    assert tri_score.score.launches == n_g + 1
+    tri.triangulate_all_exhaustive({i: sorted(m) for i, m in
+                                    matches.items()})
+    # the count, then the write; then the score
+    assert tri_propose.propose.launches == n_f + 3
+    assert tri_score.score.launches == n_g + 2
+
+
+def test_triangulator_kernels_refuse_what_they_cannot_take(cuda):
+    from limap_tpu_torch.ops import tri_propose, tri_score
+    tri, matches = tri_checks.seeded_inputs(n_views=3, n_lines=20)
+    meta = torch.zeros((3, 3), dtype=torch.int32, device="cuda")
+    words = torch.zeros((3, tri.L, 4), dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError):
+        tri_propose.propose(tri.cfg, tri.L, 2, tri._l2d_packed,
+                            tri._cam_packed, words, meta)
+    with pytest.raises(ValueError):
+        tri_score.score(tri.cfg, tri.L, 2, tri._l2d_packed, tri._cam_packed,
+                        words.int(), meta,
+                        torch.zeros((3 * tri.L, 4, 9), device="cuda"),
+                        torch.zeros((3 * tri.L, 5), dtype=torch.bool,
+                                    device="cuda"))
+    nbrs = {i: sorted(m) for i, m in matches.items()}
+    counts = tri_propose.count_exhaustive(
+        tri.cfg, tri.L, 2, tri._l2d_packed, tri._cam_packed,
+        tri._device(tri._meta([[tri.id2idx[n] for n in nbrs[i]]
+                               for i in sorted(nbrs)],
+                              [tri.id2idx[i] for i in sorted(nbrs)], 2)))
+    assert int(counts.max()) > 2
+    with pytest.raises(ValueError, match="survivors"):
+        tri_propose.propose_exhaustive(
+            tri.cfg, tri.L, 2, tri._l2d_packed, tri._cam_packed,
+            tri._device(tri._meta([[tri.id2idx[n] for n in nbrs[i]]
+                                   for i in sorted(nbrs)],
+                                  [tri.id2idx[i] for i in sorted(nbrs)], 2)),
+            2)

@@ -77,6 +77,65 @@ def test_root_comparison_accepts_rounding_and_refuses_faults(seed,
     bad = R.clone()
     bad[:, :4] = bad[:, :4].transpose(-1, -2)
     assert not kc.compare_trace_roots((bad, ok), ref, 4, deficient)["ok"]
+    # the float64 witness admits no fault either
+    assert not kc.compare_trace_roots((bad, ok), ref, 4, deficient,
+                                      args + [grid])["ok"]
+    assert kc.compare_trace_roots(moved, ref, 4, deficient,
+                                  args + [grid])["ok"]
+
+
+# instances of trace_roots_inputs(12, B=16384) where two roots lie close
+# (1450, 12835: the float32 plain root is 1.5e-3 and 3.1e-3 rad off the
+# float64 one, its rotation 2.8e-3 off), among well-conditioned ones
+CLOSE_ROOTS = [1450, 12835] + list(range(0, 62))
+
+
+def _close_roots():
+    inputs = [x[CLOSE_ROOTS] for x in kc.trace_roots_inputs(12, B=16384)]
+    ref, args, grid = _roots(inputs)
+    R64, ok64 = trace_roots_plain(*[a.double() for a in args],
+                                  grid.double(), 60, 4)
+    return ref, (R64.float(), ok64), args + [grid]
+
+
+def test_root_witness_accepts_the_float64_roots():
+    """The float64 roots against the float32 plain version: where two
+    roots lie close the plain one is off by more than ROOTS_SIMPLE_TOL,
+    and the float64 witness, alone, accepts the true root."""
+    ref, exact, args = _close_roots()
+    deficient = kc.rank_deficient(*args)
+    assert not kc.compare_trace_roots(exact, ref, 4, deficient)["ok"]
+    res = kc.compare_trace_roots(exact, ref, 4, deficient, args)
+    assert res["simple_beyond_tol"] == res["simple_witnessed"] == 2, res
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("instance", [0, 2])
+def test_root_witness_refuses_a_wrong_root(instance):
+    """Off the root (0.01 rad along the family), the root's rotation
+    transposed or turned by 5e-3 rad about its axis, or the rotation of
+    the next grid cell: refused, at a root close to another one
+    (instance 0) and at a well-conditioned one (instance 2)."""
+    ref, exact, args = _close_roots()
+    deficient = kc.rank_deficient(*args)
+    R, ok = exact
+    from limap_tpu_torch.ops.trace_roots import family_eval, rot_axis_angle
+    n = instance
+    data = [a[n:n + 1].double() for a in args[:4]]
+    alpha = kc.root_alpha(R[n, :1].double(), data[0], data[1])
+    for fault in ("off the root", "transposed", "turned", "next cell"):
+        bad = R.clone()
+        if fault == "transposed":
+            bad[n, 0] = R[n, 0].T.clone()
+        elif fault == "turned":
+            _, beta, _, d, R0 = family_eval(alpha, *data)
+            bad[n, 0] = (rot_axis_angle(d, beta + 5e-3) @ R0)[0].float()
+        else:
+            step = 0.01 if fault == "off the root" else 2 * np.pi / 256
+            bad[n, 0] = kc.family_rotation(alpha + step, *data)[0].float()
+        res = kc.compare_trace_roots((bad, ok), ref, 4, deficient, args)
+        assert res["simple_beyond_tol"] > res["simple_witnessed"], fault
+        assert not res["ok"], fault
 
 
 @pytest.mark.parametrize("inputs", ["seeded-0", "seeded-1",

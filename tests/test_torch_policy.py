@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "base/depth_reader_base.py", "base/p3d_reader_base.py",
                 "ops/line_ransac.py", "ops/linker_edges.py",
                 "fitting/fitting.py", "runners/line_fitnmerge.py",
-                "testing/fitnmerge.py", "testing/fitnmerge_checks.py"):
+                "testing/fitnmerge.py", "testing/fitnmerge_checks.py",
+                "ops/tri_propose.py", "ops/tri_score.py",
+                "merging/strategies.py"):
         assert "limap_tpu_torch/" + new in covered, new
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -243,8 +245,6 @@ def test_localization_entry_points_run_on_cpu_when_asked(no_gpu, entry):
 # other name of a JAX subpackage's __all__ must be exported by the port's
 # subpackage of the same name.
 QUEUED_NAMES = {
-    "base": {"infline2d_from_segment": "4", "intersect_infinite_lines_2d": "4",
-             "pad_segments": "4", "segments2d_from_numpy": "4"},
     "evaluation": {"RefLineEvaluator": "9", "point_segment_distance": "9"},
     "ops": {"count_component_sizes": "15b"},
     "optimize": {"RefinementConfig": "12", "line_refinement": "12",

@@ -171,11 +171,11 @@ def test_line_triangulation_matches_reference_from_pixels(rng, tmp_path):
 
 def test_runner_refuses_what_is_not_ported(rng, tmp_path):
     imagecols, _ = make_scene(rng, tmp_path, n_views=2, n_lines=2)
-    for key in ("use_exhaustive_matcher", "use_vp"):
-        cfg = small_cfg(tmp_path / key)
-        cfg["triangulation"][key] = True
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            line_triangulation(cfg, imagecols, device="cpu")
+    # the exhaustive matcher is ported (tests/test_torch_exhaustive.py)
+    cfg = small_cfg(tmp_path / "use_vp")
+    cfg["triangulation"]["use_vp"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        line_triangulation(cfg, imagecols, device="cpu")
     cfg = runners.setup(small_cfg(tmp_path / "sfm"))
     with pytest.raises(NotImplementedError, match="pointsfm"):
         runners.compute_sfminfos(cfg, imagecols, points3d={0: {}})

@@ -11,6 +11,8 @@ root:
         --localize [N_QUERIES]
     JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
         --fitnmerge [N_VIEWS]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --exhaustive [N_VIEWS]
 
 Without arguments: the slice from given segments and matches
 (triangulate -> tracks -> filters + remerge -> line BA) on the protocol
@@ -46,6 +48,20 @@ with cfgs/fitnmerge/default.yaml and the scene's 10 neighbours: the
 track counts (all, and of >= 4 images), the average segments an image,
 the fitted segments, quality_eval and the runner's stage seconds.  Eager
 JAX compiles anew for every image's segment count: ~7 s an image.
+
+With ``--exhaustive``: the PORT's runner (limap_tpu_torch.runners.
+line_triangulation on the CPU, with the plain versions of its kernels)
+with pipeline.exhaustive_runner_config (no descriptors, no matcher: every
+line against every line of the scene's 10 neighbours) on the same
+rendered scene (default 100 views) from .npy images: the track counts,
+the average segments an image, quality_eval, the proposals (candidate
+pairs, survivors in all and the most of a line) and the stage seconds.
+The JAX package cannot give this reference: its exhaustive path keeps
+the first max_tris_per_node raw candidates of a line before any cull, so
+at ~491 segments an image every line keeps only candidates of its first
+neighbour, whose pairs all share a slot and score 0.  Beside the port's
+numbers the mode records what JAX's runner gives on the same images (as
+PNG), to keep that collapse on record.
 """
 
 import json
@@ -230,6 +246,53 @@ def fitnmerge(n_views=100):
         "quality": summary["quality"]}))
 
 
+def exhaustive(n_views=100):
+    import cv2
+    from limap_tpu.runners import line_triangulation as jax_runner
+    from limap_tpu_torch.base.image_collection import \
+        ImageCollection as PortCollection
+    from limap_tpu_torch.runners import line_triangulation as port_runner
+    with tempfile.TemporaryDirectory() as workdir:
+        port_cols, imgs, nbrs, gt = pipeline.build_scene(
+            n_views, image_dir=os.path.join(workdir, "images"))
+        out = {"n_views": n_views}
+        cfg = pipeline.exhaustive_runner_config(
+            os.path.join(workdir, "port"), n_neighbors=len(nbrs[0]))
+        t0 = time.perf_counter()
+        tracks = port_runner(cfg, PortCollection.from_dict(
+            port_cols.as_dict()), nbrs, device="cpu")
+        out["port"] = _exhaustive_summary(tracks, cfg, gt,
+                                          time.perf_counter() - t0)
+        print(json.dumps(out), flush=True)
+        cols = port_cols.as_dict()
+        for i, img in imgs.items():
+            name = os.path.join(workdir, f"img_{i}.png")
+            cv2.imwrite(name, img)
+            cols["images"][i]["image_name"] = name
+        cfg = pipeline.exhaustive_runner_config(
+            os.path.join(workdir, "jax"), n_neighbors=len(nbrs[0]))
+        t0 = time.perf_counter()
+        tracks = jax_runner(cfg, ImageCollection.from_dict(cols), nbrs)
+        out["jax"] = _exhaustive_summary(tracks, cfg, gt,
+                                         time.perf_counter() - t0)
+    print(json.dumps(out))
+
+
+def _exhaustive_summary(tracks, cfg, gt, total):
+    from limap_tpu_torch.util import io as limapio
+    segs = limapio.read_all_segments_from_folder(os.path.join(
+        cfg["dir_save"], "line_detections", "tpu_lsd", "segments"))
+    with open(os.path.join(cfg["dir_save"], "metrics.json")) as f:
+        metrics = json.load(f)
+    quality = bench_pipeline.quality_eval(tracks, gt)
+    return {"n_tracks_all": len(tracks),
+            "n_tracks_nv4": quality["n_tracks"],
+            "avg_segs": float(np.mean([len(s) for s in segs.values()])),
+            "total_s": total, "stages_s": metrics["stages_s"],
+            "overflow_edges": metrics.get("overflow_edges"),
+            "exhaustive": metrics.get("exhaustive"), "quality": quality}
+
+
 def main(n_views=100, n_lines=1500, n_neighbors=20):
     t0 = time.perf_counter()
     imagecols, segs, nbrs = bench.build_scene(n_views, n_lines, n_neighbors)
@@ -267,5 +330,7 @@ if __name__ == "__main__":
         localize(*map(int, sys.argv[2:3]))
     elif sys.argv[1:2] == ["--fitnmerge"]:
         fitnmerge(*map(int, sys.argv[2:3]))
+    elif sys.argv[1:2] == ["--exhaustive"]:
+        exhaustive(*map(int, sys.argv[2:3]))
     else:
         main()
