@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero:
      filter from that scene's queries and cloud;
   4. the main path at full width: the protocol scene (100 views x 1500
      lines x 20 neighbours), triangulate -> tracks -> filters + remerge
-     -> line BA, then GT evaluation, with quality gates;
+     -> line BA (the lm_line_ba kernel), then GT evaluation, with quality
+     gates;
   5. hold each kernel to its plain version on that path's whole
      evaluation input and time it beside its bound, the plain version
      and one PyTorch library call computing the same function; the
@@ -32,13 +33,13 @@ Phases, in order; any failure exits non-zero:
      limap_tpu_torch/testing/pipeline.py, with quality gates; then GT
      evaluation of the tracks through nn_min_dist, and phase 5's checks
      and timings of both kernels on that evaluation's input;
-  8. localization at full width on phase 7's runner map: queries rendered
-     between the database views, each with a prior, 10 retrieved views and
-     1000 point matches, through hybrid_localization (tpu_lsd, epipolar-IoU
-     grid, reprojection filter, PnPL RANSAC with the pose_score and
-     trace_roots kernels, LO, f64 polish), with quality gates; then the
-     three localization kernels held to their plain versions and timed on
-     that path's own inputs.
+  8. localization at full width on phase 7's runner map: 10 queries
+     rendered between the database views, each with a prior, 10 retrieved
+     views and 1000 point matches, through hybrid_localization (tpu_lsd,
+     epipolar-IoU grid, reprojection filter, PnPL RANSAC with the
+     pose_score and trace_roots kernels, LO on the lm_jointloc kernel, f64
+     polish), with quality gates; then the four localization kernels held
+     to their plain versions and timed on that path's own inputs.
   9. fit and merge at full width on phase 7's images, each with the
      analytic depth of the wall: line_fitnmerge (tpu_lsd, one batched
      RANSAC over every segment with the line_ransac kernel, the linker's
@@ -60,8 +61,12 @@ phases 4 and 7 hold F and G to them on their paths' whole inputs; phase
 CPU on a reduced rendered scene (the same segments) and requires the same
 tracks and supports.
 Phase 2 also holds the localization kernels (trace_roots, pose_score,
-epipolar_iou_grid) and the fit-and-merge kernels (line_ransac,
-linker_edges) to their plain versions on seeded inputs; phase 3b, after
+epipolar_iou_grid), the fit-and-merge kernels (line_ransac,
+linker_edges) and the LM kernels (lm_line_ba, H; lm_jointloc, I, under
+every cost function, weight and loss) to their plain versions on seeded
+inputs; phases 4, 7 and 10 hold H to its plain version on their paths'
+whole BA input and phase 8 holds I to it on every LO solve of its
+queries, each row by row (testing/lm_checks.py); phase 3b, after
 phase 3, runs the PnPL estimator on the card and on the CPU on one
 problem (the same hypotheses scored alike, and the same final pose), and
 phase 9a, before phase 9, runs line_fitnmerge on the card and on the CPU
@@ -162,7 +167,7 @@ MATCH_DIFF_SHARE = 0.005
 # 1.5 x the reference's + 2 mm, and the median rotation error no worse
 # than 1.5 x the reference's + 0.05 deg (a rotation error below ~0.03
 # deg reads as 0 or 0.028 from the f32 rotation matrices).
-LOCALIZE_QUERIES = 6
+LOCALIZE_QUERIES = 10
 REFERENCE_LOCALIZE_ERRORS = [
     (0.0032780762380787897, 0.0), (0.0012084405311309208, 0.0),
     (0.010124502065227081, 0.04845663905143738),
@@ -759,7 +764,8 @@ def localization_full_width(scene, tracks, workdir, card):
     phase 7's runner map, gated against the JAX package's run of the same
     queries.  Returns the path's launches and the recorded kernel
     inputs."""
-    from limap_tpu_torch.ops import epipolar_iou, pose_score, trace_roots
+    from limap_tpu_torch.ops import (epipolar_iou, lm_jointloc, pose_score,
+                                     trace_roots)
     from limap_tpu_torch.testing import localization
     from limap_tpu_torch.runners import functions as runners_functions
     from limap_tpu_torch.util.config import default_localization_config
@@ -808,9 +814,18 @@ def localization_full_width(scene, tracks, workdir, card):
     }
     kernels = {"pose_score": pose_score.pose_score,
                "trace_roots": trace_roots.trace_roots,
-               "epipolar_iou_grid": epipolar_iou.epipolar_iou_grid}
+               "epipolar_iou_grid": epipolar_iou.epipolar_iou_grid,
+               "lm_jointloc": lm_jointloc.solve}
     for k in kernels.values():
         k.launches = 0
+    # every LO solve's input, for kernel I's comparison with plain
+    lo_calls, lo_solve = [], lm_jointloc.solve
+
+    def recorded_lo_solve(*args, **kwargs):
+        lo_calls.append((args, kwargs))
+        return lo_solve(*args, **kwargs)
+
+    lm_jointloc.solve = recorded_lo_solve
     # the LO's joint pose LM: solves, rows and synchronized seconds
     lm = {"solves": 0, "rows": 0, "iterations": 0, "s": 0.0}
     solve_batch = est.solve_jointloc_batch
@@ -836,6 +851,7 @@ def localization_full_width(scene, tracks, workdir, card):
             q["retrieval"], device="cuda", prof=prof, stats=stats)
     finally:
         est.solve_jointloc_batch = solve_batch
+        lm_jointloc.solve = lo_solve
         for r in recorders.values():
             r.restore()
     wall = time.perf_counter() - t0
@@ -869,7 +885,9 @@ def localization_full_width(scene, tracks, workdir, card):
           ("median translation error", summary, ref))
     check(summary["median_r_deg"] <= 1.5 * ref["median_r_deg"] + 0.05,
           ("median rotation error", summary, ref))
-    return launches, {k: (r.args, r.kwargs) for k, r in recorders.items()}
+    return launches, dict({k: (r.args, r.kwargs)
+                           for k, r in recorders.items()},
+                          lm_jointloc=lo_calls)
 
 
 LOC_TURNS = ("plain", "kernel", "kernel", "plain")
@@ -916,7 +934,8 @@ def measure_localization_kernels(recorded, launches):
               "epipolar_iou_grid": (
                   "epipolar_iou.cu",
                   "limap_tpu/triangulation/functions.py:149")}
-    entries = []
+    entries = [measure_jointloc(recorded.pop("lm_jointloc"),
+                                launches["lm_jointloc"])]
     for name, (args, kwargs) in recorded.items():
         out_k = kernel[name](*args, **kwargs)
         out_p = plain[name](*args, **kwargs)
@@ -1233,10 +1252,12 @@ G_REPLACES = "limap_tpu/triangulation/triangulator.py:342"
 
 
 def triangulator_recorders():
-    """Recorders of kernels F and G's largest inputs on a path."""
-    from limap_tpu_torch.ops import tri_propose, tri_score
+    """Recorders of the largest inputs of kernels F and G and of the line
+    BA's kernel H on a mapping path."""
+    from limap_tpu_torch.ops import lm_line_ba, tri_propose, tri_score
     numel = lambda i: (lambda *a, **k: a[i].numel())
-    return {"propose": Recorder(tri_propose, "propose", numel(5)),
+    return {"lm_line_ba": Recorder(lm_line_ba, "solve", numel(7)),
+            "propose": Recorder(tri_propose, "propose", numel(5)),
             "count_exhaustive": Recorder(tri_propose, "count_exhaustive",
                                          numel(5)),
             "propose_exhaustive": Recorder(
@@ -1246,17 +1267,19 @@ def triangulator_recorders():
 
 
 def triangulator_launches():
-    from limap_tpu_torch.ops import tri_propose, tri_score
+    from limap_tpu_torch.ops import lm_line_ba, tri_propose, tri_score
     return {"tri_propose": tri_propose.propose.launches,
-            "tri_score": tri_score.score.launches}
+            "tri_score": tri_score.score.launches,
+            "lm_line_ba": lm_line_ba.solve.launches}
 
 
 def reset_triangulator_launches():
-    """Zero F's and G's counts; call it before triangulator_recorders
+    """Zero F's, G's and H's counts; call it before triangulator_recorders
     wraps the functions that carry them."""
-    from limap_tpu_torch.ops import tri_propose, tri_score
+    from limap_tpu_torch.ops import lm_line_ba, tri_propose, tri_score
     tri_propose.propose.launches = 0
     tri_score.score.launches = 0
+    lm_line_ba.solve.launches = 0
 
 
 def measure_score(path, args, launches):
@@ -1319,7 +1342,104 @@ def measure_triangulator_kernels(path, recorded, launches):
                            res["max_abs_err"], bms, by, shape, (3, 1))]
     args, _ = recorded["score"]
     entries.append(measure_score(path, args, launches))
+    entries.append(measure_line_ba(path, recorded["lm_line_ba"],
+                                   launches["lm_line_ba"]))
     return entries
+
+
+H_SOURCE, I_SOURCE = "lm_line_ba.cu", "lm_jointloc.cu"
+# the jitted LM program both kernels replace (_build_lm_runner)
+LM_REPLACES = "limap_tpu/optimize/lm.py:64"
+
+
+def measure_line_ba(path, recorded, launches):
+    """Kernel H on a path's whole BA input: its normal equations at the
+    start and its solve held to plain row by row, timed in turns, and its
+    bound."""
+    from limap_tpu_torch.ops import lm_line_ba
+    from limap_tpu_torch.testing import lm_checks
+    args, kwargs = recorded
+    check(args is not None, (path, "kernel H saw no input"))
+    params0, aux, cfg = args[0], tuple(args[1:8]), args[8]
+    n_iter = args[9] if len(args) > 9 else kwargs.get("num_iterations", 20)
+    t0 = time.perf_counter()
+    res_ne, res = lm_checks.check_line_ba(params0, aux, cfg, n_iter)
+    log(f"[kernel] {path} lm_line_ba normal equations at the start against "
+        f"plain: {json.dumps(res_ne)}")
+    log(f"[kernel] {path} lm_line_ba solve against plain, row by row: "
+        f"{json.dumps(res)} ({time.perf_counter() - t0:.1f} s)")
+    check(res_ne["ok"], ("lm_line_ba normal equations", path, res_ne))
+    check(res["ok"], ("lm_line_ba", path, res))
+    T, S = aux[-1].shape
+    active = int((aux[-1] & (aux[5] > 0)).sum())
+    ops = lm_checks.ops_line_ba(active, T, n_iter, int(aux[-1].sum()))
+    bms, by = bound(ops, lm_checks.bytes_line_ba(T, S))
+    shape = {"tracks": T, "supports": S, "active_supports": active,
+             "iterations": n_iter, "operations": ops,
+             "parted_rows": res["parted"],
+             "normal_equations_max_rel_err": res_ne["max_rel_err"]}
+    return timed_entry(
+        "lm_line_ba", path, H_SOURCE, LM_REPLACES, launches,
+        lambda: lm_line_ba.solve(*args, **kwargs),
+        lambda: lm_line_ba.solve_plain(params0, aux, cfg, n_iter), (), {},
+        res["max_abs_err"], bms, by, shape, (5, 1))
+
+
+def measure_jointloc(calls, launches):
+    """Kernel I on every LO solve of phase 8: the solves of a query share
+    their matches and config, so their rows go to plain together (rows
+    are independent); the normal equations at the start and the solve
+    held to plain row by row; the largest solve timed in turns, with its
+    bound."""
+    from limap_tpu_torch.ops import lm_jointloc
+    from limap_tpu_torch.testing import lm_checks
+    check(calls, "the localization path gave kernel I no input")
+    groups = {}
+    for args, kwargs in calls:
+        n_iter = args[11] if len(args) > 11 else kwargs.get(
+            "num_iterations", 50)
+        key = (args[1].data_ptr(), args[6].data_ptr(), args[10], n_iter)
+        groups.setdefault(key, []).append(args)
+    t0 = time.perf_counter()
+    totals = {"solves": len(calls), "groups": len(groups), "rows_held": 0,
+              "parted": 0, "stalled_at_singular_point": 0, "accepted": 0}
+    err = ne_err = 0.0
+    for (_, _, cfg, n_iter), group in groups.items():
+        params0 = torch.cat([a[0] for a in group])
+        data = list(group[0][1:10])
+        data[4] = torch.cat([a[5] for a in group])
+        data[7] = torch.cat([a[8] for a in group])
+        res_ne, res = lm_checks.check_jointloc(params0, tuple(data), cfg,
+                                               n_iter)
+        check(res_ne["ok"], ("lm_jointloc normal equations", res_ne))
+        check(res["ok"], ("lm_jointloc", res))
+        totals["rows_held"] += res["rows"]
+        for k in ("parted", "stalled_at_singular_point", "accepted"):
+            totals[k] += res[k]
+        err = max(err, res["max_abs_err"])
+        ne_err = max(ne_err, res_ne["max_rel_err"])
+    log(f"[kernel] localization lm_jointloc against plain on every LO solve, "
+        f"row by row: {json.dumps(totals)}; max abs err {err:.3e}; normal "
+        f"equations max rel err {ne_err:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    args, kwargs = max(calls, key=lambda c: c[0][0].shape[0]
+                       * (c[0][1].shape[0] + c[0][6].shape[0]))
+    params0, data, cfg = args[0], args[1:10], args[10]
+    n_iter = args[11] if len(args) > 11 else kwargs.get("num_iterations", 50)
+    T, nl, npt = params0.shape[0], data[0].shape[0], data[5].shape[0]
+    ops = lm_checks.ops_jointloc(cfg, int(data[4].sum()), int(data[7].sum()),
+                                 T, n_iter)
+    bms, by = bound(ops, lm_checks.bytes_jointloc(T, nl, npt))
+    shape = {"rows": T, "lines": nl, "points": npt, "iterations": n_iter,
+             "operations": ops, "config": [cfg.cost_function,
+                                           cfg.cost_function_weight,
+                                           cfg.loss], **totals,
+             "normal_equations_max_rel_err": ne_err}
+    return timed_entry(
+        "lm_jointloc", "localization", I_SOURCE, LM_REPLACES, launches,
+        lambda: lm_jointloc.solve(*args, **kwargs),
+        lambda: lm_jointloc.solve_plain(params0, data, cfg, n_iter), (), {},
+        err, bms, by, shape, (10, 1))
 
 
 def measure_exhaustive_kernels(recorded, launches):
@@ -1371,6 +1491,8 @@ def measure_exhaustive_kernels(recorded, launches):
     words, tri, ok = out_k
     sargs = (cfg, L, K, l2d, cam, words.reshape(-1, L, W), meta, tri, ok)
     entries.append(measure_score("exhaustive", sargs, launches))
+    entries.append(measure_line_ba("exhaustive", recorded["lm_line_ba"],
+                                   launches["lm_line_ba"]))
     return entries
 
 
@@ -1490,13 +1612,14 @@ def main():
 
     # ---- 1. build: one nvcc a source, all started together ----
     from limap_tpu_torch.ops import (epipolar_iou, line_ransac,
-                                     linker_edges, pose_score, trace_roots,
-                                     tri_propose, tri_score)
+                                     linker_edges, lm_jointloc, lm_line_ba,
+                                     pose_score, trace_roots, tri_propose,
+                                     tri_score)
     from limap_tpu_torch.testing import (fitnmerge_checks, kernel_checks,
-                                         tri_checks)
+                                         lm_checks, tri_checks)
     t0 = time.perf_counter()
     libs = (nnd, trace_roots, pose_score, epipolar_iou, line_ransac,
-            linker_edges, tri_propose, tri_score)
+            linker_edges, tri_propose, tri_score, lm_line_ba, lm_jointloc)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda m: m.build(), libs))
     log(f"[build] {len(libs)} kernel libraries built in "
@@ -1556,6 +1679,12 @@ def main():
             # zero-length segment among them)
             check(res["survivors_max"] > 64 and res["lines_without"] > 0,
                   ("seeded exhaustive survivors", res))
+    t0 = time.perf_counter()
+    for name, case, res in lm_checks.check_all():
+        log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
+        check(res["ok"], (name, "vs plain", case, res))
+    log(f"[kernel] lm_line_ba, lm_jointloc seeded cases took "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 3. card against CPU on a reduced scene ----
     # Endpoint noise (0.3 px) keeps the proposals' scores off the

@@ -2,8 +2,9 @@
 
 Each ``.cu`` file has a plain C interface.  It is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library under ``limap_tpu_torch/_build/`` at first
-use, loaded with ``ctypes``, and rebuilt when its source or the flags
-change (the hash of both names the library).  Nothing here runs at import.
+use, loaded with ``ctypes``, and rebuilt when its source, a header of
+``csrc`` or the flags change (the hash of all three names the library).
+Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -42,9 +43,12 @@ def nvcc_path() -> str:
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` if its library is missing, then load it."""
     src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     lib = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if not os.path.exists(lib):

@@ -1,6 +1,8 @@
 """Pose-only optimization from point and line correspondences: the line
 localization cost functions (six residuals, five weights) and the joint
-point+line solve of one pose by :func:`lm_solve`."""
+point+line solve of many poses at once, on the card by kernel I
+(``ops/lm_jointloc.py``, one launch a solve) and on the CPU by
+:func:`lm_solve` with :func:`_jointloc_residual`."""
 
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ from limap_tpu_torch.base.camera import CameraViewsBatch
 from limap_tpu_torch.base.line_geometry import project_segments
 from limap_tpu_torch.base.lines import EPS, Segments
 from limap_tpu_torch.base.pose import cross
+from limap_tpu_torch.ops import lm_jointloc
 from limap_tpu_torch.optimize.line_ba import robust_weight
-from limap_tpu_torch.optimize.lm import lm_solve, retract_pose
 
 COST_FUNCTIONS = ("2d_midpoint_dist2", "2d_midpoint_angle_dist3",
                   "2d_perpendicular_dist2", "2d_perpendicular_dist4",
@@ -234,14 +236,12 @@ def solve_jointloc_batch(l3d_start, l3d_end, l2d_start, l2d_end, p3ds,
         line_masks = np.ones((T, nl), bool)
     if point_masks is None:
         point_masks = np.ones((T, npt), bool)
-    aux = (b(l3d_start, (1, nl, 3)), b(l3d_end, (1, nl, 3)),
-           b(l2d_start, (1, nl, 2)), b(l2d_end, (1, nl, 2)),
-           b(line_masks, (T, nl), torch.bool),
-           b(p3ds, (1, npt, 3)), b(p2ds, (1, npt, 2)),
-           b(point_masks, (T, npt), torch.bool), b(kvec, (1, 4)))
-    result = lm_solve(params0, _jointloc_residual(cfg, nl > 0, npt > 0),
-                      retract_pose, 6, aux=aux,
-                      num_iterations=num_iterations)
+    result = lm_jointloc.solve(
+        params0.contiguous(), b(l3d_start, (nl, 3)), b(l3d_end, (nl, 3)),
+        b(l2d_start, (nl, 2)), b(l2d_end, (nl, 2)),
+        b(line_masks, (T, nl), torch.bool), b(p3ds, (npt, 3)),
+        b(p2ds, (npt, 2)), b(point_masks, (T, npt), torch.bool),
+        b(kvec, (4,)), cfg, num_iterations)
     return result.params[:, :4], result.params[:, 4:7], result.cost
 
 

@@ -1,6 +1,8 @@
 """Fixed-camera line bundle adjustment: every track's minimal line is an
-independent 4-DOF problem, all solved at once by :func:`lm_solve`; then
-segments are re-trimmed from the refined lines and their 2D supports.
+independent 4-DOF problem, all solved at once, on the card by kernel H
+(``ops/lm_line_ba.py``, one launch a solve) and on the CPU by
+:func:`lm_solve` with :func:`ba_residual`; then segments are re-trimmed
+from the refined lines and their 2D supports.
 
 The robust loss is applied as an IRLS weight computed from detached
 residuals (Cauchy(0.25) by default).
@@ -18,8 +20,9 @@ from limap_tpu_torch.base.infinite_line import (
     MinimalInfiniteLines3d, segment_from_infinite_line_2d_supports)
 from limap_tpu_torch.base.lines import Segments
 from limap_tpu_torch.base.linetrack import TrackBatch
+from limap_tpu_torch.ops import lm_line_ba
 from limap_tpu_torch.optimize import residuals as res
-from limap_tpu_torch.optimize.lm import LMResult, lm_solve, retract_quat_so2
+from limap_tpu_torch.optimize.lm import LMResult
 from limap_tpu_torch.util import dataclass_from_dict
 
 
@@ -94,10 +97,10 @@ def solve_line_bundle_adjustment(
     free = (batch.count_images() >= cfg.min_num_images) & batch.track_mask
     weights = res.compute_line_weights(batch.line2d) * batch.mask \
         * free[:, None]
-    aux = (sup_views.kvec, sup_views.qvec, sup_views.tvec,
-           batch.line2d.start, batch.line2d.end, weights, batch.mask)
-    result = lm_solve(params0, ba_residual(cfg), retract_quat_so2, 4, aux,
-                      num_iterations=num_iterations)
+    result = lm_line_ba.solve(
+        params0.contiguous(), sup_views.kvec, sup_views.qvec, sup_views.tvec,
+        batch.line2d.start, batch.line2d.end, weights, batch.mask, cfg,
+        num_iterations)
     return unpack_minimal_lines(result.params), result
 
 

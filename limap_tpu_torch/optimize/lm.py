@@ -8,17 +8,29 @@ Jacobian w.r.t. the tangent comes from forward-mode AD: one
 for all directions instead of one per direction); each iteration solves
 the [T, D, D] damped normal equations by an unrolled Cholesky and
 accepts or rejects per row.
+
+This eager loop is the plain version of the two hand kernels that carry
+the port's paths on the card, H (line BA, ``ops/lm_line_ba.py``) and I
+(the localization's pose solve, ``ops/lm_jointloc.py``); it stays the
+solver for arbitrary residuals.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.func import jvp, vmap
 
 from limap_tpu_torch.base.pose import (axis_angle_to_quat, quat_multiply,
                                        so2_rotate)
+
+
+# the damping schedule (lambda init, up, down, min, max) of lm_solve and
+# of the kernels, and the robust losses of line_ba.robust_weight in the
+# order the kernels take them
+LAMBDAS = (1e-3, 4.0, 0.5, 1e-9, 1e6)
+LOSSES = ("trivial", "cauchy", "huber")
 
 
 class LMResult(NamedTuple):
@@ -58,22 +70,37 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
+def normal_equations(params: torch.Tensor, residual_fn: Callable,
+                     retract_fn: Callable, tangent_dim: int, aux=()):
+    """J^T J [T, D, D], J^T r [T, D] and sum r^2 [T] at ``params``, J
+    the residual's Jacobian through the retraction at delta = 0."""
+    T, D = params.shape[0], tangent_dim
+    basis = torch.eye(D, dtype=params.dtype, device=params.device)
+    zero = torch.zeros((T, D), dtype=params.dtype, device=params.device)
+    f = lambda delta: residual_fn(retract_fn(params, delta), *aux)
+    r, J = vmap(lambda e: jvp(f, (zero,), (e.expand(T, D),)),
+                out_dims=(None, -1))(basis)                  # J [T, R, D]
+    JTJ = J.transpose(1, 2) @ J
+    JTr = (J.transpose(1, 2) @ r[..., None])[..., 0]
+    return JTJ, JTr, torch.sum(r * r, dim=1)
+
+
 def lm_solve(params0: torch.Tensor, residual_fn: Callable,
              retract_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
              tangent_dim: int, aux=(), num_iterations: int = 20,
-             lambda_init: float = 1e-3, lambda_up: float = 4.0,
-             lambda_down: float = 0.5, lambda_min: float = 1e-9,
-             lambda_max: float = 1e6) -> LMResult:
+             lambda_init: float = LAMBDAS[0], lambda_up: float = LAMBDAS[1],
+             lambda_down: float = LAMBDAS[2], lambda_min: float = LAMBDAS[3],
+             lambda_max: float = LAMBDAS[4],
+             trace: Optional[list] = None) -> LMResult:
     """Minimize sum(residual_fn(p, *aux)^2) independently per row.
 
     residual_fn: ([T, P], *aux) -> [T, R], batched over rows;
-    retract_fn: ([T, P], [T, D]) -> [T, P].
+    retract_fn: ([T, P], [T, D]) -> [T, P].  With ``trace`` a list, each
+    iteration appends its [T, 2 + 2P] rows (cost, new cost, params, new
+    params), the layout of the kernels' trace.
     """
     T = params0.shape[0]
-    D = tangent_dim
     cost_of = lambda p: torch.sum(residual_fn(p, *aux) ** 2, dim=1)
-    basis = torch.eye(D, dtype=params0.dtype, device=params0.device)
-    zero = torch.zeros((T, D), dtype=params0.dtype, device=params0.device)
     params = params0
     lam = torch.full((T,), lambda_init, dtype=params0.dtype,
                      device=params0.device)
@@ -81,18 +108,17 @@ def lm_solve(params0: torch.Tensor, residual_fn: Callable,
     cost = cost0
     n_acc = torch.zeros((T,), dtype=torch.int32, device=params0.device)
     for _ in range(num_iterations):
-        f = lambda delta: residual_fn(retract_fn(params, delta), *aux)
-        r, J = vmap(lambda e: jvp(f, (zero,), (e.expand(T, D),)),
-                    out_dims=(None, -1))(basis)              # J [T, R, D]
-        JTJ = J.transpose(1, 2) @ J
-        JTr = (J.transpose(1, 2) @ r[..., None])[..., 0]
-        cost = torch.sum(r * r, dim=1)
+        JTJ, JTr, cost = normal_equations(params, residual_fn, retract_fn,
+                                          tangent_dim, aux)
         diag = torch.diagonal(JTJ, dim1=-2, dim2=-1)
         A = JTJ + torch.diag_embed(lam[:, None] * torch.clamp(diag, min=1e-8))
         delta = torch.nan_to_num(-solve_spd(A, JTr))
         new_params = retract_fn(params, delta)
         new_cost = cost_of(new_params)
         accept = new_cost < cost
+        if trace is not None:
+            trace.append(torch.cat([cost[:, None], new_cost[:, None],
+                                    params, new_params], 1))
         params = torch.where(accept[:, None], new_params, params)
         lam = torch.clamp(torch.where(accept, lam * lambda_down,
                                       lam * lambda_up),

@@ -7,6 +7,8 @@ the port's dependencies:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,7 @@ from limap_tpu_torch.ops.epipolar_iou import epipolar_iou_grid
 from limap_tpu_torch.ops.pose_score import pose_score
 from limap_tpu_torch.ops.trace_roots import trace_roots
 from limap_tpu_torch.testing import (fitnmerge_checks, kernel_checks,
-                                     tri_checks)
+                                     lm_checks, tri_checks)
 from limap_tpu_torch.ops.nn_distance import (nn_min_dist, nn_min_dist_plain,
                                              nn_min_dist_scalar)
 
@@ -251,3 +253,80 @@ def test_triangulator_kernels_refuse_what_they_cannot_take(cuda):
                                    for i in sorted(nbrs)],
                                   [tri.id2idx[i] for i in sorted(nbrs)], 2)),
             2)
+
+
+def test_lm_kernels_vs_plain_seeded(cuda):
+    """H and I against plain, every row, on the seeded cases: 3 losses
+    of the line BA, every cost function, weight and loss of the pose
+    solve, and the corners (|cos| = 1 under line3dpp, parallel rays
+    under 3d_line_line_dist2, zero-weight rows)."""
+    failed = [(name, case, res) for name, case, res in lm_checks.check_all()
+              if not res["ok"]]
+    assert not failed, failed
+
+
+def test_lm_kernels_count_their_launches(cuda):
+    from limap_tpu_torch.ops import lm_jointloc, lm_line_ba
+    from limap_tpu_torch.optimize.line_ba import LineBAConfig
+    params0, aux = lm_checks.seeded_line_ba(T=8, S=6)
+    n0 = lm_line_ba.solve.launches
+    lm_line_ba.solve(params0, *aux, LineBAConfig(), num_iterations=3)
+    lm_line_ba.normal_equations(params0, *aux, LineBAConfig())
+    torch.cuda.synchronize()
+    assert lm_line_ba.solve.launches == n0 + 1
+    params0, data = lm_checks.seeded_jointloc(T=3)
+    cfg = lm_checks.loc_config(*lm_checks.JOINTLOC_CONFIGS[-1])
+    n0 = lm_jointloc.solve.launches
+    lm_jointloc.solve(params0, *data, cfg, num_iterations=3)
+    lm_jointloc.normal_equations(params0, *data, cfg)
+    torch.cuda.synchronize()
+    assert lm_jointloc.solve.launches == n0 + 1
+
+
+def test_lm_kernels_at_the_corners(cuda):
+    from limap_tpu_torch.ops import lm_jointloc, lm_line_ba
+    from limap_tpu_torch.optimize.line_ba import LineBAConfig
+    params0, aux = lm_checks.seeded_line_ba(T=32, S=12)
+    res = lm_line_ba.solve(params0, *aux, LineBAConfig())
+    zero = aux[5].sum(1) == 0
+    assert zero.any() and torch.equal(res.params[zero], params0[zero])
+    assert (res.cost[zero] == 0).all() and (res.n_accepted[zero] == 0).all()
+    params0, data = lm_checks.seeded_jointloc(seed=2, corners=True)
+    cfg = lm_checks.loc_config("2d_perpendicular_dist2", "line3dpp",
+                               "huber", 1.0, 1.0)
+    ne_k = lm_jointloc.normal_equations(params0, *data, cfg)
+    ne_p = lm_jointloc.normal_equations_plain(params0, data, cfg)
+    for k, p in zip(ne_k, ne_p):
+        assert torch.equal(torch.isnan(k), torch.isnan(p))
+        assert torch.equal(torch.isinf(k), torch.isinf(p))
+    assert not torch.isfinite(ne_k[0][0]).all()      # |cos| = 1 in row 0
+    res = lm_jointloc.solve(params0, *data, cfg)
+    plain = lm_jointloc.solve_plain(params0, data, cfg)
+    for r in (res, plain):   # row 0 stalls; the masked-out row stays put
+        assert int(r.n_accepted[0]) == 0 and int(r.n_accepted[-1]) == 0
+        assert torch.equal(r.params[0], params0[0])
+        assert torch.equal(r.params[-1], params0[-1])
+        assert float(r.cost[-1]) == 0.0
+
+
+def test_lm_kernels_refuse_what_they_cannot_take(cuda):
+    from limap_tpu_torch.ops import lm_jointloc, lm_line_ba
+    from limap_tpu_torch.optimize.line_ba import LineBAConfig
+    params0, aux = lm_checks.seeded_line_ba(T=8, S=6)
+    with pytest.raises(ValueError):
+        lm_line_ba.solve(params0.double(), *aux, LineBAConfig())
+    with pytest.raises(ValueError):
+        lm_line_ba.solve(params0, *aux[:-1], aux[-1].cpu(), LineBAConfig())
+    with pytest.raises(ValueError):
+        lm_line_ba.solve(params0[:4], *aux, LineBAConfig())
+    params0, data = lm_checks.seeded_jointloc(T=3)
+    cfg = lm_checks.loc_config(*lm_checks.JOINTLOC_CONFIGS[0])
+    with pytest.raises(ValueError):
+        lm_jointloc.solve(params0, *data[:4], data[4].float(), *data[5:],
+                          cfg)
+    with pytest.raises(ValueError):
+        lm_jointloc.solve(params0, *data[:8], data[8].cpu(), cfg)
+    with pytest.raises(ValueError):
+        lm_jointloc.solve(params0, *data, dataclasses.replace(
+            cfg, cost_function="2d_unknown"))
+
