@@ -54,8 +54,21 @@ Phases, in order; any failure exits non-zero:
      kernel G scores them), with quality gates from the port's own CPU
      run; then GT evaluation through nn_min_dist, and F and G held to
      their plain versions and timed on that path's whole input.
+ 11. the COLMAP entry point with VP triangulation at full width: the
+     façade variant of phase 7's scene (100 views of 800x600, its lines
+     horizontal or vertical) written as a COLMAP text model with wall
+     points, read back (ReadInfos, ReadPointTracks), then
+     line_triangulation with use_vp: neighbours and ranges from the
+     point model, VP detection of every image in one launch of kernel J,
+     kernels F and G with the two VP banks, with quality gates from the
+     port's own CPU run; then J, F and G held to their plain versions and
+     timed on that path's whole input.  Phase 11a, before it, runs that
+     path on the card and on the CPU on a reduced façade (8 views, the
+     same segments and matches) and requires the same VP labels, the
+     same VPs, tracks and supports.
 Phase 2 also holds the triangulator's kernels (tri_propose, F, in both
-input forms, and tri_score, G) to their plain versions on seeded inputs;
+input forms and with the VP banks, and tri_score, G) and the VP
+detector (vp_detect, J) to their plain versions on seeded inputs;
 phases 4 and 7 hold F and G to them on their paths' whole inputs; phase
 10a, before phase 10, runs the exhaustive runner on the card and on the
 CPU on a reduced rendered scene (the same segments) and requires the same
@@ -206,6 +219,19 @@ REFERENCE_EXHAUSTIVE = {
     "gt_coverage_0.05": 77.91622021388247}
 # the phase-7 tolerances, without the matches
 EXHAUSTIVE_GATES = tuple(g for g in FROM_PIXELS_GATES if g[0] != "n_matches")
+# The PORT's runner on the CPU with the plain versions of its kernels on
+# the façade's COLMAP model (tests/torch_port_reference_gates.py
+# --colmap-vp 100; 192.9-399.1 s on the CPU): the JAX package's VP bank
+# of the neighbour line turns that line's VP into a direction with the
+# other view (ROADMAP.md section 3), so its run is a figure beside this
+# one, not the reference: 277 tracks, 198 of >= 4 images, 491.33 segments an
+# image, 982,660 matches, recall 164.05 m, precision 89.90 %, coverage
+# 59.99 % at 5 cm.  Gates: the phase-7 tolerances.
+REFERENCE_COLMAP_VP = {
+    "n_tracks_all": 281, "n_tracks": 208, "avg_segs": 491.4,
+    "n_matches": 982800, "recall_0.05": 167.1927736518379,
+    "precision_0.05": 87.98076923076923,
+    "gt_coverage_0.05": 61.16026379159752}
 # Card against CPU on fit and merge (phase 9a): fitted endpoints within
 # 0.1 mm (lines 10 m away; the TLS axis of the card's batched eigensolver
 # rounds otherwise), track lines within 1 mm.
@@ -1248,6 +1274,10 @@ def measure_fitnmerge_kernels(recorded, launches):
 ROW_BYTES_F, SLOT_BYTES_G, OK_BYTES_G = 37, 5, 40
 F_SOURCE, G_SOURCE = "tri_propose.cu", "tri_score.cu"
 F_REPLACES = "limap_tpu/triangulation/triangulator.py:221"
+# the same program's VP banks (:302-314) on the VP path
+F_VP_REPLACES = "limap_tpu/triangulation/triangulator.py:221, :302"
+J_SOURCE = "vp_detect.cu"
+J_REPLACES = "limap_tpu/vplib/jlinkage.py:90"
 G_REPLACES = "limap_tpu/triangulation/triangulator.py:342"
 
 
@@ -1282,34 +1312,37 @@ def reset_triangulator_launches():
     lm_line_ba.solve.launches = 0
 
 
-def measure_score(path, args, launches):
+def measure_score(path, args, launches, kwargs=None):
     """Kernel G on a path's largest input: held to the plain version on
-    the same proposals, timed in turns, and its bound."""
+    the same proposals, timed in turns, and its bound.  ``kwargs`` holds
+    the pack width of the VP path."""
     from limap_tpu_torch.ops import tri_score
     from limap_tpu_torch.testing import tri_checks
+    kw = {"pack": (kwargs or {}).get("pack")}
     cfg, L, K, l2d, cam, words, meta, tri, ok = args
     res = tri_checks.compare_score(
-        *args, tri_score.score(*args, return_scores=True),
-        tri_score.score_plain(*args, return_scores=True))
+        *args, tri_score.score(*args, return_scores=True, **kw),
+        tri_score.score_plain(*args, return_scores=True, **kw))
     log(f"[kernel] {path} tri_score against plain on the path's input: "
         f"{json.dumps(res)}")
     check(res["ok_to_plain"], ("tri_score", path, res))
     work = tri_checks.score_work(cfg, L, K, words, meta, tri, ok)
     ops = tri_checks.operations(work, tri_checks.OPS_G)
     N, T = ok.shape
+    P = T if kw["pack"] is None else kw["pack"]
     # in: l2d, cam, meta, ok of every slot, an ok proposal's row and word;
     # out: every slot's score, the floats and ints of each line
     bms, by = bound(ops, l2d.numel() * 4 + cam.numel() * 4
                     + meta.numel() * 4 + N * T * SLOT_BYTES_G
                     + int(ok.sum()) * OK_BYTES_G + N * 40
-                    + N * (T + 1) * 4)
+                    + N * (P + 1) * 4)
     log(f"[kernel] {path} tri_score: ordered pairs reaching each stage "
         f"{json.dumps(work)}; {ops} operations")
     shape = {"lines": N, "width": T, "neighbours": K,
              "ok_proposals": int(ok.sum()), "operations": ops, **work}
     return timed_entry("tri_score", path, G_SOURCE, G_REPLACES,
                        launches["tri_score"], tri_score.score,
-                       tri_score.score_plain, args, {}, res["max_abs_err"],
+                       tri_score.score_plain, args, kw, res["max_abs_err"],
                        bms, by, shape, (3, 1))
 
 
@@ -1319,29 +1352,42 @@ def measure_triangulator_kernels(path, recorded, launches):
     from limap_tpu_torch.testing import tri_checks
     args, kwargs = recorded["propose"]
     check(args is not None, (path, "kernel F saw no input"))
-    args = args + (kwargs.get("ranges"),) if len(args) == 7 else args
-    cfg, L, K, l2d, cam, words, meta, ranges = args
+    names = ("ranges", "vp")
+    args = args[:7] + tuple(args[7 + i] if len(args) > 7 + i
+                            else kwargs.get(n) for i, n in enumerate(names))
+    cfg, L, K, l2d, cam, words, meta, ranges, vp = args
     out_k = tri_propose.propose(*args)
     res = tri_checks.compare_propose(*args[:7], out_k,
-                                     tri_propose.propose_plain(*args), ranges)
+                                     tri_propose.propose_plain(*args), ranges,
+                                     vp)
     log(f"[kernel] {path} tri_propose against plain on the path's input: "
         f"{json.dumps(res)}")
     check(res["ok_to_plain"], ("tri_propose", path, res))
-    work = tri_checks.words_work(*args[:7], out_k[1], ranges)
-    ops = tri_checks.operations(work, tri_checks.ops_f(cfg))
-    N, T = out_k[1].shape
+    N, T = words.shape[0] * L, words.shape[-1]
+    kinds = tri_propose.banks(cfg, vp)
+    work = {}
+    if tri_propose.BANK_ALGEBRAIC in kinds:
+        work = tri_checks.words_work(*args[:7], out_k[1][:, :T], ranges)
+    # every bucket slot of a VP bank writes a row
+    work["vp_row"] = int((words >= 0).sum()) * sum(
+        k != tri_propose.BANK_ALGEBRAIC for k in kinds)
+    ops = tri_checks.operations(work, dict(tri_checks.ops_f(cfg),
+                                           vp_row=tri_checks.OPS_F_VP_ROW))
+    B = len(kinds)
     bms, by = bound(ops, l2d.numel() * 4 + cam.numel() * 4 + N * T * 4
-                    + meta.numel() * 4 + N * T * ROW_BYTES_F)
+                    + meta.numel() * 4 + N * B * T * ROW_BYTES_F
+                    + (0 if vp is None else vp.numel() * 4))
     log(f"[kernel] {path} tri_propose: candidates reaching each stage "
         f"{json.dumps(work)}; {ops} operations")
-    shape = {"lines": N, "width": T, "neighbours": K, "operations": ops,
-             **work}
-    entries = [timed_entry("tri_propose", path, F_SOURCE, F_REPLACES,
+    shape = {"lines": N, "width": T, "banks": kinds, "neighbours": K,
+             "operations": ops, **work}
+    entries = [timed_entry("tri_propose", path, F_SOURCE,
+                           F_REPLACES if vp is None else F_VP_REPLACES,
                            launches["tri_propose"], tri_propose.propose,
                            tri_propose.propose_plain, args, {},
                            res["max_abs_err"], bms, by, shape, (3, 1))]
-    args, _ = recorded["score"]
-    entries.append(measure_score(path, args, launches))
+    args, kwargs = recorded["score"]
+    entries.append(measure_score(path, args, launches, kwargs))
     entries.append(measure_line_ba(path, recorded["lm_line_ba"],
                                    launches["lm_line_ba"]))
     return entries
@@ -1596,6 +1642,166 @@ def exhaustive_full_width(scene, workdir, card):
             evaluator.points)
 
 
+def vp_direction_error(a, b):
+    """Largest component difference of two VP tables [n, 3], each row
+    compared up to sign."""
+    if not len(a):
+        return 0.0
+    return float(np.minimum(np.abs(a - b).max(1), np.abs(a + b).max(1)).max())
+
+
+def colmap_vp_card_vs_cpu(workdir):
+    """Phase 11a: the COLMAP path with use_vp on the CPU, then on the card
+    with the CPU's segments and matches, on a reduced façade (8 views of
+    240x320): the same hypotheses give the same VP labels and VPs, and
+    the same tracks and supports."""
+    from limap_tpu_torch.pointsfm import ReadInfos, ReadPointTracks
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.util import io as limapio
+    from limap_tpu_torch.vplib import get_vp_detector
+
+    model, image_dir, _ = pipeline.write_colmap_scene(
+        workdir, n_views=8, n_lines=60, hw=(240, 320), n_points=400)
+    tracks = {}
+    for dev in ("cpu", "cuda"):
+        cfg = pipeline.colmap_vp_config(os.path.join(workdir, dev),
+                                        n_neighbors=4)
+        cfg["n_visible_views"] = 3
+        cfg["triangulation"]["fullscore_th"] = 0.5
+        if dev == "cuda":
+            cfg.update(load_det=True, load_match=True,
+                       load_dir=os.path.join(workdir, "cpu"))
+        tracks[dev] = line_triangulation(
+            cfg, ReadInfos(model, image_dir),
+            points3d=ReadPointTracks(model), device=dev)
+    segs = limapio.read_all_segments_from_folder(os.path.join(
+        workdir, "cpu", "line_detections", "tpu_lsd", "segments"))
+    vpcfg = cfg["triangulation"]["vpdet_config"]
+    res = {dev: get_vp_detector(vpcfg, device=dev).detect_vp_all_images(segs)
+           for dev in ("cpu", "cuda")}
+    n_vps = [res["cpu"][i].count_vps() for i in sorted(segs)]
+    err = 0.0
+    for i in segs:
+        a, b = res["cuda"][i], res["cpu"][i]
+        check(np.array_equal(a.labels, b.labels) and a.count_vps()
+              == b.count_vps(), ("VP labels card vs CPU", i))
+        err = max(err, vp_direction_error(a.vps, b.vps))
+    check(err <= 1e-5, ("VPs card vs CPU", err))
+    check(sum(n_vps) > 0, "no VP found on the reduced façade")
+    check(len(tracks["cuda"]) == len(tracks["cpu"]) >= 8,
+          ("colmap vp track count", len(tracks["cuda"]), len(tracks["cpu"])))
+    check(sorted(map(key, tracks["cuda"])) == sorted(map(key, tracks["cpu"])),
+          "card and CPU supports differ on the VP path")
+    lerr, tied = hold_card_to_cpu(tracks["cuda"], tracks["cpu"])
+    log(f"[colmap-vp card-vs-cpu] VPs an image {n_vps}, labels equal, VP "
+        f"error {err:.2e} (up to sign); {len(tracks['cuda'])} tracks, "
+        f"identical supports; line error {lerr:.2e} m; near-tied {tied}")
+
+
+def colmap_vp_full_width(workdir, card):
+    """Phase 11: the façade's COLMAP model read back and triangulated with
+    use_vp on the card, gated against the port's CPU run.  Returns the
+    recorded inputs of J, F, G and H and their launches."""
+    from limap_tpu_torch.ops import vp_detect
+    from limap_tpu_torch.pointsfm import ReadInfos, ReadPointTracks
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.util import io as limapio
+
+    t0 = time.perf_counter()
+    model, image_dir, gt = pipeline.write_colmap_scene(workdir)
+    imagecols = ReadInfos(model, image_dir)
+    points3d = ReadPointTracks(model)
+    log(f"[colmap-vp] façade scene and COLMAP model ({imagecols.NumImages()} "
+        f"views, {len(points3d)} points) written and read back in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg = pipeline.colmap_vp_config(os.path.join(workdir, "out"))
+    reset_triangulator_launches()
+    vp_detect.detect.launches = 0
+    recorders = triangulator_recorders()
+    recorders["vp_detect"] = Recorder(vp_detect, "detect",
+                                      lambda *a, **k: a[0].numel())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        tracks = line_triangulation(cfg, imagecols, points3d=points3d,
+                                    device="cuda")
+    finally:
+        for rec in recorders.values():
+            rec.restore()
+    wall = time.perf_counter() - t0
+    launches = dict(triangulator_launches(),
+                    vp_detect=vp_detect.detect.launches)
+    with open(os.path.join(cfg["dir_save"], "metrics.json")) as f:
+        metrics = json.load(f)
+    segs = limapio.read_all_segments_from_folder(os.path.join(
+        cfg["dir_save"], "line_detections", "tpu_lsd", "segments"))
+    matches_dir = os.path.join(
+        cfg["dir_save"], "line_matchings", "tpu_lsd",
+        "feats_patch_endpoints", "matches_nn_endpoints")
+    n_matches = sum(len(m) for f in sorted(os.listdir(matches_dir))
+                    for m in np.load(os.path.join(matches_dir, f),
+                                     allow_pickle=True).item().values())
+    quality = pipeline.quality_eval(tracks, gt)
+    log(f"[colmap-vp] line_triangulation with use_vp from the COLMAP model, "
+        f"{imagecols.NumImages()} views, {wall:.3f} s in all; stage seconds "
+        f"{json.dumps(metrics['stages_s'])} on {card}; vp_detect stage "
+        f"{metrics['stages_s']['vp_detect']:.4f} s; kernel launches "
+        f"{json.dumps(launches)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name, n in launches.items():
+        check(n > 0, f"the COLMAP VP path did not launch {name}")
+    check(launches["vp_detect"] == 1,
+          ("every image's VPs in one launch", launches["vp_detect"]))
+    # the VPs an image, from the path's own input (J is deterministic)
+    args, _ = recorders["vp_detect"].args, recorders["vp_detect"].kwargs
+    n_found = vp_detect.detect(*args)[2].cpu().numpy()
+    log(f"[colmap-vp] VPs found an image: histogram "
+        f"{np.bincount(n_found).tolist()} (index = VPs), "
+        f"{int(n_found.sum())} in all over {len(n_found)} images")
+    check(n_found.min() >= 1 and np.median(n_found) >= 2,
+          ("façade images without their two VPs", n_found.tolist()))
+    log(f"[colmap-vp] overflow_edges {metrics['overflow_edges']}; "
+        f"{len(tracks)} tracks; quality_eval {json.dumps(quality)}")
+    check(np.isfinite([x.line for x in tracks]).all(),
+          "non-finite lines from the COLMAP VP runner")
+    measured = dict(quality, n_tracks_all=len(tracks), n_matches=n_matches,
+                    avg_segs=float(np.mean([len(v) for v in segs.values()])))
+    hold_to_gates("colmap-vp", measured, REFERENCE_COLMAP_VP)
+    recorded = {k: (rec.args, rec.kwargs) for k, rec in recorders.items()}
+    return recorded, launches
+
+
+def measure_vp_detect(recorded, launches):
+    """Kernel J on the VP path's whole input: held to the plain version,
+    timed in turns, and its bound."""
+    from limap_tpu_torch.ops import vp_detect
+    from limap_tpu_torch.testing import tri_checks, vp_checks
+    args, kwargs = recorded
+    check(args is not None, "the VP path gave kernel J no input")
+    out_k = vp_detect.detect(*args, **kwargs)
+    res = vp_checks.compare_detect(out_k, vp_detect.detect_plain(*args))
+    log(f"[kernel] colmap_vp vp_detect against plain on the path's whole "
+        f"input: {json.dumps(res)}")
+    check(res["ok"], ("vp_detect", res))
+    coords, ia, max_vps = args[0], args[5], args[7]
+    work = vp_checks.detect_work(*args[:8], out_k[0], out_k[2])
+    ops = tri_checks.operations(work, vp_checks.OPS_J)
+    bms, by = bound(ops, vp_checks.detect_bytes(coords, ia, ia.shape[0],
+                                                max_vps))
+    log(f"[kernel] colmap_vp vp_detect: work {json.dumps(work)}; {ops} "
+        f"operations")
+    shape = {"images": int(ia.shape[0]), "lines": int(coords.shape[0]),
+             "hypotheses": int(ia.shape[1]), "max_vps": int(max_vps),
+             "vps_found": res["vps_found"], "operations": ops, **work,
+             "library": "none: no library call runs sequential "
+                        "multi-model RANSAC"}
+    return timed_entry("vp_detect", "colmap_vp", J_SOURCE, J_REPLACES,
+                       launches, vp_detect.detect, vp_detect.detect_plain,
+                       args, {}, res["max_abs_err"], bms, by, shape, (10, 1))
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
@@ -1614,12 +1820,13 @@ def main():
     from limap_tpu_torch.ops import (epipolar_iou, line_ransac,
                                      linker_edges, lm_jointloc, lm_line_ba,
                                      pose_score, trace_roots, tri_propose,
-                                     tri_score)
+                                     tri_score, vp_detect)
     from limap_tpu_torch.testing import (fitnmerge_checks, kernel_checks,
-                                         lm_checks, tri_checks)
+                                         lm_checks, tri_checks, vp_checks)
     t0 = time.perf_counter()
     libs = (nnd, trace_roots, pose_score, epipolar_iou, line_ransac,
-            linker_edges, tri_propose, tri_score, lm_line_ba, lm_jointloc)
+            linker_edges, tri_propose, tri_score, lm_line_ba, lm_jointloc,
+            vp_detect)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda m: m.build(), libs))
     log(f"[build] {len(libs)} kernel libraries built in "
@@ -1679,6 +1886,15 @@ def main():
             # zero-length segment among them)
             check(res["survivors_max"] > 64 and res["lines_without"] > 0,
                   ("seeded exhaustive survivors", res))
+    for name, case, res in tri_checks.check_all_vp():
+        log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
+        check(res["ok_to_plain"], (name, "vs plain", case, res))
+    n0 = vp_detect.detect.launches
+    for case, res in vp_checks.check_all():
+        log(f"[kernel] vp_detect vs plain, case {case}: {json.dumps(res)}")
+        check(res["ok"], ("vp_detect", "vs plain", case, res))
+    check(vp_detect.detect.launches == n0 + 4, "vp_detect: launches not "
+          "counted")
     t0 = time.perf_counter()
     for name, case, res in lm_checks.check_all():
         log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
@@ -1876,6 +2092,24 @@ def main():
         del ex_queries, ex_cloud
         entries += measure_exhaustive_kernels(recorded, ex_launches)
         log(f"[exhaustive] phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11a. the COLMAP path with VPs, card against CPU ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as small:
+        colmap_vp_card_vs_cpu(small)
+    log(f"[colmap-vp card-vs-cpu] phase 11a took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 11. the COLMAP entry point with VPs at full width ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        recorded, vp_launches = colmap_vp_full_width(workdir, card)
+    entries.append(measure_vp_detect(recorded["vp_detect"],
+                                     vp_launches["vp_detect"]))
+    entries += measure_triangulator_kernels("colmap_vp", recorded,
+                                            vp_launches)
+    del recorded
+    log(f"[colmap-vp] phase 11 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

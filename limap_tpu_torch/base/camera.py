@@ -67,6 +67,10 @@ class Camera:
             raise ValueError(f"model {name} expects {n_params} params, got "
                              f"{len(self.params)}")
 
+    @property
+    def model_name(self) -> str:
+        return CAMERA_MODELS[self.model_id][0]
+
     def focal_idxs(self) -> Tuple[int, ...]:
         return CAMERA_MODELS[self.model_id][2]
 
@@ -83,6 +87,9 @@ class Camera:
     def K(self) -> np.ndarray:
         fx, fy, cx, cy = self.kvec()
         return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+
+    def K_inv(self) -> np.ndarray:
+        return np.linalg.inv(self.K())
 
     def is_undistorted(self) -> bool:
         if self.model_id in _UNDISTORTED_MODELS:
@@ -156,6 +163,9 @@ class CameraPose:
         return quat_to_rotmat(torch.as_tensor(
             self.qvec, dtype=torch.float32)).numpy()
 
+    def T(self) -> np.ndarray:
+        return self.tvec
+
     def center(self) -> np.ndarray:
         return -self.R().T @ self.tvec
 
@@ -184,6 +194,24 @@ class CameraView:
 
     def w(self) -> int:
         return self.cam.w()
+
+    def K(self) -> np.ndarray:
+        return self.cam.K()
+
+    def K_inv(self) -> np.ndarray:
+        return self.cam.K_inv()
+
+    def R(self) -> np.ndarray:
+        return self.pose.R()
+
+    def T(self) -> np.ndarray:
+        return self.pose.T()
+
+    def get_direction_from_vp(self, vp) -> np.ndarray:
+        """Unit world direction of a vanishing point in this view's
+        pixels: R^T K^-1 vp."""
+        v = self.R().T @ self.K_inv() @ np.asarray(vp)
+        return v / np.linalg.norm(v)
 
     def read_image(self, set_gray: bool = False) -> np.ndarray:
         """The view's image at the camera's size: uint8 [H, W, 3] (BGR),

@@ -54,6 +54,9 @@ class ImageCollection:
     def get_img_ids(self) -> List[int]:
         return sorted(self.images.keys())
 
+    def get_cam_ids(self) -> List[int]:
+        return sorted(self.cameras.keys())
+
     def exist_image(self, img_id: int) -> bool:
         return img_id in self.images
 
@@ -68,6 +71,18 @@ class ImageCollection:
 
     def get_camera_pose(self, img_id: int) -> CameraPose:
         return self.images[img_id].pose
+
+    def get_map_camviews(self) -> Dict[int, CameraView]:
+        return {i: self.camview(i) for i in self.get_img_ids()}
+
+    def camimage(self, img_id: int) -> CameraImage:
+        return self.images[img_id]
+
+    def change_camera(self, cam_id: int, cam: Camera) -> None:
+        self.cameras[cam_id] = cam
+
+    def change_image_name(self, img_id: int, new_name: str) -> None:
+        self.images[img_id].image_name = new_name
 
     def get_locations(self) -> List:
         """Camera centres in sorted image id order."""

@@ -11,10 +11,17 @@
 // propose_rows operation for operation, with the _rn intrinsics (no FMA
 // contraction).
 //
-// Modes: 0, the matcher paths: one thread per bucket slot (n, t) decodes
-// its edge word ((b << 7) | slot, -1 empty) and writes the row [9] (start,
-// end, depths, uncertainty) and ok, like the plain version also for a
-// pair that fails a cull.  1 and 2, the exhaustive matcher: one block a
+// Modes: 0, the matcher paths: one thread per bucket slot (n, t) and bank
+// decodes its edge word ((b << 7) | slot, -1 empty) and writes the row [9]
+// (start, end, depths, uncertainty) and ok, like the plain version also
+// for a pair that fails a cull.  The banks are bank-major columns of the
+// output, [algebraic T | VP of a T | VP of b T] (the first absent when
+// algebraic triangulation is off): a VP bank (the JAX program's :302-314,
+// replaced likewise) triangulates along the world direction of line a's
+// VP in a's view or of line b's VP in b's view (the JAX program converts
+// b's VP with a's view, which misses b's direction unless the two views
+// share R and K), with no cull but the line's VP, then score > 0, the
+// ranges and the uncertainty.  1 and 2, the exhaustive matcher: one block a
 // line a enumerates (slot, b) in that order, slot-major, over every
 // neighbour line; mode 1 counts the survivors, mode 2 writes them
 // compacted in that order (ballot + block prefix, stable) into a bucket
@@ -220,6 +227,71 @@ __device__ V3 triangulate_point(const View& v1, V3 C1, V3 n1, const View& v2,
   return p;
 }
 
+// the unit world direction of a VP given in the pixels of view v:
+// R^T K^-1 vp (functions.get_direction_from_vp)
+__device__ __forceinline__ V3 direction_from_vp(const View& v, const float* vp) {
+  float u = dvd(sub(vp[0], mul(v.k[2], vp[2])), v.k[0]);
+  float w = dvd(sub(vp[1], mul(v.k[3], vp[2])), v.k[1]);
+  return vunit(qrot(v.qc, v3(u, w, vp[2])));
+}
+
+// The proposal of a VP bank (functions.triangulate_line_with_direction):
+// the line of direction d in l1's back-projection plane, placed by l2's
+// plane, then score > 0, the ranges and the uncertainty; the row is
+// written whatever ok says.  Returns ok.
+__device__ bool propose_vp(const Params& P, const Seg2& l1, bool ok,
+                           const View& v1, const Seg2& l2, const View& v2,
+                           V3 d, float* row) {
+  V3 v1s = ray(v1, l1.sx, l1.sy), v1e = ray(v1, l1.ex, l1.ey);
+  V3 n1 = vunit(vcross(v1s, v1e));
+  V3 direc = vsub(d, vscale(n1, vdot(n1, d)));
+  float dnorm = vnorm(direc);
+  float dn = add(dnorm, kEps);
+  direc = v3(dvd(direc.x, dn), dvd(direc.y, dn), dvd(direc.z, dn));
+  V3 perp = vcross(n1, direc);
+  float a1s = vdot(v1s, perp), a1e = vdot(v1e, perp);
+  if (a1s < 0.f) {
+    a1s = -a1s;
+    a1e = -a1e;
+  }
+  V3 C1 = center(v1), C2 = center(v2);
+  V3 n2 = vunit(vcross(ray(v2, l2.sx, l2.sy), ray(v2, l2.ex, l2.ey)));
+  float c1 = vdot(n2, v1s), c1e = vdot(n2, v1e);
+  float b = vdot(n2, vsub(C2, C1));
+  float c2 = dvd(mul(c1e, a1s), add(a1e, kEps));
+  float d1s = dvd(mul(add(c1, c2), b),
+                  add(add(mul(c1, c1), mul(c2, c2)), kEps));
+  float d1e = dvd(mul(d1s, a1s), add(a1e, kEps));
+  V3 ps = vadd(vscale(v1s, d1s), C1), pe = vadd(vscale(v1e, d1e), C1);
+  float zs = projdepth(v1, ps), ze = projdepth(v1, pe);
+  bool valid = dnorm >= kEps && a1s >= 0.001f && a1e >= 0.001f &&
+               zs >= kEps && ze >= kEps && projdepth(v2, ps) >= kEps &&
+               projdepth(v2, pe) >= kEps && finite3(ps) && finite3(pe);
+  if (!valid) {  // the invalid sentinel: start 0, end 1, depths -1
+    ps = v3(0.f, 0.f, 0.f);
+    pe = v3(1.f, 1.f, 1.f);
+    zs = ze = -1.f;
+  }
+  ok = ok && valid;
+  if (P.has_ranges) {
+    float s[3] = {ps.x, ps.y, ps.z}, e[3] = {pe.x, pe.y, pe.z};
+    for (int c = 0; c < 3; ++c)
+      ok = ok && s[c] >= P.lo[c] && s[c] <= P.hi[c] && e[c] >= P.lo[c] &&
+           e[c] <= P.hi[c];
+  }
+  row[0] = ps.x;
+  row[1] = ps.y;
+  row[2] = ps.z;
+  row[3] = pe.x;
+  row[4] = pe.y;
+  row[5] = pe.z;
+  row[6] = zs;
+  row[7] = ze;
+  row[8] = nmin(uncertainty(v1, ps, pe, P.var2d),
+                uncertainty(v2, ps, pe, P.var2d));
+  return ok;
+}
+
 // One proposal.  With need_row the row (start, end, depths, uncertainty)
 // is computed whatever the culls say; without it the candidate stops at
 // its first failed cull.  Returns ok.
@@ -298,17 +370,20 @@ __device__ __forceinline__ Seg2 load_seg(const float* l2d, long long n,
   return {p[0], p[1], p[2], p[3]};
 }
 
-// mode 0: one thread a bucket slot
+// mode 0: one thread a bucket slot and bank; output column bank * T + t
 __global__ void __launch_bounds__(kThreads) propose_words_kernel(
     const float* __restrict__ l2d, const float* __restrict__ cam,
-    const int* __restrict__ meta, const int* __restrict__ words, Params P,
-    int G, int L, int K, int T, float* __restrict__ tri,
+    const int* __restrict__ meta, const int* __restrict__ words,
+    const float* __restrict__ vp, Params P, int G, int L, int K, int T,
+    int first_kind, int n_banks, float* __restrict__ tri,
     unsigned char* __restrict__ ok_out) {
   long long idx = blockIdx.x * (long long)kThreads + threadIdx.x;
-  if (idx >= (long long)G * L * T) return;
-  long long n = idx / T;
+  if (idx >= (long long)G * L * n_banks * T) return;
+  long long n = idx / ((long long)n_banks * T);
+  int col = (int)(idx - n * n_banks * T);
+  int kind = first_kind + col / T, t = col % T;
   int g = (int)(n / L), a = (int)(n % L);
-  int word = words[idx];
+  int word = words[n * T + t];
   bool tvalid = word >= 0;
   int w = tvalid ? word : 0;
   int b = w >> 7, slot = w & 0x7F;
@@ -321,7 +396,17 @@ __global__ void __launch_bounds__(kThreads) propose_words_kernel(
   Seg2 l2 = load_seg(l2d, (long long)ng * L + b, nb_ok);
   View v1 = load_view(cam + 12 * row), v2 = load_view(cam + 12 * ng);
   float r[9];
-  bool ok = propose(P, l1, own_ok && tvalid, v1, l2, nb_ok, v2, true, r);
+  bool ok;
+  if (kind == 0) {
+    ok = propose(P, l1, own_ok && tvalid, v1, l2, nb_ok, v2, true, r);
+  } else {
+    // the own line's VP in its view, or the neighbour line's in its own
+    const float* q = vp + 4 * (kind == 1 ? (long long)row * L + a
+                                         : (long long)ng * L + b);
+    V3 d = direction_from_vp(kind == 1 ? v1 : v2, q);
+    ok = propose_vp(P, l1, own_ok && tvalid && nb_ok && q[3] > 0.5f, v1, l2,
+                    v2, d, r);
+  }
   for (int c = 0; c < 9; ++c) tri[idx * 9 + c] = r[c];
   ok_out[idx] = ok;
 }
@@ -391,14 +476,15 @@ __global__ void __launch_bounds__(kThreads) propose_exhaustive_kernel(
 }  // namespace
 
 // params: host floats angle_th, iou_th, sens_th, var2d, endpoints (0/1);
-// ranges: device [6] (lo, hi) or null.  mode 0: words [G, L, T] -> tri,
-// ok [G * L, T]; mode 1: counts [G * L]; mode 2: counts, words_out, tri,
-// ok [G * L, W].
+// ranges: device [6] (lo, hi) or null; vp: device [I, L, 4] (the VP, then
+// 1 where the line has one) or null; banks: the first bank's kind + 4 x
+// the number of banks.  mode 0: words [G, L, T] -> tri, ok [G * L, B * T];
+// mode 1: counts [G * L]; mode 2: counts, words_out, tri, ok [G * L, W].
 extern "C" int tri_propose_launch(
     const void* l2d, const void* cam, const void* meta, const void* words,
-    const void* ranges, const void* params, long long G, long long L,
-    long long K, long long W, long long mode, void* counts, void* words_out,
-    void* tri, void* ok, void* stream) {
+    const void* ranges, const void* params, const void* vp, long long G,
+    long long L, long long K, long long W, long long mode, long long banks,
+    void* counts, void* words_out, void* tri, void* ok, void* stream) {
   const float* p = (const float*)params;
   Params P;
   P.angle_th = p[0];
@@ -422,12 +508,16 @@ extern "C" int tri_propose_launch(
   }
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == 0) {
-    long long total = G * L * W;
+    const int first_kind = (int)(banks % 4), n_banks = (int)(banks / 4);
+    if (first_kind + n_banks > 3 || n_banks < 1 ||
+        (first_kind + n_banks > 1 && !vp))
+      return (int)cudaErrorInvalidValue;
+    long long total = G * L * n_banks * W;
     unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
     propose_words_kernel<<<blocks, kThreads, 0, s>>>(
         (const float*)l2d, (const float*)cam, (const int*)meta,
-        (const int*)words, P, (int)G, (int)L, (int)K, (int)W, (float*)tri,
-        (unsigned char*)ok);
+        (const int*)words, (const float*)vp, P, (int)G, (int)L, (int)K,
+        (int)W, first_kind, n_banks, (float*)tri, (unsigned char*)ok);
   } else {
     propose_exhaustive_kernel<<<(unsigned)(G * L), kThreads, 0, s>>>(
         (const float*)l2d, (const float*)cam, (const int*)meta, P, (int)L,

@@ -11,7 +11,10 @@
 // is the per-slot maximum of s, summed over the slots in slot order; -1
 // when i is not ok.  Then the best proposal (first index on ties), the
 // valid edges (ok, score >= fullscore_th, rank < max_valid_conns with
-// ties by index) and their stable pack.  The linker functions follow
+// ties by index) and their stable pack, at most Tp of them (the bucket
+// width: with the VP banks the T = B x Tp proposals of a line are the
+// banks' columns side by side, their words repeated, and the JAX program
+// packs the first Tp edges, :325-420).  The linker functions follow
 // limap_tpu_torch/base/line_dists.py and line_linker.py operation for
 // operation, with the _rn intrinsics (no FMA contraction).
 //
@@ -228,7 +231,7 @@ __global__ void __launch_bounds__(kThreads) tri_score_kernel(
     const float* __restrict__ l2d, const float* __restrict__ cam,
     const int* __restrict__ meta, const int* __restrict__ words,
     const float* __restrict__ tri, const unsigned char* __restrict__ okp,
-    Params P, int L, int K, int T, int max_valid_conns,
+    Params P, int L, int K, int T, int Tp, int max_valid_conns,
     float* __restrict__ floats, int* __restrict__ ints,
     float* __restrict__ scores) {
   extern __shared__ float smem[];
@@ -401,8 +404,8 @@ __global__ void __launch_bounds__(kThreads) tri_score_kernel(
     floats[n * 10 + tid] = v;
   }
 
-  // valid edges, packed in index order
-  int* irow = ints + n * (T + 1);
+  // valid edges, packed in index order, the first Tp of them
+  int* irow = ints + n * (Tp + 1);
   if (tid == 0) s_base = 0;
   __syncthreads();
   for (int t0 = 0; t0 < T; t0 += kThreads) {
@@ -428,7 +431,7 @@ __global__ void __launch_bounds__(kThreads) tri_score_kernel(
       for (int w = 0; w < warp; ++w) pos += warp_counts[w];
       const int word = wrow[t];
       const int slot = min(word & 0x7F, K - 1);
-      if (pos < T)
+      if (pos < Tp)
         irow[pos] = max(mrow[slot], 0) * L + (word >> 7);
     }
     __syncthreads();
@@ -436,9 +439,9 @@ __global__ void __launch_bounds__(kThreads) tri_score_kernel(
       for (int w = 0; w < kThreads / 32; ++w) s_base += warp_counts[w];
     __syncthreads();
   }
-  const int cnt = min(s_base, T);
-  for (int t = cnt + tid; t < T; t += kThreads) irow[t] = -1;
-  if (tid == 0) irow[T] = cnt;
+  const int cnt = min(s_base, Tp);
+  for (int t = cnt + tid; t < Tp; t += kThreads) irow[t] = -1;
+  if (tid == 0) irow[Tp] = cnt;
 }
 
 }  // namespace
@@ -448,7 +451,7 @@ extern "C" int tri_score_launch(const void* l2d, const void* cam,
                                 const void* meta, const void* words,
                                 const void* tri, const void* ok,
                                 const void* params, long long G, long long L,
-                                long long K, long long T,
+                                long long K, long long T, long long Tp,
                                 long long max_valid_conns, void* floats,
                                 void* ints, void* scores, void* stream) {
   const float* p = (const float*)params;
@@ -484,7 +487,7 @@ extern "C" int tri_score_launch(const void* l2d, const void* cam,
                      (cudaStream_t)stream>>>(
       (const float*)l2d, (const float*)cam, (const int*)meta,
       (const int*)words, (const float*)tri, (const unsigned char*)ok, P,
-      (int)L, (int)K, (int)T, (int)max_valid_conns, (float*)floats,
+      (int)L, (int)K, (int)T, (int)Tp, (int)max_valid_conns, (float*)floats,
       (int*)ints, (float*)scores);
   return (int)cudaGetLastError();
 }

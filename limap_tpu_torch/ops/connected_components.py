@@ -48,3 +48,10 @@ def compact_labels(labels: torch.Tensor, node_mask=None):
     dense = torch.where(node_mask, dense_of_root[labels.long()],
                         torch.full_like(dense_of_root, -1))
     return dense, int(is_root.sum())
+
+
+def union_find_numpy(n_nodes, edges):
+    """Host union-find: the root label (the least node id of its
+    component) of each of ``n_nodes`` nodes under ``edges`` [E, 2]."""
+    from limap_tpu_torch.ops.hostops import union_find
+    return union_find(n_nodes, edges)

@@ -7,6 +7,17 @@ the uncertainty min(u1, u2).  A proposal row is 9 floats: start (3), end
 (3), depths in the own view (2), uncertainty; ``ok`` says whether the
 pair survives every cull.
 
+With ``use_vp`` and the lines' VPs given (``vp [I, L, 4]``: the VP in
+its own image's pixels, then 1 where the line has one), form (a) adds
+two VP banks: the triangulation along the world direction of line a's
+VP (bank 1, a's view) and of line b's VP (bank 2, b's view), each with
+no cull but ``has VP``, then ``score > 0``, the ranges and the
+uncertainty.  The banks are bank-major columns, ``[algebraic T | VP of a
+T | VP of b T]`` (the first absent under
+``disable_algebraic_triangulation``).  The JAX package turns b's VP into
+a direction with a's view; the port uses b's own view (ROADMAP.md
+section 3).
+
 Two input forms:
 
 - :func:`propose`, the matcher paths: edge words ``[G, L, T]`` int32
@@ -43,14 +54,32 @@ SOURCE = "tri_propose.cu"
 CANDIDATE_BUDGET = 1 << 18
 
 
-def check_config(cfg) -> None:
-    """The proposal bank the port has: algebraic or endpoint, no VP."""
+# the kinds of proposal bank: algebraic (or endpoint), along the VP of
+# the own line, along the VP of the neighbour line
+BANK_ALGEBRAIC, BANK_VP_OWN, BANK_VP_NEIGHBOUR = 0, 1, 2
+
+
+def banks(cfg, vp=None):
+    """The proposal banks of form (a), in column order."""
+    kinds = [] if cfg.disable_algebraic_triangulation else [BANK_ALGEBRAIC]
+    if cfg.use_vp and not cfg.disable_vp_triangulation and vp is not None:
+        kinds += [BANK_VP_OWN, BANK_VP_NEIGHBOUR]
+    if not kinds:
+        raise ValueError("no proposal bank: disable_algebraic_triangulation "
+                         "needs use_vp and the lines' VPs")
+    return kinds
+
+
+def check_exhaustive(cfg) -> None:
+    """The exhaustive form has the algebraic / endpoint bank only."""
     if cfg.use_vp and not cfg.disable_vp_triangulation:
-        raise NotImplementedError("VP triangulation is not ported yet "
-                                  "(ROADMAP.md queue 1 item 12)")
+        raise NotImplementedError(
+            "the exhaustive matcher with VP triangulation is not ported "
+            "(ROADMAP.md queue 2): its VP banks have no cull, so every "
+            "(line, neighbour line) pair with a VP would survive")
     if cfg.disable_algebraic_triangulation:
         raise NotImplementedError(
-            "only the algebraic / endpoint proposal bank is ported")
+            "the exhaustive matcher has only the algebraic / endpoint bank")
 
 
 def bucket_width(max_count: int) -> int:
@@ -63,13 +92,15 @@ def bucket_width(max_count: int) -> int:
     return int(8 * ((max_count + 7) // 8))
 
 
-def _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges):
+def _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges, vp=None):
     I = cam_packed.shape[0]
     G = meta.shape[0]
     dev = meta.device
     check_tensor("l2d_packed", l2d_packed, torch.float32, (I, L, 6), dev)
     check_tensor("cam_packed", cam_packed, torch.float32, (I, 12), dev)
     check_tensor("meta", meta, torch.int32, (G, K + 1), dev)
+    if vp is not None:
+        check_tensor("vp", vp, torch.float32, (I, L, 4), dev)
     if ranges is not None:
         for r in ranges:
             check_tensor("ranges", r, torch.float32, (3,), dev)
@@ -78,12 +109,9 @@ def _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges):
                          "keeps the slot in 7 bits")
 
 
-def propose_rows(cfg, l2d_packed, cam_packed, row, a, ng_row, b, cand_ok,
-                 ranges=None):
-    """The proposal of each pair, plain torch.  ``row``, ``a`` [M]: the
-    own image row and line; ``ng_row``, ``b`` [M, T]: the neighbour's;
-    ``cand_ok`` [M, T]: the pair is a candidate.  Returns tri [M, T, 9]
-    and ok [M, T]."""
+def _pairs(l2d_packed, cam_packed, row, a, ng_row, b, cand_ok):
+    """Segments and views of the pairs and which pairs have a valid line
+    on both sides: (l1, v1, l2, v2, valid)."""
     L = l2d_packed.shape[1]
     l2d_flat = l2d_packed.reshape(-1, 6)
     own = l2d_flat[row * L + a]                                 # [M, 6]
@@ -95,7 +123,29 @@ def propose_rows(cfg, l2d_packed, cam_packed, row, a, ng_row, b, cand_ok,
     v1 = CameraViewsBatch(cam1[..., 0:4], cam1[..., 4:8], cam1[..., 8:11])
     v2 = CameraViewsBatch(cam2[..., 0:4], cam2[..., 4:8], cam2[..., 8:11])
     valid = cand_ok & (own[:, None, 4] > 0.5) & (nb[..., 4] > 0.5)
+    return l1, v1, l2, v2, valid
 
+
+def _finish(cfg, tri, ok, v1, v2, ranges):
+    """``score > 0``, the ranges and the uncertainty: (rows [..., 9],
+    ok)."""
+    ok = ok & (tri.score > 0)
+    if ranges is not None:
+        ok = ok & trifun.test_line_inside_ranges(tri, ranges)
+    unc = torch.minimum(lgeo.compute_uncertainty(tri, v1, cfg.var2d),
+                        lgeo.compute_uncertainty(tri, v2, cfg.var2d))
+    rows = torch.cat([tri.start, tri.end, tri.depths, unc[..., None]], -1)
+    return rows, ok
+
+
+def propose_rows(cfg, l2d_packed, cam_packed, row, a, ng_row, b, cand_ok,
+                 ranges=None):
+    """The algebraic (or endpoint) proposal of each pair, plain torch.
+    ``row``, ``a`` [M]: the own image row and line; ``ng_row``, ``b`` [M,
+    T]: the neighbour's; ``cand_ok`` [M, T]: the pair is a candidate.
+    Returns tri [M, T, 9] and ok [M, T]."""
+    l1, v1, l2, v2, valid = _pairs(l2d_packed, cam_packed, row, a, ng_row,
+                                   b, cand_ok)
     n2 = trifun.get_normal_direction(l2, v2)
 
     def ray_angle(p):
@@ -114,13 +164,32 @@ def propose_rows(cfg, l2d_packed, cam_packed, row, a, ng_row, b, cand_ok,
     s2 = lgeo.sensitivity(tri, v2)
     ok = ok & ~((s1 > cfg.sensitivity_threshold)
                 & (s2 > cfg.sensitivity_threshold))
-    ok = ok & valid & (tri.score > 0)
-    if ranges is not None:
-        ok = ok & trifun.test_line_inside_ranges(tri, ranges)
-    unc = torch.minimum(lgeo.compute_uncertainty(tri, v1, cfg.var2d),
-                        lgeo.compute_uncertainty(tri, v2, cfg.var2d))
-    rows = torch.cat([tri.start, tri.end, tri.depths, unc[..., None]], -1)
-    return rows, ok
+    return _finish(cfg, tri, ok & valid, v1, v2, ranges)
+
+
+def vp_direction(kind, vp, row, a, ng_row, b, v1, v2):
+    """World direction [M, T, 3] and has-VP [M, T] of a VP bank: the own
+    line's VP in its view or the neighbour line's VP in its view."""
+    L = vp.shape[1]
+    flat = vp.reshape(-1, 4)
+    if kind == BANK_VP_OWN:
+        v = flat[row * L + a][:, None].expand(ng_row.shape + (4,))
+        view = v1
+    else:
+        v = flat[ng_row * L + b]
+        view = v2
+    return trifun.get_direction_from_vp(v[..., :3], view), v[..., 3] > 0.5
+
+
+def propose_rows_vp(cfg, kind, vp, l2d_packed, cam_packed, row, a, ng_row,
+                    b, cand_ok, ranges=None):
+    """A VP bank's proposal of each pair, plain torch: no cull but the
+    VP, then ``score > 0``, the ranges and the uncertainty."""
+    l1, v1, l2, v2, valid = _pairs(l2d_packed, cam_packed, row, a, ng_row,
+                                   b, cand_ok)
+    direc, has = vp_direction(kind, vp, row, a, ng_row, b, v1, v2)
+    tri = trifun.triangulate_line_with_direction(l1, v1, l2, v2, direc)
+    return _finish(cfg, tri, valid & has, v1, v2, ranges)
 
 
 def decode_words(words: torch.Tensor, meta: torch.Tensor, L: int, K: int):
@@ -143,11 +212,22 @@ def decode_words(words: torch.Tensor, meta: torch.Tensor, L: int, K: int):
 
 
 def propose_plain(cfg, L, K, l2d_packed, cam_packed, words, meta,
-                  ranges=None):
-    """Form (a) in torch ops."""
+                  ranges=None, vp=None):
+    """Form (a) in torch ops, its banks concatenated bank-major."""
     row, a, ng_row, b, _, valid = decode_words(words, meta, L, K)
-    return propose_rows(cfg, l2d_packed, cam_packed, row, a, ng_row, b,
-                        valid, ranges)
+    outs = []
+    for kind in banks(cfg, vp):
+        if kind == BANK_ALGEBRAIC:
+            outs.append(propose_rows(cfg, l2d_packed, cam_packed, row, a,
+                                     ng_row, b, valid, ranges))
+        else:
+            outs.append(propose_rows_vp(cfg, kind, vp, l2d_packed,
+                                        cam_packed, row, a, ng_row, b,
+                                        valid, ranges))
+    if len(outs) == 1:
+        return outs[0]
+    return (torch.cat([t for t, _ in outs], 1),
+            torch.cat([o for _, o in outs], 1))
 
 
 def _exhaustive_chunks(cfg, L, K, l2d_packed, cam_packed, meta, ranges):
@@ -175,6 +255,7 @@ def _exhaustive_chunks(cfg, L, K, l2d_packed, cam_packed, meta, ranges):
 def count_exhaustive_plain(cfg, L, K, l2d_packed, cam_packed, meta,
                            ranges=None):
     """Form (b)'s count in torch ops."""
+    check_exhaustive(cfg)
     counts = torch.zeros(meta.shape[0] * L, dtype=torch.int32,
                          device=meta.device)
     for n0, _, ok, _ in _exhaustive_chunks(cfg, L, K, l2d_packed,
@@ -186,6 +267,7 @@ def count_exhaustive_plain(cfg, L, K, l2d_packed, cam_packed, meta,
 def propose_exhaustive_plain(cfg, L, K, l2d_packed, cam_packed, meta, W,
                              ranges=None):
     """Form (b)'s write in torch ops."""
+    check_exhaustive(cfg)
     N = meta.shape[0] * L
     dev = meta.device
     words = torch.full((N, W), -1, dtype=torch.int32, device=dev)
@@ -221,13 +303,19 @@ def config_params(cfg) -> np.ndarray:
                        float(cfg.use_endpoints_triangulation)], np.float32)
 
 
+def bank_code(kinds) -> int:
+    """The kernel's bank argument: the first bank's kind, then 4 x the
+    number of banks (consecutive kinds)."""
+    return kinds[0] + 4 * len(kinds)
+
+
 def build() -> ctypes.CDLL:
     from limap_tpu_torch.ops.cuda_build import load_library
     lib = load_library(SOURCE)
     ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-    # l2d, cam, meta, words, ranges, params, G, L, K, T/W, mode, counts,
-    # words_out, tri, ok, stream
-    lib.tri_propose_launch.argtypes = [ptr] * 6 + [i64] * 5 + [ptr] * 5
+    # l2d, cam, meta, words, ranges, params, vp, G, L, K, T/W, mode,
+    # banks, counts, words_out, tri, ok, stream
+    lib.tri_propose_launch.argtypes = [ptr] * 7 + [i64] * 6 + [ptr] * 5
     lib.tri_propose_launch.restype = ctypes.c_int
     return lib
 
@@ -237,7 +325,7 @@ MODE_WORDS, MODE_COUNT, MODE_WRITE = 0, 1, 2
 
 def _launch(cfg, L, K, l2d_packed, cam_packed, meta, ranges, mode,
             words=None, W=0, counts=None, words_out=None, tri=None,
-            ok=None):
+            ok=None, vp=None, kinds=(BANK_ALGEBRAIC,)):
     G = meta.shape[0]
     rng = None
     if ranges is not None:
@@ -248,7 +336,8 @@ def _launch(cfg, L, K, l2d_packed, cam_packed, meta, ranges, mode,
     with torch.cuda.device(meta.device):
         err = build().tri_propose_launch(
             *(None if t is None else t.data_ptr() for t in args),
-            params.ctypes.data, G, L, K, W, mode,
+            params.ctypes.data, None if vp is None else vp.data_ptr(),
+            G, L, K, W, mode, bank_code(kinds),
             *(None if t is None else t.data_ptr()
               for t in (counts, words_out, tri, ok)),
             torch.cuda.current_stream().cuda_stream)
@@ -257,22 +346,27 @@ def _launch(cfg, L, K, l2d_packed, cam_packed, meta, ranges, mode,
     _COUNTER.launches += 1
 
 
-def propose(cfg, L, K, l2d_packed, cam_packed, words, meta, ranges=None):
-    """Form (a): tri [G * L, T, 9] and ok [G * L, T] of the bucketed
-    edge words (``propose.launches`` counts the kernel's launches, of
-    every form)."""
-    check_config(cfg)
-    _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges)
+def propose(cfg, L, K, l2d_packed, cam_packed, words, meta, ranges=None,
+            vp=None):
+    """Form (a): tri [G * L, B * T, 9] and ok [G * L, B * T] of the
+    bucketed edge words, for the B banks of :func:`banks`
+    (``propose.launches`` counts the kernel's launches, of every
+    form)."""
+    kinds = banks(cfg, vp)
+    _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges, vp)
     G, T = meta.shape[0], words.shape[-1]
     check_tensor("words", words, torch.int32, (G, L, T), meta.device)
     if meta.device.type == "cpu":
         return propose_plain(cfg, L, K, l2d_packed, cam_packed, words, meta,
-                             ranges)
-    tri = torch.empty((G * L, T, 9), dtype=torch.float32, device=meta.device)
-    ok = torch.empty((G * L, T), dtype=torch.bool, device=meta.device)
+                             ranges, vp)
+    B = len(kinds)
+    tri = torch.empty((G * L, B * T, 9), dtype=torch.float32,
+                      device=meta.device)
+    ok = torch.empty((G * L, B * T), dtype=torch.bool, device=meta.device)
     if G * L * T:
         _launch(cfg, L, K, l2d_packed, cam_packed, meta, ranges, MODE_WORDS,
-                words=words.contiguous(), W=T, tri=tri, ok=ok)
+                words=words.contiguous(), W=T, tri=tri, ok=ok,
+                vp=None if vp is None else vp.contiguous(), kinds=kinds)
     return tri, ok
 
 
@@ -284,7 +378,7 @@ _COUNTER = propose
 
 def count_exhaustive(cfg, L, K, l2d_packed, cam_packed, meta, ranges=None):
     """Form (b), first pass: each line's survivors [G * L] int32."""
-    check_config(cfg)
+    check_exhaustive(cfg)
     _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges)
     if meta.device.type == "cpu":
         return count_exhaustive_plain(cfg, L, K, l2d_packed, cam_packed,
@@ -304,7 +398,7 @@ def propose_exhaustive(cfg, L, K, l2d_packed, cam_packed, meta, W,
     empty), tri [G * L, W, 9] and ok [G * L, W].  ``W`` must cover the
     largest count of :func:`count_exhaustive`; the kernel raises
     otherwise."""
-    check_config(cfg)
+    check_exhaustive(cfg)
     _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges)
     if meta.device.type == "cpu":
         return propose_exhaustive_plain(cfg, L, K, l2d_packed, cam_packed,

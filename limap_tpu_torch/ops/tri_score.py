@@ -11,12 +11,15 @@ pack.
 
 Inputs: edge words ``[G, L, T]`` (``(b << 7) | slot``), ``meta [G, K +
 1]``, the proposals ``tri [G * L, T, 9]`` and ``ok [G * L, T]`` of
-kernel F.  Outputs: floats ``[G, L, 10]`` (best start, end, depths,
-uncertainty, score; a line with no ok proposal writes the start, end and
-depths of its proposal 0 as they are, as the JAX package does, which in
-the exhaustive bucket is the zero row of an empty slot, then uncertainty
-1e30 and score -1) and ints ``[G, L, T + 1]`` (packed valid edges as
-global node ids ``ng_row * L + b``, -1 padded, then their count).
+kernel F.  With kernel F's B banks, T is B times the bucket width and
+the words are repeated once a bank; ``pack`` (the bucket width) caps
+the packed edges, as the JAX program does.  Outputs: floats ``[G, L,
+10]`` (best start, end, depths, uncertainty, score; a line with no ok
+proposal writes the start, end and depths of its proposal 0 as they
+are, as the JAX package does, which in the exhaustive bucket is the
+zero row of an empty slot, then uncertainty 1e30 and score -1) and ints
+``[G, L, P + 1]`` (the first P = ``pack`` packed valid edges as global
+node ids ``ng_row * L + b``, -1 padded, then their count, at most P).
 
 CUDA tensors launch ``csrc/tri_score.cu``, one block a line, which never
 builds the ``[T, T]`` pair grid; CPU tensors take :func:`score_plain`,
@@ -44,8 +47,9 @@ PAIR_BUDGET = 1 << 21
 
 def _score_chunk(cfg, K, T, l2d_packed, cam_packed, ng_row, b, slot, tri,
                  ok, per_slot_only=False):
-    """Rows of the lines of one chunk: (floats [c, 10], ints [c, T + 1],
-    scores [c, w]) for proposals trimmed to width w; with
+    """Rows of the lines of one chunk: (floats [c, 10], ints [c, T + 1]
+    with T the pack width, scores [c, w]) for proposals trimmed to width
+    w; with
     ``per_slot_only`` the per-slot maxima [c, w, K] and which pairs
     [c, w, w] pass every gate (score > 0)."""
     c, w = ok.shape
@@ -123,13 +127,14 @@ def width_chunks(width: torch.Tensor, budget: int):
 
 
 def score_plain(cfg, L, K, l2d_packed, cam_packed, words, meta, tri, ok,
-                return_scores=False):
+                return_scores=False, pack=None):
     """Torch ops over chunks of lines, in the proposals' dtype.  A
     line's proposals are trimmed
     to its last ok one (the rest score -1 and pair with nothing), and
     the lines go in chunks of similar width of at most ``PAIR_BUDGET``
     pairs."""
     G, _, T = words.shape
+    P = T if pack is None else pack
     N = G * L
     dev = words.device
     _, _, ng_row, b, slot, _ = tri_propose.decode_words(words, meta, L, K)
@@ -141,15 +146,15 @@ def score_plain(cfg, L, K, l2d_packed, cam_packed, words, meta, tri, ok,
         floats[:, :8] = tri[:, 0, :8]
     floats[:, 8] = 1e30
     floats[:, 9] = -1.0
-    ints = torch.full((N, T + 1), -1, dtype=torch.int32, device=dev)
-    ints[:, T] = 0
+    ints = torch.full((N, P + 1), -1, dtype=torch.int32, device=dev)
+    ints[:, P] = 0
     scores = torch.full((N, T), -1.0, dtype=tri.dtype, device=dev)
     for n, w in width_chunks(width, PAIR_BUDGET):
-        f, it, sc = _score_chunk(cfg, K, T, l2d_packed, cam_packed,
+        f, it, sc = _score_chunk(cfg, K, P, l2d_packed, cam_packed,
                                  ng_row[n, :w], b[n, :w], slot[n, :w],
                                  tri[n, :w], ok[n, :w])
         floats[n], ints[n], scores[n, :w] = f, it, sc
-    out = (floats.reshape(G, L, 10), ints.reshape(G, L, T + 1))
+    out = (floats.reshape(G, L, 10), ints.reshape(G, L, P + 1))
     return out + (scores,) if return_scores else out
 
 
@@ -182,19 +187,20 @@ def build() -> ctypes.CDLL:
     from limap_tpu_torch.ops.cuda_build import load_library
     lib = load_library(SOURCE)
     ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-    # l2d, cam, meta, words, tri, ok, params, G, L, K, T, max_valid_conns,
-    # floats, ints, scores, stream
-    lib.tri_score_launch.argtypes = [ptr] * 7 + [i64] * 5 + [ptr] * 4
+    # l2d, cam, meta, words, tri, ok, params, G, L, K, T, pack,
+    # max_valid_conns, floats, ints, scores, stream
+    lib.tri_score_launch.argtypes = [ptr] * 7 + [i64] * 6 + [ptr] * 4
     lib.tri_score_launch.restype = ctypes.c_int
     return lib
 
 
 def score(cfg, L, K, l2d_packed, cam_packed, words, meta, tri, ok,
-          return_scores=False):
-    """floats [G, L, 10] and ints [G, L, T + 1] (and, with
-    ``return_scores``, every proposal's score [G * L, T]);
-    ``score.launches`` counts the kernel's launches."""
+          return_scores=False, pack=None):
+    """floats [G, L, 10] and ints [G, L, P + 1] with P = ``pack`` (T when
+    None) (and, with ``return_scores``, every proposal's score [G * L,
+    T]); ``score.launches`` counts the kernel's launches."""
     G, T = meta.shape[0], words.shape[-1]
+    P = T if pack is None else pack
     I = cam_packed.shape[0]
     dev = meta.device
     for name, t, dtype, shape in (
@@ -207,11 +213,13 @@ def score(cfg, L, K, l2d_packed, cam_packed, words, meta, tri, ok,
         check_tensor(name, t, dtype, shape, dev)
     if K > 127:
         raise ValueError("at most 127 neighbour slots")
+    if not 0 <= P <= T:
+        raise ValueError(f"pack width {P} outside [0, {T}]")
     if dev.type == "cpu":
         return score_plain(cfg, L, K, l2d_packed, cam_packed, words, meta,
-                           tri, ok, return_scores)
+                           tri, ok, return_scores, pack)
     floats = torch.empty((G, L, 10), dtype=torch.float32, device=dev)
-    ints = torch.empty((G, L, T + 1), dtype=torch.int32, device=dev)
+    ints = torch.empty((G, L, P + 1), dtype=torch.int32, device=dev)
     scores = torch.empty((G * L, T), dtype=torch.float32, device=dev)
     if G * L:
         params = config_params(cfg)
@@ -220,7 +228,7 @@ def score(cfg, L, K, l2d_packed, cam_packed, words, meta, tri, ok,
         with torch.cuda.device(dev):
             err = build().tri_score_launch(
                 *(t.data_ptr() for t in args),
-                params.ctypes.data, G, L, K, T,
+                params.ctypes.data, G, L, K, T, P,
                 min(int(cfg.max_valid_conns), 1 << 30), floats.data_ptr(),
                 ints.data_ptr(), scores.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)

@@ -4,6 +4,7 @@ the output folder and can be resumed or loaded from it."""
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Dict, List, Optional
 
@@ -29,31 +30,61 @@ def setup(cfg: dict) -> dict:
 
 
 def undistort_images(imagecols, output_dir: str, skip_exists: bool = False):
-    """Pinhole collections pass through; undistorting a distorted camera
-    model waits for the port of ``undistortion/``."""
+    """Undistort every image of a distorted camera into ``output_dir``
+    (``image{img_id:08d}.png``) with OpenCV, its camera turned PINHOLE
+    with the same K; pinhole collections pass through.  Returns a new
+    collection; the given one is left as it was.  (The JAX package
+    writes only the first image of each camera and renames the others
+    to files it never writes; ROADMAP.md section 3.)"""
+    from limap_tpu_torch.undistortion import (undistort_camera,
+                                              undistort_image_camera)
     if imagecols.IsUndistorted():
         return imagecols
-    raise NotImplementedError(
-        "undistortion of distorted camera models is not ported yet "
-        "(ROADMAP.md queue 1 item 15); pass undistorted images")
+    limapio.check_makedirs(output_dir)
+    out = copy.deepcopy(imagecols)
+    for img_id in imagecols.get_img_ids():
+        cam_id = imagecols.camimage(img_id).cam_id
+        cam = imagecols.cam(cam_id)
+        if cam.is_undistorted():
+            continue
+        imname_out = os.path.join(output_dir, f"image{img_id:08d}.png")
+        if skip_exists and os.path.exists(imname_out):
+            new_cam = undistort_camera(cam)
+        else:
+            new_cam = undistort_image_camera(
+                cam, imagecols.image_name(img_id), imname_out)
+        new_cam.camera_id = cam_id
+        out.change_camera(cam_id, new_cam)
+        out.change_image_name(img_id, imname_out)
+    return out
 
 
 def compute_sfminfos(cfg: dict, imagecols, points3d: Optional[dict] = None,
                      images: Optional[dict] = None,
-                     fname: str = "metainfos.txt"):
-    """Visual neighbours + robust ranges.  Without a point model the
-    neighbours come from pose proximity and the ranges from the pose
-    extents; ``load_meta`` reads both from ``dir_load``.  A point model
-    (``points3d`` or ``images`` to triangulate one) waits for the port
-    of ``pointsfm/``."""
+                     fname: str = "metainfos.txt", device=None):
+    """Visual neighbours + robust ranges, saved to ``fname``.  The point
+    model is (a) given (``points3d`` = {pid: {xyz, image_ids}}), (b)
+    triangulated from ``images`` against the known poses on ``device``
+    (:func:`pointsfm.sfm.run_sfm_with_known_poses`), or (c) absent: then
+    the neighbours come from pose proximity and the ranges from the pose
+    extents.  ``load_meta`` reads both from ``dir_load``."""
+    from limap_tpu_torch.pointsfm import SfmModel, compute_metainfos
     if not cfg.get("load_meta", False):
-        if points3d or images is not None:
-            raise NotImplementedError(
-                "neighbours and ranges from a point model are not ported "
-                "yet (pointsfm/, ROADMAP.md queue 1 item 15)")
-        neighbors = compute_pose_neighbors(imagecols,
-                                           cfg.get("n_neighbors", 20))
-        ranges = compute_pose_ranges(imagecols)
+        if points3d is None and images is not None:
+            from limap_tpu_torch.pointsfm.sfm import run_sfm_with_known_poses
+            points3d = run_sfm_with_known_poses(
+                imagecols, images=images,
+                n_neighbors=cfg.get("n_neighbors", 20),
+                weight_path=cfg.get("weight_path"), device=device)
+        if points3d:
+            model = SfmModel.from_imagecols_and_points(imagecols, points3d)
+            neighbors, ranges = compute_metainfos(
+                cfg.get("sfm", {}), model,
+                n_neighbors=cfg.get("n_neighbors", 20))
+        else:
+            neighbors = compute_pose_neighbors(imagecols,
+                                               cfg.get("n_neighbors", 20))
+            ranges = compute_pose_ranges(imagecols)
         limapio.save_txt_metainfos(os.path.join(cfg["dir_save"], fname),
                                    neighbors, ranges)
     else:

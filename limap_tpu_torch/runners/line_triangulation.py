@@ -18,6 +18,7 @@ from limap_tpu_torch.base.linetrack import LineTrack, batch_to_tracks
 from limap_tpu_torch.evaluation.evaluator import report_track_stats
 from limap_tpu_torch.merging.merging import (compact_track_batch,
                                              filter_chain_batch)
+from limap_tpu_torch.ops import tri_propose
 from limap_tpu_torch.optimize.line_ba import (LineBAConfig,
                                               get_output_tracks,
                                               solve_line_bundle_adjustment)
@@ -25,6 +26,7 @@ from limap_tpu_torch.triangulation.triangulator import (
     GlobalLineTriangulator, TriangulatorConfig)
 from limap_tpu_torch.util import io as limapio
 from limap_tpu_torch.util.profiler import StageProfiler
+from limap_tpu_torch.vplib import get_vp_detector
 
 DEFAULT_VAR2D = {"lsd": 2.0, "tpu_lsd": 2.0, "sold2": 5.0, "hawpv3": 5.0,
                  "tp_lsd": 5.0, "deeplsd": 4.0}
@@ -44,10 +46,8 @@ def line_triangulation(cfg: dict, imagecols, neighbors: Optional[dict] = None,
     prof = StageProfiler(device=device)
     tri_dict = cfg["triangulation"]
     use_exhaustive = tri_dict.get("use_exhaustive_matcher", False)
-    if tri_dict.get("use_vp", False):
-        raise NotImplementedError(
-            "VP triangulation is not ported yet (ROADMAP.md queue 1 "
-            "item 12)")
+    if use_exhaustive:
+        tri_propose.check_exhaustive(TriangulatorConfig.from_dict(tri_dict))
     detector = cfg["line2d"]["detector"]["method"]
     if tri_dict.get("var2d", -1) == -1:
         tri_dict["var2d"] = DEFAULT_VAR2D.get(detector, 2.0)
@@ -66,8 +66,8 @@ def line_triangulation(cfg: dict, imagecols, neighbors: Optional[dict] = None,
 
     # [A] metainfos
     if neighbors is None:
-        _, neighbors, ranges = runners.compute_sfminfos(cfg, imagecols,
-                                                        points3d)
+        _, neighbors, ranges = runners.compute_sfminfos(
+            cfg, imagecols, points3d, device=device)
     else:
         neighbors = imagecols.update_neighbors(neighbors)
         for img_id in neighbors:
@@ -90,11 +90,19 @@ def line_triangulation(cfg: dict, imagecols, neighbors: Optional[dict] = None,
                 cfg, descinfo_folder, imagecols.get_img_ids(), neighbors,
                 device=device)
 
-    # [D] triangulation
+    # [D] triangulation, with the VP banks when use_vp is on
     triangulator = GlobalLineTriangulator(
         TriangulatorConfig.from_dict(tri_dict), device=device)
     triangulator.init(all_2d_segs, imagecols)
     triangulator.set_ranges(ranges)
+    if tri_dict.get("use_vp", False):
+        with prof.stage("vp_detect"):
+            vpdet = get_vp_detector(
+                tri_dict.get("vpdet_config", {"method": "jlinkage"}),
+                device=device)
+            vpresults = vpdet.detect_vp_all_images(
+                all_2d_segs, imagecols.get_map_camviews())
+            triangulator.init_vp_results(vpresults)
     with prof.stage("triangulate_score"):
         if use_exhaustive:
             # every line against every line of each neighbour, all

@@ -35,6 +35,14 @@ H, W = 600, 800
 N_GT_LINES = 120
 N_NEIGHBORS = 10
 WALL_Z = 10.0
+# a facade: the wall's lines horizontal or vertical
+FACADE = (0.0, np.pi / 2)
+# the façade's COLMAP model: wall points with a relief of +-RELIEF m,
+# each listed with the views that see it in the central VISIBLE share
+# of the image
+N_POINTS = 2000
+RELIEF = 0.5
+VISIBLE = 0.6
 F2D = {"th_angular_2d": 10.0, "th_perp_2d": 10.0, "th_sv_angular_3d": 70.0,
        "th_sv_num_supports": 3, "th_overlap": 0.05,
        "th_overlap_num_supports": 3}
@@ -88,14 +96,17 @@ def render_view(gt, K, hw, Rm, t, rng) -> np.ndarray:
 
 
 def build_scene(n_views=N_VIEWS, n_lines=N_GT_LINES, seed=0, hw=(H, W),
-                n_neighbors=N_NEIGHBORS, image_dir=None):
+                n_neighbors=N_NEIGHBORS, image_dir=None, directions=None):
     """Render the wall-of-lines scene: (imagecols, imgs {img_id: uint8
     [H, W]}, nbrs {img_id: [ids]}, gt [n_lines, 2, 3]).  Cameras, GT
     lines, neighbours and image noise come from ``seed`` in the
     reference's order of draws.  A size ``hw`` other than 600 x 800
     scales the focal length with the width.  With ``image_dir`` every
     image is also saved there as ``img_{id}.npy`` and named in the
-    collection, so a runner can read it."""
+    collection, so a runner can read it.  ``directions`` (angles in the
+    wall's plane, radians) draws each GT line's direction from those
+    (:data:`FACADE`: horizontal or vertical); None draws it uniformly,
+    as the reference does."""
     h, w = hw
     rng = np.random.default_rng(seed)
     f = 700.0 * w / W
@@ -105,7 +116,8 @@ def build_scene(n_views=N_VIEWS, n_lines=N_GT_LINES, seed=0, hw=(H, W),
     gt = []
     for _ in range(n_lines):
         p = rng.uniform([-6, -4.5, WALL_Z], [6, 4.5, WALL_Z])
-        ang = rng.uniform(0, np.pi)
+        ang = rng.uniform(0, np.pi) if directions is None \
+            else directions[int(rng.integers(len(directions)))]
         ln = rng.uniform(1.0, 4.0)
         d = np.array([np.cos(ang), np.sin(ang), 0.0])
         gt.append([p - d * ln / 2, p + d * ln / 2])
@@ -127,6 +139,52 @@ def build_scene(n_views=N_VIEWS, n_lines=N_GT_LINES, seed=0, hw=(H, W),
     nbrs = {i: [j % n_views for j in range(i - half, i + half + 1)
                 if j % n_views != i] for i in range(n_views)}
     return imagecols, imgs, nbrs, gt
+
+
+def write_colmap_scene(workdir, n_views=N_VIEWS, n_lines=N_GT_LINES, seed=0,
+                       hw=(H, W), n_points=N_POINTS):
+    """The façade variant of the scene (:data:`FACADE`) as a COLMAP text
+    model: images as ``.npy`` in ``workdir/images``, the model in
+    ``workdir/sparse`` (cameras, posed images named relative to the image
+    folder, and ``n_points`` wall points drawn from ``seed``, each with
+    the views that see it).  Returns (model path, image path, gt)."""
+    from limap_tpu_torch.pointsfm import write_model_txt
+    image_dir = os.path.join(workdir, "images")
+    imagecols, _, _, gt = build_scene(n_views, n_lines, seed, hw,
+                                      image_dir=image_dir,
+                                      directions=FACADE)
+    for img_id in imagecols.get_img_ids():
+        imagecols.change_image_name(
+            img_id, os.path.basename(imagecols.image_name(img_id)))
+    rng = np.random.default_rng(seed + 1)
+    pts = rng.uniform([-6, -4.5, WALL_Z - RELIEF],
+                      [6, 4.5, WALL_Z + RELIEF], (n_points, 3))
+    h, w = hw
+    lo = np.array([w, h]) * (1 - VISIBLE) / 2
+    hi = np.array([w, h]) - lo
+    seen = []
+    for img_id in imagecols.get_img_ids():
+        view = imagecols.camview(img_id)
+        pc = pts @ view.R().T + view.T()
+        uv = pc[:, :2] / pc[:, 2:] * view.cam.kvec()[:2] \
+            + view.cam.kvec()[2:]
+        seen.append((pc[:, 2] > 0) & np.all((uv >= lo) & (uv <= hi), 1))
+    seen = np.stack(seen, 1)
+    ids = np.asarray(imagecols.get_img_ids())
+    points3d = {int(p): {"xyz": pts[p], "image_ids": ids[seen[p]].tolist()}
+                for p in range(n_points) if seen[p].sum() >= 2}
+    model = os.path.join(workdir, "sparse")
+    write_model_txt(model, imagecols, points3d)
+    return model, image_dir, gt
+
+
+def colmap_vp_config(output_dir, n_neighbors=N_NEIGHBORS) -> dict:
+    """:func:`runner_config` with ``use_vp`` (the default J-Linkage VP
+    detector of the config file), the neighbours and ranges left to the
+    point model."""
+    cfg = runner_config(output_dir, n_neighbors)
+    cfg["triangulation"]["use_vp"] = True
+    return cfg
 
 
 def _point_to_segments_min_dist(pts, a, d, dd):

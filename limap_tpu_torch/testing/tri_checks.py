@@ -16,7 +16,8 @@ the ``fullscore_th`` test may fall the other way where its value sits on
 the threshold.  Such a difference is accepted only where float64 puts
 the value within a stated tolerance of its threshold:
 
-- F: a proposal ``ok`` on one side only needs a ray-plane angle within
+- F, the algebraic bank: a proposal ``ok`` on one side only needs a
+  ray-plane angle within
   ``ANGLE_TOL`` degrees of ``line_tri_angle_threshold``, the epipolar
   IoU within ``IOU_TOL`` of ``IoU_threshold``, a sensitivity within
   ``ANGLE_TOL`` of its threshold, a projected depth within ``DEPTH_TOL``
@@ -26,6 +27,14 @@ the value within a stated tolerance of its threshold:
   epipolar lines divides by a vanishing cross product).  Rows ok
   on both sides agree within ``ROW_TOL`` of the row's depth
   (``ROW_TOL_ENDPOINTS`` for endpoint triangulation).
+- F, a VP bank (no cull): a flip needs the in-plane direction's norm, a
+  ray's offset from the direction (against 0.001, within ``A1_TOL``), a
+  projected depth or a range bound within tolerance, as above.  A VP
+  triangulation divides by the sum of squares of two plane-ray cosines,
+  so rows ok on both sides agree within the larger of ``ROW_TOL`` and
+  four times the plain float32 row's own error: against float64, and
+  its move under a one-ulp move of the VPs, segments or intrinsics
+  (:func:`ulp_moves`).
 - G, given the same proposals: each proposal's score has a tolerance,
   the larger of ``SCORE_TOL`` and four times the float32 plain version's
   own error against float64, its per-slot maxima's errors summed as
@@ -34,7 +43,12 @@ the value within a stated tolerance of its threshold:
   differ by more only where one of its pairs has a gated linker value
   (exp score against ``score_th``, or the 2D bioverlap against
   ``th_overlap``) within ``GATE_TOL`` of its gate, or within four times
-  that value's own float32 error where that is larger; a valid edge may
+  that value's own float32 error where that is larger, or where the
+  plain version's own score moves by a quarter of the difference under
+  a one-ulp move of its inputs (:func:`ulp_moves` and the proposal
+  rows: a perpendicular distance is the root of a difference of squares
+  of a few hundred pixels, and float32 may round it by ~1e-3 where the
+  float64 comparison is luckily close); a valid edge may
   differ only where its score is within tolerance of ``fullscore_th``
   or its score differs; the best proposal only between scores within
   their tolerances (a near tie) or with a differing score.  Rows with
@@ -70,6 +84,8 @@ ROW_TOL = 1e-4        # of max(1, |depth|)
 ROW_TOL_ENDPOINTS = 1e-3
 SCORE_TOL = 1e-3
 GATE_TOL = 1e-4
+A1_TOL = 1e-6         # a VP bank's ray offset from the direction
+DNORM_TOL = 1e-9      # a VP bank's in-plane direction norm
 
 
 def _rows(l2d_packed, cam_packed, row, a, ng_row, b, dtype=torch.float64):
@@ -147,31 +163,147 @@ def _unexplained_culls(margins_per_cull):
     return {CULLS[i]: idx.count(i) for i in sorted(set(idx))}
 
 
-def compare_propose(cfg, L, K, l2d_packed, cam_packed, words, meta, out_k,
-                    out_p, ranges=None):
-    """Form (a): kernel (tri, ok) against plain on the same words."""
-    (tri_k, ok_k), (tri_p, ok_p) = out_k, out_p
-    row, a, ng_row, b, _, _ = tri_propose.decode_words(words, meta, L, K)
-    T = words.shape[-1]
+def _vp_values(kind, vp, l2d_packed, cam_packed, row, a, ng_row, b, dtype,
+               ranges=None):
+    """The values a VP bank's proposal tests, [M, 8]: the in-plane
+    direction's norm, the two rays' offsets from the direction, four
+    projected depths and the endpoints' distances to the range bounds
+    (functions.triangulate_line_with_direction, step by step)."""
+    l1, v1, l2, v2 = _rows(l2d_packed, cam_packed, row, a, ng_row, b, dtype)
+    L = vp.shape[1]
+    flat = vp.to(dtype).reshape(-1, 4)
+    v = flat[row * L + a] if kind == tri_propose.BANK_VP_OWN \
+        else flat[ng_row * L + b]
+    d = trifun.get_direction_from_vp(
+        v[:, :3], v1 if kind == tri_propose.BANK_VP_OWN else v2)
+    n1 = trifun.get_normal_direction(l1, v1)
+    direc = d - torch.sum(n1 * d, -1, keepdim=True) * n1
+    dnorm = torch.linalg.vector_norm(direc, dim=-1)
+    perp = torch.linalg.cross(n1, direc / (dnorm[:, None] + 1e-12), dim=-1)
+    a1s = torch.sum(v1.ray_direction(l1.start) * perp, -1)
+    a1e = torch.sum(v1.ray_direction(l1.end) * perp, -1)
+    flip = torch.where(a1s < 0, -1.0, 1.0).to(dtype)
+    tri = trifun.triangulate_line_with_direction(l1, v1, l2, v2, d)
+    vals = [dnorm, a1s * flip, a1e * flip]
+    vals += [w.projdepth(p) for w in (v1, v2) for p in (tri.start, tri.end)]
+    gap = torch.full_like(vals[0], float("inf"))
+    if ranges is not None:
+        for bound in ranges:
+            for p in (tri.start, tri.end):
+                gap = torch.minimum(gap, (p - bound.to(dtype)).abs().amin(-1))
+    return torch.stack(vals + [gap], -1)
+
+
+VP_CULLS = ("direction_norm", "offset_start", "offset_end", "depth_1s",
+            "depth_1e", "depth_2s", "depth_2e", "ranges")
+
+
+def vp_margins(kind, vp, l2d_packed, cam_packed, row, a, ng_row, b,
+               ranges=None):
+    """:func:`propose_margins` for a VP bank's tests, [M, 8]."""
+    v64 = _vp_values(kind, vp, l2d_packed, cam_packed, row, a, ng_row, b,
+                     torch.float64, ranges)
+    v32 = _vp_values(kind, vp, l2d_packed, cam_packed, row, a, ng_row, b,
+                     torch.float32, ranges).double()
+    th = v64.new_tensor([1e-12, 1e-3, 1e-3, 0, 0, 0, 0, 0])
+    tol = v64.new_tensor([DNORM_TOL, A1_TOL, A1_TOL] + [DEPTH_TOL] * 5)
+    err = torch.nan_to_num((v32 - v64).abs(), nan=0.0, posinf=0.0)
+    m = (v64 - th).abs() / torch.maximum(tol, 4 * err)
+    return torch.nan_to_num(m, nan=float("inf"))
+
+
+ULP = 2.0 ** -23
+
+
+def ulp_moves(vp, l2d_packed, cam_packed):
+    """The inputs moved by one float32 ulp (relative), one at a time and
+    both ways: the VPs, the 2D segments, the intrinsics."""
+    for f in (1 + ULP, 1 - ULP):
+        l2d = l2d_packed.clone()
+        l2d[..., :4] *= f
+        cam = cam_packed.clone()
+        cam[:, :4] *= f
+        if vp is not None:
+            yield vp * f, l2d_packed, cam_packed
+        yield vp, l2d, cam_packed
+        yield vp, l2d_packed, cam
+
+
+def _compare_bank(cfg, kind, vp, L, K, l2d_packed, cam_packed, words, meta,
+                  tri_k, ok_k, tri_p, ok_p, ranges):
+    """One bank's columns, kernel against plain: (flips, unexplained,
+    nearest culls of the unexplained, row error over its tolerance, max
+    abs error)."""
+    row, a, ng_row, b, _, valid = tri_propose.decode_words(words, meta, L, K)
     flip = (ok_k != ok_p).nonzero()
     n_i, t_i = flip[:, 0], flip[:, 1]
-    per = propose_margins(cfg, l2d_packed, cam_packed, row[n_i], a[n_i],
-                          ng_row[n_i, t_i], b[n_i, t_i], ranges,
-                          per_cull=True)
-    margins = per.amin(-1)
+    args = (row[n_i], a[n_i], ng_row[n_i, t_i], b[n_i, t_i], ranges)
+    if kind == tri_propose.BANK_ALGEBRAIC:
+        per = propose_margins(cfg, l2d_packed, cam_packed, *args,
+                              per_cull=True)
+        names = CULLS
+    else:
+        per = vp_margins(kind, vp, l2d_packed, cam_packed, *args)
+        names = VP_CULLS
+    margins = per.amin(-1) if len(per) else per.new_zeros(0)
+    m = per[margins > 1]
+    idx = m.argmin(-1).tolist() if len(m) else []
+    nearest = {names[i]: idx.count(i) for i in sorted(set(idx))}
     both = ok_k & ok_p
     scale = torch.clamp(tri_p[..., 6:8].abs().amax(-1), min=1.0)
-    err = ((tri_k - tri_p).abs().amax(-1) / scale)[both]
-    res = {"candidates": int((words >= 0).sum()), "ok": int(ok_p.sum()),
-           "flips": len(flip),
-           "flips_unexplained": int((margins > 1).sum()),
-           "unexplained_nearest": _unexplained_culls(per),
-           "row_err": float(err.max()) if err.numel() else 0.0,
-           "max_abs_err": float((tri_k - tri_p).abs()[both].max())
-           if both.any() else 0.0, "width": T}
+    err = (tri_k - tri_p).abs().amax(-1) / scale
     tol = ROW_TOL_ENDPOINTS if cfg.use_endpoints_triangulation else ROW_TOL
+    tol = torch.full_like(err, tol)
+    if kind != tri_propose.BANK_ALGEBRAIC and both.any():
+        n_b, t_b = both.nonzero(as_tuple=True)
+        sub = lambda x: x[n_b][:, None] if x.dim() == 1 else \
+            x[n_b, t_b][:, None]
+
+        def rows_of(v, l2d, cam):
+            r, _ = tri_propose.propose_rows_vp(
+                cfg, kind, v, l2d, cam, sub(row)[:, 0], sub(a)[:, 0],
+                sub(ng_row), sub(b), torch.ones_like(sub(b),
+                                                     dtype=torch.bool))
+            return r[:, 0]
+
+        p32 = tri_p[n_b, t_b]
+        own = (p32.double() - rows_of(vp.double(), l2d_packed.double(),
+                                      cam_packed.double())).abs().amax(-1)
+        for v, l2d, cam in ulp_moves(vp, l2d_packed, cam_packed):
+            own = torch.maximum(own, (rows_of(v, l2d, cam) - p32).abs()
+                                .amax(-1).double())
+        tol[n_b, t_b] = torch.maximum(tol[n_b, t_b],
+                                      (4 * own / scale[n_b, t_b]).float())
+    over = (err / tol)[both]
+    return (len(flip), int((margins > 1).sum()), nearest,
+            float(over.max()) if over.numel() else 0.0,
+            float((tri_k - tri_p).abs()[both].max()) if both.any() else 0.0)
+
+
+def compare_propose(cfg, L, K, l2d_packed, cam_packed, words, meta, out_k,
+                    out_p, ranges=None, vp=None):
+    """Form (a): kernel (tri, ok) against plain on the same words, bank
+    by bank."""
+    (tri_k, ok_k), (tri_p, ok_p) = out_k, out_p
+    T = words.shape[-1]
+    res = {"candidates": int((words >= 0).sum()), "ok": int(ok_p.sum()),
+           "flips": 0, "flips_unexplained": 0, "unexplained_nearest": {},
+           "row_err_over_tol": 0.0, "max_abs_err": 0.0, "width": T,
+           "banks": tri_propose.banks(cfg, vp)}
+    for i, kind in enumerate(res["banks"]):
+        c = slice(i * T, (i + 1) * T)
+        f, u, near, over, mx = _compare_bank(
+            cfg, kind, vp, L, K, l2d_packed, cam_packed, words, meta,
+            tri_k[:, c], ok_k[:, c], tri_p[:, c], ok_p[:, c], ranges)
+        res["flips"] += f
+        res["flips_unexplained"] += u
+        for k, v in near.items():
+            res["unexplained_nearest"][k] = \
+                res["unexplained_nearest"].get(k, 0) + v
+        res["row_err_over_tol"] = max(res["row_err_over_tol"], over)
+        res["max_abs_err"] = max(res["max_abs_err"], mx)
     res["ok_to_plain"] = res["flips_unexplained"] == 0 \
-        and res["row_err"] <= tol
+        and res["row_err_over_tol"] <= 1.0
     return res
 
 
@@ -317,6 +449,32 @@ def score_tolerance(cfg, L, K, l2d_packed, cam_packed, words, meta, tri,
     return tol
 
 
+def score_move_spread(cfg, L, K, l2d_packed, cam_packed, words, meta, tri,
+                      ok, lines, tris):
+    """For proposal ``tris[k]`` of line ``lines[k]``: the most the plain
+    float32 score moves under a one-ulp move of the segments, of the
+    intrinsics or of the line's proposal rows."""
+    if not len(lines):
+        return np.zeros(0)
+    _, _, ng_row, b, slot, _ = tri_propose.decode_words(words, meta, L, K)
+    n = torch.unique(lines)
+    T = ok.shape[1]
+
+    def scores(l2d, cam, t):
+        return tri_score._score_chunk(cfg, K, T, l2d, cam, ng_row[n],
+                                      b[n], slot[n], t[n], ok[n])[2]
+
+    base = scores(l2d_packed, cam_packed, tri)
+    spread = torch.zeros_like(base)
+    for _, l2d, cam in ulp_moves(None, l2d_packed, cam_packed):
+        spread = torch.maximum(spread, (scores(l2d, cam, tri) - base).abs())
+    for f in (1 + ULP, 1 - ULP):
+        spread = torch.maximum(spread, (scores(l2d_packed, cam_packed,
+                                               tri * f) - base).abs())
+    pos = torch.searchsorted(n, lines)
+    return spread[pos, tris].double().cpu().numpy()
+
+
 def compare_score(cfg, L, K, l2d_packed, cam_packed, words, meta, tri, ok,
                   out_k, out_p):
     """Kernel G's (floats, ints, scores) against plain on the same
@@ -325,7 +483,7 @@ def compare_score(cfg, L, K, l2d_packed, cam_packed, words, meta, tri, ok,
     G, _, T = words.shape
     N = G * L
     f_k, f_p = f_k.reshape(N, 10), f_p.reshape(N, 10)
-    i_k, i_p = i_k.reshape(N, T + 1), i_p.reshape(N, T + 1)
+    i_k, i_p = i_k.reshape(N, -1), i_p.reshape(N, -1)
     tol = score_tolerance(cfg, L, K, l2d_packed, cam_packed, words, meta,
                           tri, ok)
     diff = (s_k - s_p).abs().double()
@@ -333,6 +491,10 @@ def compare_score(cfg, L, K, l2d_packed, cam_packed, words, meta, tri, ok,
     lines, tris = big.nonzero(as_tuple=True)
     margins = pair_gate_margins(cfg, L, K, l2d_packed, cam_packed, words,
                                 meta, tri, ok, lines, tris)
+    spread = score_move_spread(cfg, L, K, l2d_packed, cam_packed, words,
+                               meta, tri, ok, lines, tris)
+    moved = 4 * spread >= diff[lines, tris].cpu().numpy()
+    margins = np.where(moved, 0.0, margins)
     flipped = torch.zeros_like(ok)
     flipped[lines, tris] = torch.as_tensor(margins <= 1, device=ok.device)
     small = ok & ~big
@@ -410,6 +572,13 @@ OPS_F = {"line": 88, "neighbour_line": 107, "neighbour_line_iou": 28,
 # candidate two midpoints of two rays with their cheirality (202)
 OPS_F_ENDPOINTS = dict(OPS_F, line=98, neighbour_line=117, line_slot=120,
                        image_neighbour_line=10, triangulated=202)
+# a VP bank's row (csrc/tri_propose.cu::propose_vp) past what depends on
+# one line alone (its rays, its plane normal, the views' centres, the
+# VP's direction: counted once a line): the in-plane direction and its
+# offsets (41), the plane-ray cosines and the two depths along the rays
+# (31), the endpoints (12), their four projected depths and the validity
+# (140), the ranges (12) and the uncertainty (137)
+OPS_F_VP_ROW = 373
 # kernel G, an ordered pair of ok proposals of different slots: the 3D
 # angle score (17); past it, the scale-invariant score (30); past that,
 # the 2D linker (130, the projection amortized over the slot).
@@ -636,6 +805,72 @@ def check_triangulator(tri, matches, kernels=True):
                               return_scores=True))
 
 
+def seeded_vp_inputs(seed=0, device="cuda", n_views=6, n_lines=120,
+                     noise=0.3, disable_algebraic=False):
+    """:func:`seeded_inputs` with ``use_vp`` and each line's exact VP
+    (K R d of its GT direction) in two of every three lines; with
+    ``disable_algebraic`` the VP banks alone."""
+    import dataclasses
+
+    from limap_tpu_torch.testing.synthetic import build_scene
+    tri, matches = seeded_inputs(seed, device, n_views, n_lines, noise)
+    tri.cfg = dataclasses.replace(
+        tri.cfg, use_vp=True,
+        disable_algebraic_triangulation=disable_algebraic)
+    _, _, _, gt = build_scene(n_views, n_lines, n_views, seed=seed,
+                              device=device)
+    d = gt[:, 1] - gt[:, 0]
+    vp = np.zeros((len(tri.img_ids), tri.L, 4), np.float32)
+    for row, img_id in enumerate(tri.img_ids):
+        view = tri.imagecols.camview(img_id)
+        v = (view.K() @ view.R() @ d.T).T
+        vp[row, :n_lines, :3] = v / np.linalg.norm(v, axis=1, keepdims=True)
+        vp[row, :n_lines, 3] = np.arange(n_lines) % 3 != 2
+    tri.vp = tri._device(vp)
+    return tri, matches
+
+
+def check_triangulator_vp(tri, matches, kernels=True):
+    """F with its VP banks and G over the banks' proposals held to plain
+    on a triangulator's inputs: yields (name, result)."""
+    cfg, L = tri.cfg, tri.L
+    ids = tri.img_ids
+    rows = [tri.id2idx[i] for i in ids]
+    per_key, per_val, nbr_rows, K, Tc = tri._gather_edges(
+        rows, [matches[i] for i in ids])
+    words, meta, _ = tri._fill_group(per_key, per_val, nbr_rows, rows, 0,
+                                     len(rows), K, Tc)
+    words, meta = tri._device(words), tri._device(meta)
+    args = (cfg, L, K, tri._l2d_packed, tri._cam_packed, words, meta)
+    fk = tri_propose.propose if kernels else tri_propose.propose_plain
+    out_k = fk(*args, tri.ranges, tri.vp)
+    out_p = tri_propose.propose_plain(*args, tri.ranges, tri.vp)
+    yield "tri_propose vp", compare_propose(*args, out_k, out_p, tri.ranges,
+                                            tri.vp)
+    tri_in, ok_in = out_p
+    B = ok_in.shape[1] // Tc
+    wt = words.repeat(1, 1, B)
+    sargs = args[:5] + (wt, meta, tri_in, ok_in)
+    gk = tri_score.score if kernels else tri_score.score_plain
+    yield "tri_score vp", compare_score(
+        *sargs, gk(*sargs, return_scores=True, pack=Tc),
+        tri_score.score_plain(*sargs, return_scores=True, pack=Tc))
+
+
+def check_all_vp(device="cuda"):
+    """The seeded cases with VP banks on ``device``: yields (name, case,
+    result)."""
+    for case, kw in (("6x120 vp", {}),
+                     ("6x120 vp only", {"disable_algebraic": True}),
+                     ("4x40 vp, ranges", {"n_views": 4, "n_lines": 40})):
+        tri, matches = seeded_vp_inputs(device=device, **kw)
+        if case.endswith("ranges"):
+            tri.set_ranges((np.array([-6.0, -6, 6]), np.array([6.0, 6, 20])))
+        for name, res in check_triangulator_vp(tri, matches,
+                                               kernels=device != "cpu"):
+            yield name, case, res
+
+
 def check_all(device="cuda"):
     """The seeded cases on ``device``: yields (name, case, result)."""
     for case, kw in (("6x120, 0.3 px", {}),
@@ -660,7 +895,7 @@ def main():
     for stem, (secs, report) in cuda_build.BUILD_INFO.items():
         print(f"[build] {stem}: nvcc {secs:.2f} s\n{report.strip()}",
               flush=True)
-    for name, case, res in check_all():
+    for name, case, res in list(check_all()) + list(check_all_vp()):
         print(f"{name} [{case}]: {json.dumps(res)}", flush=True)
         if not res["ok_to_plain"]:
             return 1

@@ -3,7 +3,7 @@ the epipolar geometry, algebraic and endpoint triangulation, known-line
 and one-point triangulation, and the covariance of the algebraic one.
 
 Invalid results carry ``score = -1`` with start 0 / end 1 and depths -1,
-like the reference.  VP-directed triangulation waits for the VP slice.
+like the reference.
 """
 
 from __future__ import annotations
@@ -49,6 +49,17 @@ def get_normal_direction(l2d: Segments,
     """Unit normal of the back-projection plane of a 2D segment."""
     return _norm(cross(views.ray_direction(l2d.start),
                        views.ray_direction(l2d.end)))
+
+
+def get_direction_from_vp(vp: torch.Tensor,
+                          views: CameraViewsBatch) -> torch.Tensor:
+    """Unit world direction of a vanishing point [..., 3] given in the
+    pixels of ``views``: R^T K^-1 vp."""
+    u = (vp[..., 0] - views.kvec[..., 2] * vp[..., 2]) / views.kvec[..., 0]
+    v = (vp[..., 1] - views.kvec[..., 3] * vp[..., 2]) / views.kvec[..., 1]
+    d_cam = torch.stack([u, v, vp[..., 2]], dim=-1)
+    return _norm(quat_rotate(quat_normalize(quat_conjugate(views.qvec)),
+                             d_cam))
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:
@@ -182,6 +193,53 @@ def triangulate_line_algebraic(l1: Segments, view1: CameraViewsBatch,
     z_s = view1.projdepth(p_start)
     z_e = view1.projdepth(p_end)
     valid = ((z_s >= EPS) & (z_e >= EPS)
+             & (view2.projdepth(p_start) >= EPS)
+             & (view2.projdepth(p_end) >= EPS)
+             & torch.all(torch.isfinite(p_start), -1)
+             & torch.all(torch.isfinite(p_end), -1))
+    good = Segments(start=p_start, end=p_end, score=torch.ones_like(z_s),
+                    depths=torch.stack([z_s, z_e], dim=-1))
+    return _select(valid, good, p_start)
+
+
+def triangulate_line_with_direction(
+        l1: Segments, view1: CameraViewsBatch,
+        l2: Segments, view2: CameraViewsBatch,
+        direction: torch.Tensor) -> Segments:
+    """VP-guided triangulation: the 3D line of known ``direction`` in
+    l1's back-projection plane, placed by l2's plane."""
+    n1 = get_normal_direction(l1, view1)
+    direc = direction - torch.sum(n1 * direction, -1, keepdim=True) * n1
+    dnorm = torch.linalg.vector_norm(direc, dim=-1)
+    direc = direc / (dnorm[..., None] + EPS)
+
+    perp = cross(n1, direc)
+    v1s = view1.ray_direction(l1.start)
+    v1e = view1.ray_direction(l1.end)
+    a1s = torch.sum(v1s * perp, dim=-1)
+    a1e = torch.sum(v1e * perp, dim=-1)
+    flip = a1s < 0
+    a1s = torch.where(flip, -a1s, a1s)
+    a1e = torch.where(flip, -a1e, a1e)
+    min_value = 0.001
+
+    C1 = view1.center()
+    C2 = view2.center()
+    n2 = get_normal_direction(l2, view2)
+    c1s = torch.sum(n2 * v1s, dim=-1)
+    c1e = torch.sum(n2 * v1e, dim=-1)
+    b = torch.sum(n2 * (C2 - C1), dim=-1)
+    c1 = c1s
+    c2 = c1e * a1s / (a1e + EPS)
+    d1s = (c1 + c2) * b / (c1 * c1 + c2 * c2 + EPS)
+    d1e = d1s * a1s / (a1e + EPS)
+
+    p_start = v1s * d1s[..., None] + C1
+    p_end = v1e * d1e[..., None] + C1
+    z_s = view1.projdepth(p_start)
+    z_e = view1.projdepth(p_end)
+    valid = ((dnorm >= EPS) & (a1s >= min_value) & (a1e >= min_value)
+             & (z_s >= EPS) & (z_e >= EPS)
              & (view2.projdepth(p_start) >= EPS)
              & (view2.projdepth(p_end) >= EPS)
              & torch.all(torch.isfinite(p_start), -1)

@@ -92,21 +92,26 @@ class TriangulatorConfig:
 def bucket_program(cfg: TriangulatorConfig, L: int, K: int, T: int,
                    l2d_packed: torch.Tensor, cam_packed: torch.Tensor,
                    words: torch.Tensor, meta: torch.Tensor,
-                   ranges=None):
+                   ranges=None, vp=None):
     """Triangulate, score and select over one group of G images: kernel
     F on the bucketed edge words, then kernel G.
 
     l2d_packed [I, L, 6] (sx, sy, ex, ey, ok, pad); cam_packed [I, 12]
     (kvec, qvec, tvec, pad); words [G, L, T] int32 edge words; meta
-    [G, K + 1] int32 (neighbour rows, then the image's own row).
+    [G, K + 1] int32 (neighbour rows, then the image's own row); vp
+    [I, L, 4] (each line's VP, then 1 where it has one) or None.
     Returns floats [G, L, 10] (best start, end, depths, uncertainty,
     score) and ints [G, L, T + 1] (packed valid edges as global node
-    ids, -1 padded, then their count).
+    ids, -1 padded, then their count).  With the VP banks G scores the
+    B x T proposals of a line side by side, its words repeated once a
+    bank.
     """
     tri, ok = tri_propose.propose(cfg, L, K, l2d_packed, cam_packed, words,
-                                  meta, ranges)
-    return tri_score.score(cfg, L, K, l2d_packed, cam_packed, words, meta,
-                           tri, ok)
+                                  meta, ranges, vp)
+    B = ok.shape[1] // T if T else 1
+    return tri_score.score(cfg, L, K, l2d_packed, cam_packed,
+                           words.repeat(1, 1, B) if B > 1 else words, meta,
+                           tri, ok, pack=T)
 
 
 class GlobalLineTriangulator:
@@ -124,6 +129,7 @@ class GlobalLineTriangulator:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.ranges = None
+        self.vp = None
 
     def init(self, all_2d_segs: Dict[int, np.ndarray],
              imagecols: ImageCollection) -> None:
@@ -157,6 +163,7 @@ class GlobalLineTriangulator:
             [vb.kvec, vb.qvec, vb.tvec,
              torch.zeros((I, 1), device=self.device)], dim=1)
         self.n_lines = mask.sum(1)
+        self.vp = None
         self._outs = []
         self._host = None
         self.overflow_edges = 0
@@ -167,6 +174,24 @@ class GlobalLineTriangulator:
             self.ranges = tuple(
                 torch.as_tensor(np.asarray(r), dtype=torch.float32,
                                 device=self.device) for r in ranges)
+
+    def init_vp_results(self, vpresults) -> None:
+        """Each line's VP from {img_id: VPResult} (per-line labels and
+        the image's VPs), as the [I, L, 4] table the VP banks read."""
+        I, L = len(self.img_ids), self.L
+        vp = np.zeros((I, L, 4), np.float32)
+        for row, img_id in enumerate(self.img_ids):
+            res = vpresults.get(img_id)
+            if res is None:
+                continue
+            labels = np.asarray(res.labels)[:L]
+            sel = labels >= 0
+            vp[row, :len(labels)][sel, :3] = np.asarray(res.vps)[labels[sel]]
+            vp[row, :len(labels)][sel, 3] = 1.0
+        self.vp = torch.as_tensor(vp, device=self.device)
+
+    def _banks(self) -> int:
+        return len(tri_propose.banks(self.cfg, self.vp))
 
     # -------------------------------------------------------- bucketing
     def _gather_edges(self, rows: List[int], matches_list: List[dict]):
@@ -249,13 +274,14 @@ class GlobalLineTriangulator:
             rows, matches_list)
         overflow = 0
         outs = []
-        for g0, g1 in self._groups(len(rows), Tc):
+        for g0, g1 in self._groups(len(rows), self._banks() * Tc):
             words, meta, ovf = self._fill_group(per_key, per_val, nbr_rows,
                                                 rows, g0, g1, K, Tc)
             overflow += ovf
             floats, ints = bucket_program(
                 self.cfg, self.L, K, Tc, self._l2d_packed, self._cam_packed,
-                self._device(words), self._device(meta), self.ranges)
+                self._device(words), self._device(meta), self.ranges,
+                self.vp)
             outs.append((rows[g0:g1], floats, ints))
         return outs, overflow
 
@@ -320,6 +346,7 @@ class GlobalLineTriangulator:
         to the largest valid count (the bucket is as wide as the most
         survivors of a line, its valid edges far fewer), and no dropped
         edges."""
+        tri_propose.check_exhaustive(self.cfg)
         ids = [i for i in self.img_ids if i in neighbors]
         rows = [self.id2idx[i] for i in ids]
         nbr_rows = [[self.id2idx[ng] for ng in sorted(neighbors[i])]

@@ -330,3 +330,59 @@ def test_lm_kernels_refuse_what_they_cannot_take(cuda):
         lm_jointloc.solve(params0, *data, dataclasses.replace(
             cfg, cost_function="2d_unknown"))
 
+
+
+VP_CASES = ["ragged 491/37/0/950/120/3 lines, H 512",
+            "20 lines < H 512, 4 VPs", "on the threshold and tied counts",
+            "3500 lines (mask past shared memory)"]
+
+
+@pytest.fixture(scope="module")
+def vp_results():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from limap_tpu_torch.testing import vp_checks
+    return dict(vp_checks.check_all("cuda"))
+
+
+@pytest.mark.parametrize("case", VP_CASES)
+def test_vp_detect_kernel_vs_plain(vp_results, case):
+    res = vp_results[case]
+    assert res["ok"], res
+
+
+def test_vp_detect_runs_every_image_in_one_launch(cuda):
+    from limap_tpu_torch.ops import vp_detect
+    from limap_tpu_torch.testing import vp_checks
+    from limap_tpu_torch.vplib import JLinkage, JLinkageConfig
+    rng = np.random.default_rng(3)
+    segs = {i: vp_checks.random_image(rng, n) for i, n in
+            enumerate((300, 40, 5, 700))}
+    n0 = vp_detect.detect.launches
+    card = JLinkage(JLinkageConfig(), seed=2, device="cuda")
+    res = card.detect_vp_all_images(segs)
+    assert vp_detect.detect.launches == n0 + 1
+    cpu = JLinkage(JLinkageConfig(), seed=2,
+                   device="cpu").detect_vp_all_images(segs)
+    for i in segs:
+        np.testing.assert_array_equal(res[i].labels, cpu[i].labels)
+        np.testing.assert_allclose(res[i].vps, cpu[i].vps, atol=1e-5)
+
+
+TRI_VP_CASES = [(name, case) for case in ("6x120 vp", "6x120 vp only",
+                                          "4x40 vp, ranges")
+                for name in ("tri_propose vp", "tri_score vp")]
+
+
+@pytest.fixture(scope="module")
+def tri_vp_results():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return {(name, case): res
+            for name, case, res in tri_checks.check_all_vp("cuda")}
+
+
+@pytest.mark.parametrize("name,case", TRI_VP_CASES)
+def test_triangulator_vp_banks_vs_plain(tri_vp_results, name, case):
+    res = tri_vp_results[(name, case)]
+    assert res["ok_to_plain"], res

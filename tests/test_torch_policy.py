@@ -48,7 +48,14 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "fitting/fitting.py", "runners/line_fitnmerge.py",
                 "testing/fitnmerge.py", "testing/fitnmerge_checks.py",
                 "ops/tri_propose.py", "ops/tri_score.py",
-                "merging/strategies.py"):
+                "merging/strategies.py", "ops/vp_detect.py",
+                "pointsfm/colmap_reader.py", "pointsfm/sfm_model.py",
+                "pointsfm/readers.py", "pointsfm/sfm.py",
+                "pointsfm/colmap_sfm.py", "undistortion/undistort.py",
+                "vplib/jlinkage.py", "vplib/progressivex.py",
+                "vplib/vptrack.py", "point2d/superpoint.py",
+                "point2d/matching.py", "runners/colmap_triangulation.py",
+                "testing/vp_checks.py"):
         assert "limap_tpu_torch/" + new in covered, new
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -249,9 +256,12 @@ QUEUED_NAMES = {
     "ops": {"count_component_sizes": "15b"},
     "optimize": {"RefinementConfig": "12", "line_refinement": "12",
                  "solve_line_refinement": "12"},
+    "point2d": {"SuperPoint": "14", "log_sinkhorn": "14",
+                "sinkhorn_match": "14"},
 }
 SUBPACKAGES = ("base", "merging", "optimize", "evaluation", "ops", "util",
-               "runners", "fitting", "estimators", "line2d")
+               "runners", "fitting", "estimators", "line2d", "pointsfm",
+               "undistortion", "vplib", "point2d")
 
 
 @pytest.mark.parametrize("name", SUBPACKAGES)
@@ -266,6 +276,63 @@ def test_subpackages_export_the_jax_public_names(name):
     assert not missing, missing
     # a queued name really is missing, so the list stays true
     assert not [n for n in queued if hasattr(port, n)]
+
+
+def _colmap_vp_calls(tmp):
+    from limap_tpu_torch.pointsfm import (ReadInfos, ReadPointTracks,
+                                          run_sfm_with_known_poses)
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.runners.functions import compute_sfminfos
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.vplib import (JLinkage, ProgressiveX,
+                                       get_vp_detector)
+    model, image_dir, _ = pipeline.write_colmap_scene(
+        str(tmp), n_views=3, n_lines=6, hw=(40, 60), n_points=40)
+    cols = ReadInfos(model, image_dir)
+    feats = {i: {"keypoints": np.zeros((0, 2), np.float32),
+                 "descriptors": np.zeros((0, 64))} for i in range(3)}
+
+    def runner(device):
+        cfg = pipeline.colmap_vp_config(str(tmp / "out"), n_neighbors=2)
+        return line_triangulation(cfg, cols,
+                                  points3d=ReadPointTracks(model),
+                                  device=device)
+
+    def sfminfos(device):
+        cfg = {"dir_save": str(tmp), "n_neighbors": 2}
+        return compute_sfminfos(cfg, cols, images={}, device=device)
+
+    return {
+        "jlinkage": lambda d: JLinkage(device=d),
+        "progressivex": lambda d: ProgressiveX(device=d),
+        "vp_detector": lambda d: get_vp_detector({"method": "jlinkage"},
+                                                 device=d),
+        "sfm": lambda d: run_sfm_with_known_poses(cols, features=feats,
+                                                  device=d),
+        "sfminfos": sfminfos,
+        "colmap_runner": runner,
+    }
+
+
+COLMAP_VP = ["jlinkage", "progressivex", "vp_detector", "sfm", "sfminfos",
+             "colmap_runner"]
+
+
+@pytest.mark.parametrize("entry", COLMAP_VP)
+def test_colmap_vp_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _colmap_vp_calls(tmp_path)[entry](None)
+
+
+@pytest.mark.parametrize("entry", ["jlinkage", "progressivex", "vp_detector",
+                                   "sfm"])
+def test_colmap_vp_entry_points_run_on_cpu_when_asked(no_gpu, entry,
+                                                      tmp_path):
+    out = _colmap_vp_calls(tmp_path)[entry]("cpu")
+    if entry == "sfm":
+        assert out == {}
+    else:
+        assert out.device.type == "cpu"
 
 
 def _fitnmerge_calls():

@@ -170,23 +170,27 @@ def test_line_triangulation_matches_reference_from_pixels(rng, tmp_path):
 
 
 def test_runner_refuses_what_is_not_ported(rng, tmp_path):
+    """What the port still refuses: the exhaustive matcher with VP
+    triangulation (ROADMAP.md queue 2), SuperPoint features for the
+    point model and a learned line detector (queue 1 item 14).  VP
+    triangulation, point models and distorted cameras run
+    (tests/test_torch_vp_triangulation.py, test_torch_pointsfm.py,
+    test_torch_undistortion.py)."""
     imagecols, _ = make_scene(rng, tmp_path, n_views=2, n_lines=2)
-    # the exhaustive matcher is ported (tests/test_torch_exhaustive.py)
-    cfg = small_cfg(tmp_path / "use_vp")
-    cfg["triangulation"]["use_vp"] = True
+    cfg = small_cfg(tmp_path / "exhaustive_vp")
+    cfg["triangulation"].update(use_vp=True, use_exhaustive_matcher=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         line_triangulation(cfg, imagecols, device="cpu")
     cfg = runners.setup(small_cfg(tmp_path / "sfm"))
-    with pytest.raises(NotImplementedError, match="pointsfm"):
-        runners.compute_sfminfos(cfg, imagecols, points3d={0: {}})
-    with pytest.raises(NotImplementedError, match="pointsfm"):
-        runners.compute_sfminfos(cfg, imagecols, images={})
-    distorted = ImageCollection(
-        {0: Camera("SIMPLE_RADIAL", [300.0, 160, 120, 0.1], cam_id=0,
-                   hw=(H, W))}, imagecols.images)
-    with pytest.raises(NotImplementedError, match="undistort"):
-        line_triangulation(small_cfg(tmp_path / "dist"), distorted,
-                           device="cpu")
+    cfg["weight_path"] = "superpoint_v1.pth"
+    with pytest.raises(NotImplementedError, match="item 14"):
+        runners.compute_sfminfos(cfg, imagecols,
+                                 images={i: None for i in imagecols.images},
+                                 device="cpu")
+    cfg = small_cfg(tmp_path / "sold2")
+    cfg["line2d"]["detector"]["method"] = "sold2"
+    with pytest.raises(NotImplementedError):
+        line_triangulation(cfg, imagecols, device="cpu")
     assert runners.undistort_images(imagecols, str(tmp_path)) is imagecols
 
 

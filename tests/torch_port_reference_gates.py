@@ -13,6 +13,8 @@ root:
         --fitnmerge [N_VIEWS]
     JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
         --exhaustive [N_VIEWS]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --colmap-vp [N_VIEWS]
 
 Without arguments: the slice from given segments and matches
 (triangulate -> tracks -> filters + remerge -> line BA) on the protocol
@@ -62,6 +64,16 @@ at ~491 segments an image every line keeps only candidates of its first
 neighbour, whose pairs all share a slot and score 0.  Beside the port's
 numbers the mode records what JAX's runner gives on the same images (as
 PNG), to keep that collapse on record.
+
+With ``--colmap-vp``: the façade variant of the rendered scene (its
+lines horizontal or vertical) written as a COLMAP text model with wall
+points (limap_tpu_torch/testing/pipeline.py::write_colmap_scene), read
+back and triangulated with ``use_vp`` and pipeline.colmap_vp_config,
+neighbours and ranges from the model: the PORT on the CPU (the JAX
+package's VP bank of the neighbour line turns that line's VP into a
+direction with the wrong view, ROADMAP.md section 3), then the JAX
+package's runner beside it; the track counts, the average segments, the
+matches, quality_eval and the stage seconds.
 """
 
 import json
@@ -278,6 +290,57 @@ def exhaustive(n_views=100):
     print(json.dumps(out))
 
 
+def colmap_vp(n_views=100, hw=None):
+    """The façade scene as a COLMAP model (pipeline.write_colmap_scene),
+    read back by each package and triangulated with use_vp, neighbours
+    and ranges from the model's points: the PORT on the CPU first (its
+    VP bank of the neighbour line takes that line's own view, where the
+    JAX package takes the other view; ROADMAP.md section 3), then the
+    JAX package's runner on the same images as PNG."""
+    import cv2
+    from limap_tpu.pointsfm import ReadInfos as jax_read_infos
+    from limap_tpu.pointsfm import ReadPointTracks as jax_read_points
+    from limap_tpu.runners import line_triangulation as jax_runner
+    from limap_tpu_torch.pointsfm import ReadInfos, ReadPointTracks
+    from limap_tpu_torch.runners import line_triangulation as port_runner
+    hw = hw or (pipeline.H, pipeline.W)
+    with tempfile.TemporaryDirectory() as workdir:
+        model, image_dir, gt = pipeline.write_colmap_scene(
+            workdir, n_views, hw=hw)
+        out = {"n_views": n_views, "hw": list(hw)}
+        cfg = pipeline.colmap_vp_config(os.path.join(workdir, "port"))
+        t0 = time.perf_counter()
+        tracks = port_runner(cfg, ReadInfos(model, image_dir),
+                             points3d=ReadPointTracks(model), device="cpu")
+        out["port"] = _colmap_vp_summary(tracks, cfg, gt,
+                                         time.perf_counter() - t0)
+        print(json.dumps(out), flush=True)
+        cols = jax_read_infos(model, image_dir)
+        for i in cols.get_img_ids():
+            name = cols.image_name(i)
+            png = name[:-len(".npy")] + ".png"
+            cv2.imwrite(png, np.load(name))
+            cols.change_image_name(i, png)
+        cfg = pipeline.colmap_vp_config(os.path.join(workdir, "jax"))
+        t0 = time.perf_counter()
+        tracks = jax_runner(cfg, cols, points3d=jax_read_points(model))
+        out["jax"] = _colmap_vp_summary(tracks, cfg, gt,
+                                        time.perf_counter() - t0)
+    print(json.dumps(out))
+
+
+def _colmap_vp_summary(tracks, cfg, gt, total):
+    out = _exhaustive_summary(tracks, cfg, gt, total)
+    matches_dir = os.path.join(
+        cfg["dir_save"], "line_matchings", "tpu_lsd",
+        "feats_patch_endpoints", "matches_nn_endpoints")
+    out["n_matches"] = int(sum(
+        len(m) for f in sorted(os.listdir(matches_dir))
+        for m in np.load(os.path.join(matches_dir, f),
+                         allow_pickle=True).item().values()))
+    return out
+
+
 def _exhaustive_summary(tracks, cfg, gt, total):
     from limap_tpu_torch.util import io as limapio
     segs = limapio.read_all_segments_from_folder(os.path.join(
@@ -332,5 +395,7 @@ if __name__ == "__main__":
         fitnmerge(*map(int, sys.argv[2:3]))
     elif sys.argv[1:2] == ["--exhaustive"]:
         exhaustive(*map(int, sys.argv[2:3]))
+    elif sys.argv[1:2] == ["--colmap-vp"]:
+        colmap_vp(*map(int, sys.argv[2:3]))
     else:
         main()
