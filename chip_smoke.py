@@ -66,6 +66,20 @@ Phases, in order; any failure exits non-zero:
      path on the card and on the CPU on a reduced façade (8 views, the
      same segments and matches) and requires the same VP labels, the
      same VPs, tracks and supports.
+ 12. refinement and point-line association at full width on phase 11's
+     map (its tracks, segments and views): a second COLMAP model of the
+     façade with 4,000 points on the GT lines and every point's 2D
+     observations, then limap_tpu_torch/testing/pointline.py::run: the
+     refinement CLI's path (line_refinement with use_vp: kernel J, then
+     K), the refinement with the heatmap and feature-consistency terms
+     from GradientFeatureExtractor on the rendered images (kernel K), and
+     pointline_association (kernels J, L and M), with quality gates from
+     the port's own CPU run and at most 2 tracks taken off their heatmap
+     patches; then K, L and M held to their plain versions (K also
+     refusing planted faults) and timed on the path's largest solves.
+     Phase 12a, before it, runs that path on the CPU and then on the card
+     on a reduced façade (8 views, the CPU's map) and holds the tracks,
+     points and VPs card to CPU, the pixel refinement a track at a time.
 Phase 2 also holds the triangulator's kernels (tri_propose, F, in both
 input forms and with the VP banks, and tri_score, G) and the VP
 detector (vp_detect, J) to their plain versions on seeded inputs;
@@ -76,8 +90,10 @@ tracks and supports.
 Phase 2 also holds the localization kernels (trace_roots, pose_score,
 epipolar_iou_grid), the fit-and-merge kernels (line_ransac,
 linker_edges) and the LM kernels (lm_line_ba, H; lm_jointloc, I, under
-every cost function, weight and loss) to their plain versions on seeded
-inputs; phases 4, 7 and 10 hold H to its plain version on their paths'
+every cost function, weight and loss; lm_line_refine, K, with each term
+alone and all four; lm_assoc_lines, L, with and without VPs;
+lm_assoc_points, M, with empty, seeded and full association slots) to
+their plain versions on seeded inputs; phases 4, 7 and 10 hold H to its plain version on their paths'
 whole BA input and phase 8 holds I to it on every LO solve of its
 queries, each row by row (testing/lm_checks.py); phase 3b, after
 phase 3, runs the PnPL estimator on the card and on the CPU on one
@@ -1702,7 +1718,8 @@ def colmap_vp_card_vs_cpu(workdir):
 def colmap_vp_full_width(workdir, card):
     """Phase 11: the façade's COLMAP model read back and triangulated with
     use_vp on the card, gated against the port's CPU run.  Returns the
-    recorded inputs of J, F, G and H and their launches."""
+    recorded inputs of J, F, G and H, their launches, and the map
+    (tracks, views, segments, GT) for phase 12."""
     from limap_tpu_torch.ops import vp_detect
     from limap_tpu_torch.pointsfm import ReadInfos, ReadPointTracks
     from limap_tpu_torch.runners import line_triangulation
@@ -1770,7 +1787,7 @@ def colmap_vp_full_width(workdir, card):
                     avg_segs=float(np.mean([len(v) for v in segs.values()])))
     hold_to_gates("colmap-vp", measured, REFERENCE_COLMAP_VP)
     recorded = {k: (rec.args, rec.kwargs) for k, rec in recorders.items()}
-    return recorded, launches
+    return recorded, launches, (tracks, imagecols, segs, gt)
 
 
 def measure_vp_detect(recorded, launches):
@@ -1802,6 +1819,341 @@ def measure_vp_detect(recorded, launches):
                        args, {}, res["max_abs_err"], bms, by, shape, (10, 1))
 
 
+K_SOURCE, KLM_SOURCE = "lm_line_refine.cu", "lm_assoc.cu"
+K_REPLACES = "limap_tpu/optimize/line_refinement.py:406"
+L_REPLACES = "limap_tpu/optimize/global_pl_association.py:249"
+M_REPLACES = "limap_tpu/optimize/global_pl_association.py:260"
+
+# Card against CPU on refinement and association (phase 12a), the same
+# map, points and segments: LM accept tests flip under rounding once a
+# cost is flat (as LINE_TOL), lines and points within 1 cm at ~10 m.  The
+# pixel refinement is held a track at a time: its heatmaps and features
+# are computed on each device, so their inputs differ by rounding; a
+# track whose pixel solve took the same accepts on both devices within
+# 1 cm and its final cost within PL_PIXEL_COST_RTOL, one whose accepts
+# part (a valid float32 run elsewhere, each parting witnessed by phases 2
+# and 12 on one input) counted and reported.  The first costs of all
+# rows within PL_PIXEL_COST_RTOL of their sum (a heatmap term off by 5 %
+# moves it by 4 % on this scene), the accepted steps within
+# PL_PIXEL_ACCEPT_SHARE of the CPU's (a solve that refines nothing
+# accepts none), the tracks taken off their patches within one.  The VPs
+# within 1e-3 (up to sign): each is a float64 principal direction of the
+# refined lines.
+PL_LINE_TOL = 1e-2
+PL_PIXEL_COST_RTOL = 1e-3
+PL_PIXEL_ACCEPT_SHARE = 0.2
+PL_VP_TOL = 1e-3
+# A track that the pixel refinement takes off its heatmap patches is held
+# by the robust geometric term alone and may run far (in the port's CPU
+# run of phase 12 one track raised the mean distance to the GT lines to
+# 2.52 m against a median of 3.30 cm): at most this many on phase 12.
+PL_LEFT_PATCHES_MAX = 2
+
+
+# The PORT's CPU run of phase 12's path on its own CPU map of the façade
+# (tests/torch_port_reference_gates.py --pointline 100; the path 36.6 s
+# on the CPU).  JAX's refinement and association on the same map, the
+# port's VPs replayed, beside it: refined median 0.03110 m, recall
+# 167.27 m; associated median 0.01918 m, recall 179.76 m, precision
+# 96.15 %; 2 VPs 73.8 deg apart (its undamped VP step, ROADMAP.md
+# section 3).
+REFERENCE_POINTLINE = {
+ "input": {
+  "n_tracks": 281,
+  "dist_median_m": 0.031098112654651625,
+  "recall_0.05": 167.1927736518379,
+  "precision_0.05": 87.98076923076923
+ },
+ "refined": {
+  "dist_median_m": 0.031097383283018042,
+  "recall_0.05": 167.27412728005964,
+  "precision_0.05": 87.98076923076923
+ },
+ "refined_px": {
+  "dist_median_m": 0.03295057736742667,
+  "recall_0.05": 163.75290340092727,
+  "precision_0.05": 89.90384615384616
+ },
+ "associated": {
+  "dist_median_m": 0.017578657222371417,
+  "recall_0.05": 181.12525474803806,
+  "precision_0.05": 94.71153846153845
+ },
+ "points": {
+  "line_points_dist_after_m": 0.006270109939334213
+ },
+ "associations": {
+  "hard": 3238
+ },
+ "vps": {
+  "n_vps": 2,
+  "worst_orthogonal_deg": 0.2911773784111489
+ }
+}
+# (section, key, "relative" share or an absolute slack in the key's unit):
+# the map under phase 12 is the card's phase-11 map, itself within phase
+# 11's gates of the CPU's (2 % of the tracks, 3 % of the recall, 2.5
+# points of precision), so these allow as much, 5 mm on the median
+# distances, 3 mm on the line points, and a little more for the pixel
+# terms' flat valleys.
+POINTLINE_GATES = (
+    ("input", "n_tracks", "relative", 0.02),
+    ("refined", "recall_0.05", "relative", 0.03),
+    ("refined", "precision_0.05", "points", 2.5),
+    ("refined", "dist_median_m", "m", 0.005),
+    ("refined_px", "recall_0.05", "relative", 0.05),
+    ("refined_px", "precision_0.05", "points", 3.0),
+    ("refined_px", "dist_median_m", "m", 0.005),
+    ("associated", "recall_0.05", "relative", 0.03),
+    ("associated", "precision_0.05", "points", 2.5),
+    ("associated", "dist_median_m", "m", 0.005),
+    ("points", "line_points_dist_after_m", "m", 0.003),
+    ("associations", "hard", "relative", 0.05),
+    ("vps", "n_vps", "count", 0),
+    ("vps", "worst_orthogonal_deg", "deg", 0.5),
+)
+
+
+def hold_pointline_gates(summ):
+    for section, name, unit, slack in POINTLINE_GATES:
+        got = summ[section][name]
+        ref = REFERENCE_POINTLINE[section][name]
+        margin = ref * slack if unit == "relative" else slack
+        log(f"[pointline] gate {section}.{name}: {got:.4f} against the "
+            f"reference's {ref:.4f} ({unit} {slack})")
+        check(abs(got - ref) <= margin,
+              ("pointline", "gate", section, name, got, ref))
+
+
+def track_line_error(a, b):
+    """Largest endpoint difference of two track lists of the same order."""
+    check(len(a) == len(b), ("track counts", len(a), len(b)))
+    if not a:
+        return 0.0
+    return float(np.abs(np.stack([t.line for t in a])
+                        - np.stack([t.line for t in b])).max())
+
+
+def pointline_card_vs_cpu(workdir):
+    """Phase 12a: the refinement and association path on the CPU and then
+    on the card with the same inputs, on a reduced façade (8 views of
+    240x320, 120 GT lines, the CPU's map, 800 points on the GT lines)."""
+    from limap_tpu_torch.pointsfm import ReadInfos, ReadPointTracks
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline, pointline
+    from limap_tpu_torch.util import io as limapio
+    small = dict(n_views=8, hw=(240, 320), n_points=400)
+    model, image_dir, gt = pipeline.write_colmap_scene(workdir, **small)
+    cfg = pipeline.colmap_vp_config(os.path.join(workdir, "map"))
+    cols = ReadInfos(model, image_dir)
+    tracks = line_triangulation(cfg, cols, points3d=ReadPointTracks(model),
+                                device="cpu")
+    segs = limapio.read_all_segments_from_folder(os.path.join(
+        workdir, "map", "line_detections", "tpu_lsd", "segments"))
+    model2, _, _ = pipeline.write_colmap_scene(
+        os.path.join(workdir, "points"), n_line_points=800, **small)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = pointline.run(tracks, cols, segs, model2, gt,
+                                 os.path.join(workdir, dev), dev,
+                                 n_wall_points=400)
+    (c, sc), (g, sg) = out["cpu"], out["cuda"]
+    err = {k: track_line_error(g[k], c[k])
+           for k in ("refined", "associated")}
+    err["points"] = float(np.abs(g["points"] - c["points"]).max())
+    err["vps"] = vp_direction_error(np.asarray(g["vps"]),
+                                    np.asarray(c["vps"]))
+    log(f"[pointline card-vs-cpu] {len(tracks)} tracks, "
+        f"{len(c['points'])} points, {len(c['vps'])} VPs; card against "
+        f"CPU: {json.dumps(err)}; hard associations "
+        f"{sg['associations']['hard']} / {sc['associations']['hard']}; "
+        f"CPU summary {json.dumps(sc)}")
+    check(len(tracks) >= 8 and len(c["vps"]) >= 1,
+          ("reduced façade map", len(tracks), len(c["vps"])))
+    check(len(g["vps"]) == len(c["vps"]), "VP counts card vs CPU")
+    check(err["refined"] <= PL_LINE_TOL, ("refined lines", err))
+    check(err["associated"] <= PL_LINE_TOL, ("associated lines", err))
+    check(err["points"] <= PL_LINE_TOL, ("associated points", err))
+    pixel_card_vs_cpu(c, g, sc["refined_px"], sg["refined_px"])
+    check(err["vps"] <= PL_VP_TOL, ("VPs", err))
+    check(abs(sg["associations"]["hard"] - sc["associations"]["hard"])
+          <= 0.01 * sc["associations"]["hard"] + 1, "hard associations")
+
+
+def pixel_card_vs_cpu(c, g, sc, sg):
+    """Phase 12a's pixel refinement, card against CPU a track at a time:
+    each device's solve run again with its trace on its own input."""
+    from limap_tpu_torch.ops import lm_line_refine
+    from limap_tpu_torch.testing import lm_checks
+    runs = []
+    for out in (c, g):
+        params0, data, terms = out["pixel_solve"]
+        res, tr = lm_line_refine.solve(params0, data, terms, trace=True)
+        runs.append((res.cost.double().cpu(),
+                     lm_checks.accepts(tr.detach().cpu())))
+    (cost_c, acc_c), (cost_g, acc_g) = runs
+    n = len(c["refined_px"])
+    check(n == len(g["refined_px"]), "pixel refinement track counts")
+    same = (acc_c == acc_g).all(1)[:n].numpy()
+    line_err = np.array([np.abs(np.asarray(a.line) - np.asarray(b.line))
+                         .max() for a, b in zip(c["refined_px"],
+                                                g["refined_px"])])
+    cost_err = ((cost_g - cost_c).abs() / torch.clamp(cost_c.abs(), min=1e-6)
+                ).numpy()[:n]
+    rel0 = abs(sg["pixel_cost0"] - sc["pixel_cost0"]) / sc["pixel_cost0"]
+    rep = {"tracks": n, "same_accepts": int(same.sum()),
+           "same_max_line_err_m": float(line_err[same].max(initial=0.0)),
+           "same_max_cost_rel_err": float(cost_err[same].max(initial=0.0)),
+           "parted": int((~same).sum()),
+           "parted_max_line_err_m": float(line_err[~same].max(initial=0.0)),
+           "cost0_rel_err": rel0, "accepted": [sg["n_accepted"],
+                                               sc["n_accepted"]],
+           "left_patches": [sg["n_left_patches"], sc["n_left_patches"]]}
+    log(f"[pointline card-vs-cpu] pixel refinement a track at a time, "
+        f"card against CPU: {json.dumps(rep)}")
+    check(same.any(), ("pixel refinement: no track kept its accepts", rep))
+    check(rep["same_max_line_err_m"] <= PL_LINE_TOL, ("pixel lines", rep))
+    check(rep["same_max_cost_rel_err"] <= PL_PIXEL_COST_RTOL,
+          ("pixel costs", rep))
+    check(rel0 <= PL_PIXEL_COST_RTOL, ("pixel first costs", rep))
+    check(abs(sg["n_accepted"] - sc["n_accepted"])
+          <= PL_PIXEL_ACCEPT_SHARE * sc["n_accepted"], ("pixel accepts", rep))
+    check(abs(sg["n_left_patches"] - sc["n_left_patches"]) <= 1,
+          ("tracks off their patches", rep))
+
+
+def klm_recorders():
+    """Recorders of K's, L's and M's largest calls (by rows x items)."""
+    from limap_tpu_torch.ops import lm_assoc, lm_line_refine
+
+    def k_size(p, d, terms, *a, **kw):
+        n = d.weights.shape[1] * (1 + d.hm_patch.shape[2]
+                                  * terms.use_heatmap)
+        return p.shape[0] * (n + d.fc_w.shape[1] * terms.use_fconsis
+                             * d.fc_ref_patch.shape[-1])
+
+    return {"lm_line_refine": Recorder(lm_line_refine, "solve", k_size),
+            "lm_assoc_lines": Recorder(
+                lm_assoc, "solve_lines", lambda p, d, *a, **k: p.shape[0]
+                * (d.weights.shape[1] + 2 * d.pt_w.shape[1])),
+            "lm_assoc_points": Recorder(
+                lm_assoc, "solve_points", lambda p, d, *a, **k: p.shape[0]
+                * (d.mask.shape[1] + d.ln_w.shape[1]))}
+
+
+def klm_launches():
+    from limap_tpu_torch.ops import lm_assoc, lm_line_refine
+    return {"lm_line_refine": lm_line_refine.solve.launches,
+            "lm_assoc_lines": lm_assoc.solve_lines.launches,
+            "lm_assoc_points": lm_assoc.solve_points.launches}
+
+
+def pointline_full_width(workdir, tracks, imagecols, segs, gt, card):
+    """Phase 12: refinement and association on phase 11's map on the
+    card, gated against the port's CPU run.  Returns the recorded inputs
+    of K, L and M and the path's launches."""
+    from limap_tpu_torch.ops import lm_assoc, lm_line_refine, vp_detect
+    from limap_tpu_torch.testing import pipeline, pointline
+    t0 = time.perf_counter()
+    model2, _, _ = pipeline.write_colmap_scene(
+        os.path.join(workdir, "points"), n_line_points=4000)
+    log(f"[pointline] second COLMAP model (2,000 wall points, 4,000 on the "
+        f"GT lines, 2D observations) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    lm_line_refine.solve.launches = 0
+    lm_assoc.solve_lines.launches = lm_assoc.solve_points.launches = 0
+    vp_detect.detect.launches = 0
+    recorders = klm_recorders()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out, summ = pointline.run(tracks, imagecols, segs, model2, gt,
+                                  os.path.join(workdir, "pointline"),
+                                  "cuda")
+    finally:
+        for rec in recorders.values():
+            rec.restore()
+    wall = time.perf_counter() - t0
+    launches = dict(klm_launches(), vp_detect=vp_detect.detect.launches)
+    log(f"[pointline] refinement and association on phase 11's map "
+        f"({len(tracks)} tracks), {wall:.3f} s in all on {card}; kernel "
+        f"launches {json.dumps(launches)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[pointline] summary {json.dumps(summ)}")
+    for name, n in launches.items():
+        check(n > 0, f"the pointline path did not launch {name}")
+    for k in ("refined", "refined_px", "associated"):
+        check(np.isfinite([t.line for t in out[k]]).all(),
+              ("non-finite lines", k))
+    check(np.isfinite(out["points"]).all(), "non-finite points")
+    hold_pointline_gates(summ)
+    left = summ["refined_px"]["n_left_patches"]
+    log(f"[pointline] gate: {left} tracks taken off their heatmap patches "
+        f"by the pixel refinement (at most {PL_LEFT_PATCHES_MAX}); mean "
+        f"distance to GT {summ['refined_px']['dist_mean_m']:.4f} m")
+    check(left <= PL_LEFT_PATCHES_MAX, ("tracks off their patches", left))
+    recorded = {k: (rec.args, rec.kwargs) for k, rec in recorders.items()}
+    return recorded, launches, wall
+
+
+def measure_klm(recorded, launches):
+    """K, L and M on the pointline path's largest solves: the normal
+    equations at the start and the solve held to plain row by row, timed
+    in turns, and their bounds."""
+    from limap_tpu_torch.ops import lm_assoc, lm_line_refine
+    from limap_tpu_torch.testing import lm_checks
+    specs = {
+        "lm_line_refine": (lm_line_refine.solve, lm_line_refine.solve_plain,
+                           lm_checks.check_refine, K_SOURCE, K_REPLACES, 20),
+        "lm_assoc_lines": (lm_assoc.solve_lines, lm_assoc.solve_lines_plain,
+                           lm_checks.check_assoc_lines, KLM_SOURCE,
+                           L_REPLACES, 10),
+        "lm_assoc_points": (lm_assoc.solve_points,
+                            lm_assoc.solve_points_plain,
+                            lm_checks.check_assoc_points, KLM_SOURCE,
+                            M_REPLACES, 10)}
+    entries = []
+    for name, (kernel, plain, held, source, replaces, n_def) in specs.items():
+        args, kwargs = recorded[name]
+        check(args is not None, (name, "saw no input on the pointline path"))
+        params0, data, terms = args[:3]
+        n_iter = args[3] if len(args) > 3 else kwargs.get("num_iterations",
+                                                          n_def)
+        t0 = time.perf_counter()
+        res_ne, res = held(params0, data, terms, n_iter)
+        log(f"[kernel] pointline {name} normal equations at the start "
+            f"against plain: {json.dumps(res_ne)}")
+        log(f"[kernel] pointline {name} solve against plain, row by row: "
+            f"{json.dumps(res)} ({time.perf_counter() - t0:.1f} s)")
+        check(res_ne["ok"], (name, "normal equations", res_ne))
+        check(res["ok"], (name, res))
+        R = params0.shape[0]
+        if name == "lm_line_refine":
+            counts = lm_checks.refine_counts(data, terms)
+            ops = lm_checks.ops_line_refine(counts, R, n_iter,
+                                            data.fc_ref_patch.shape[-1])
+            nbytes = lm_checks.bytes_line_refine(params0, data, terms)
+        elif name == "lm_assoc_lines":
+            counts = lm_checks.assoc_line_counts(data, terms)
+            ops = lm_checks.ops_assoc_lines(counts, R, n_iter)
+            nbytes = lm_checks.bytes_assoc_lines(data, terms)
+        else:
+            counts = lm_checks.assoc_point_counts(data)
+            ops = lm_checks.ops_assoc_points(counts, R, n_iter)
+            nbytes = lm_checks.bytes_assoc_points(data)
+        bms, by = bound(ops, nbytes)
+        shape = {"rows": R, "iterations": n_iter, "operations": ops,
+                 "bytes": nbytes, **counts, "parted_rows": res["parted"],
+                 "normal_equations_max_rel_err": res_ne["max_rel_err"],
+                 "library": "none: no library call runs a whole LM solve"}
+        entries.append(timed_entry(
+            name, "pointline", source, replaces, launches[name],
+            lambda: kernel(*args, **kwargs),
+            lambda: plain(params0, data, terms, n_iter), (), {},
+            res["max_abs_err"], bms, by, shape, (5, 1)))
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
@@ -1818,15 +2170,16 @@ def main():
 
     # ---- 1. build: one nvcc a source, all started together ----
     from limap_tpu_torch.ops import (epipolar_iou, line_ransac,
-                                     linker_edges, lm_jointloc, lm_line_ba,
-                                     pose_score, trace_roots, tri_propose,
-                                     tri_score, vp_detect)
+                                     linker_edges, lm_assoc, lm_jointloc,
+                                     lm_line_ba, lm_line_refine, pose_score,
+                                     trace_roots, tri_propose, tri_score,
+                                     vp_detect)
     from limap_tpu_torch.testing import (fitnmerge_checks, kernel_checks,
                                          lm_checks, tri_checks, vp_checks)
     t0 = time.perf_counter()
     libs = (nnd, trace_roots, pose_score, epipolar_iou, line_ransac,
             linker_edges, tri_propose, tri_score, lm_line_ba, lm_jointloc,
-            vp_detect)
+            vp_detect, lm_line_refine, lm_assoc)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda m: m.build(), libs))
     log(f"[build] {len(libs)} kernel libraries built in "
@@ -1901,6 +2254,16 @@ def main():
         check(res["ok"], (name, "vs plain", case, res))
     log(f"[kernel] lm_line_ba, lm_jointloc seeded cases took "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n0 = klm_launches()
+    for name, case, res in lm_checks.check_all_klm():
+        log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
+        check(res["ok"], (name, "vs plain", case, res))
+    n1 = klm_launches()
+    check(all(n1[k] > n0[k] for k in n0), ("K, L, M launches counted",
+                                          n0, n1))
+    log(f"[kernel] lm_line_refine, lm_assoc_lines, lm_assoc_points seeded "
+        f"cases took {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. card against CPU on a reduced scene ----
     # Endpoint noise (0.3 px) keeps the proposals' scores off the
@@ -2103,13 +2466,30 @@ def main():
     # ---- 11. the COLMAP entry point with VPs at full width ----
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
-        recorded, vp_launches = colmap_vp_full_width(workdir, card)
-    entries.append(measure_vp_detect(recorded["vp_detect"],
-                                     vp_launches["vp_detect"]))
-    entries += measure_triangulator_kernels("colmap_vp", recorded,
-                                            vp_launches)
-    del recorded
-    log(f"[colmap-vp] phase 11 took {time.perf_counter() - t0:.1f} s")
+        recorded, vp_launches, facade_map = colmap_vp_full_width(workdir,
+                                                                 card)
+        entries.append(measure_vp_detect(recorded["vp_detect"],
+                                         vp_launches["vp_detect"]))
+        entries += measure_triangulator_kernels("colmap_vp", recorded,
+                                                vp_launches)
+        del recorded
+        log(f"[colmap-vp] phase 11 took {time.perf_counter() - t0:.1f} s")
+
+        # ---- 12a. refinement and association, card against CPU ----
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as small:
+            pointline_card_vs_cpu(small)
+        log(f"[pointline card-vs-cpu] phase 12a took "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # ---- 12. refinement and association at full width ----
+        t0 = time.perf_counter()
+        recorded, pl_launches, wall = pointline_full_width(
+            workdir, *facade_map, card)
+        log(f"[pointline] phase 12's path took {wall:.1f} s")
+        entries += measure_klm(recorded, pl_launches)
+        del recorded, facade_map
+        log(f"[pointline] phase 12 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

@@ -1,7 +1,8 @@
-// The Levenberg-Marquardt program shared by kernels H (lm_line_ba.cu) and I
-// (lm_jointloc.cu): forward-mode dual numbers, the quaternion, SO(2) and
-// axis-angle helpers, the unrolled Cholesky, the lambda schedule and the
-// per-row LM loop.
+// The Levenberg-Marquardt program shared by kernels H (lm_line_ba.cu), I
+// (lm_jointloc.cu), K (lm_line_refine.cu) and L and M (lm_assoc.cu):
+// forward-mode dual numbers, the quaternion, SO(2) and axis-angle helpers,
+// the retractions, bilinear sampling, the unrolled Cholesky, the lambda
+// schedule and the per-row LM loop.
 //
 // It replaces the jitted program of limap_tpu/optimize/lm.py:64
 // (_build_lm_runner with solve_spd :31, retract_quat_so2 :159 and
@@ -368,6 +369,43 @@ LM_FN void retract_pose(const float* p, const S* delta, S* out) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) out[4 + i] = p[4 + i] + delta[3 + i];
 }
+
+// a point's additive update: params [3] + delta [3]
+template <typename S>
+LM_FN void retract_add3(const float* p, const S* delta, S* out) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) out[i] = p[i] + delta[i];
+}
+
+// ------------------------------------------------- bilinear sampling
+// The plain interpolate_bilinear at (x, y) = (column, row) of a map of
+// H x W texels, texel (row, col) channel c at base[(row * W + col) * C + c]:
+// the cell floor(x), floor(y) clamped to [0, W - 2] and [0, H - 2] from the
+// values (no tangent), the offsets clamped to [0, 1] (the tangent passes at
+// the bounds, as torch.clamp's), and each channel summed in torch's order.
+template <typename S>
+struct Bilinear {
+  int i00;          // offset of texel (y0, x0)
+  int row;          // W * C: one row down
+  int C;
+  S gx0, gx1, gy0, gy1;  // 1 - fx, fx, 1 - fy, fy
+
+  LM_FN Bilinear(int H, int W, int C_, const S& x, const S& y) : C(C_) {
+    const float x0 = fminf(fmaxf(floorf(val(x)), 0.f), (float)(W - 2));
+    const float y0 = fminf(fmaxf(floorf(val(y)), 0.f), (float)(H - 2));
+    i00 = ((int)y0 * W + (int)x0) * C;
+    row = W * C;
+    gx1 = clamp_max_(clamp_min_(x - x0, 0.f), 1.f);
+    gy1 = clamp_max_(clamp_min_(y - y0, 0.f), 1.f);
+    gx0 = 1.f - gx1;
+    gy0 = 1.f - gy1;
+  }
+  LM_FN S operator()(const float* base, int c) const {
+    const float* p = base + i00 + c;
+    return p[0] * gx0 * gy0 + p[C] * gx1 * gy0 + p[row] * gx0 * gy1
+           + p[row + C] * gx1 * gy1;
+  }
+};
 
 // ------------------------------------------------------------- solve
 // torch.nan_to_num: NaN -> 0, +-inf -> +-FLT_MAX

@@ -1,4 +1,4 @@
-"""Residuals of the fixed-camera line refinement."""
+"""Residuals of the fixed-camera line refinement and association."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from limap_tpu_torch.base.camera import CameraViewsBatch
 from limap_tpu_torch.base.infinite_line import (line_world_to_pixel,
                                                 minimal_to_plucker)
 from limap_tpu_torch.base.lines import EPS, Segments
+from limap_tpu_torch.base.pose import cross, quat_rotate
 
 
 def cosine_weighted_perpendicular_dist2d(coor: torch.Tensor,
@@ -39,6 +40,35 @@ def line_geometric_residual(uvec: torch.Tensor, wvec: torch.Tensor,
     coor = line_world_to_pixel(views.kvec, views.qvec, views.tvec, d, m)
     return cosine_weighted_perpendicular_dist2d(coor, line2d.start,
                                                 line2d.end, alpha)
+
+
+def point_geometric_residual(p3d: torch.Tensor, views: CameraViewsBatch,
+                             p2d: torch.Tensor) -> torch.Tensor:
+    """Pinhole reprojection residual [..., 2]."""
+    return views.project(p3d) - p2d
+
+
+def direction_from_vp(vp: torch.Tensor, kvec: torch.Tensor) -> torch.Tensor:
+    """Unit camera-frame direction of a vanishing point [..., 3] in
+    homogeneous pixels: K^-1 vp, normalized."""
+    fx, fy, cx, cy = kvec.unbind(-1)
+    d = torch.stack([vp[..., 0] / fx - cx / fx * vp[..., 2],
+                     vp[..., 1] / fy - cy / fy * vp[..., 2],
+                     vp[..., 2]], dim=-1)
+    return d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + EPS)
+
+
+def vp_constraint_residual(uvec: torch.Tensor, wvec: torch.Tensor,
+                           views: CameraViewsBatch,
+                           vp: torch.Tensor) -> torch.Tensor:
+    """Sine between a line's direction in the camera frame and its VP's
+    direction [...]."""
+    d, _ = minimal_to_plucker(uvec, wvec)
+    d_rot = quat_rotate(views.qvec, d)
+    d_rot = d_rot / (torch.linalg.vector_norm(d_rot, dim=-1, keepdim=True)
+                     + EPS)
+    return torch.linalg.vector_norm(cross(d_rot, direction_from_vp(
+        vp, views.kvec)), dim=-1)
 
 
 def compute_line_weights(line2d: Segments) -> torch.Tensor:

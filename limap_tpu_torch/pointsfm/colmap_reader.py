@@ -187,9 +187,11 @@ def ReadPointTracks(model_path: str) -> Dict[int, dict]:
 
 # --------------------------------------------------------------- writer
 def write_model_txt(model_path: str, imagecols: ImageCollection,
-                    points3d: Dict[int, dict] = None) -> None:
+                    points3d: Dict[int, dict] = None,
+                    points2d: Dict[int, np.ndarray] = None) -> None:
     """COLMAP text model of the collection and of ``points3d`` (each
-    point's 2D indices default to 0)."""
+    point's 2D indices default to 0); ``points2d`` {img_id: (P, 3) x, y,
+    point3D_id} fills the images' POINTS2D lines (empty without it)."""
     os.makedirs(model_path, exist_ok=True)
     with open(os.path.join(model_path, "cameras.txt"), "w") as f:
         for cam_id in imagecols.get_cam_ids():
@@ -202,7 +204,12 @@ def write_model_txt(model_path: str, imagecols: ImageCollection,
             im = imagecols.camimage(img_id)
             q = " ".join(str(v) for v in im.pose.qvec)
             t = " ".join(str(v) for v in im.pose.tvec)
-            f.write(f"{img_id} {q} {t} {im.cam_id} {im.image_name}\n\n")
+            obs = (points2d or {}).get(img_id)
+            row = "" if obs is None else " ".join(
+                f"{float(x)!r} {float(y)!r} {int(pid)}"
+                for x, y, pid in np.asarray(obs))
+            f.write(f"{img_id} {q} {t} {im.cam_id} {im.image_name}\n"
+                    f"{row}\n")
     with open(os.path.join(model_path, "points3D.txt"), "w") as f:
         for pid, rec in (points3d or {}).items():
             xyz = " ".join(str(v) for v in rec["xyz"])

@@ -1,5 +1,6 @@
 """Pipelines: the stage functions, the line-triangulation and
-fit-and-merge runners and the hybrid localization runner."""
+fit-and-merge runners, the hybrid localization runner and the point-line
+association runner."""
 
 from limap_tpu_torch.runners.functions import (compute_2d_segs,
                                                compute_matches,
@@ -11,8 +12,11 @@ from limap_tpu_torch.runners.line_fitnmerge import (fit_3d_segs,
                                                     line_fitnmerge,
                                                     line_fitting_with_points3d)
 from limap_tpu_torch.runners.line_triangulation import line_triangulation
+from limap_tpu_torch.runners.pointline_association import \
+    pointline_association
 
 __all__ = ["compute_2d_segs", "compute_matches", "compute_sfminfos", "setup",
            "undistort_images", "fit_3d_segs", "line_fitnmerge",
            "line_triangulation", "hybrid_localization",
-           "fit_3d_segs_with_points3d", "line_fitting_with_points3d"]
+           "fit_3d_segs_with_points3d", "line_fitting_with_points3d",
+           "pointline_association"]

@@ -142,12 +142,17 @@ def build_scene(n_views=N_VIEWS, n_lines=N_GT_LINES, seed=0, hw=(H, W),
 
 
 def write_colmap_scene(workdir, n_views=N_VIEWS, n_lines=N_GT_LINES, seed=0,
-                       hw=(H, W), n_points=N_POINTS):
+                       hw=(H, W), n_points=N_POINTS, n_line_points=0):
     """The façade variant of the scene (:data:`FACADE`) as a COLMAP text
     model: images as ``.npy`` in ``workdir/images``, the model in
     ``workdir/sparse`` (cameras, posed images named relative to the image
     folder, and ``n_points`` wall points drawn from ``seed``, each with
-    the views that see it).  Returns (model path, image path, gt)."""
+    the views that see it).  With ``n_line_points`` also that many points
+    drawn (from ``seed + 2``) on the GT lines, their ids following the
+    wall points', and every point's 2D observation in each view that
+    sees it (its projection plus 0.5 px of noise) in the images'
+    POINTS2D lines; without, the model is as before, with no POINTS2D.
+    Returns (model path, image path, gt)."""
     from limap_tpu_torch.pointsfm import write_model_txt
     image_dir = os.path.join(workdir, "images")
     imagecols, _, _, gt = build_scene(n_views, n_lines, seed, hw,
@@ -159,22 +164,40 @@ def write_colmap_scene(workdir, n_views=N_VIEWS, n_lines=N_GT_LINES, seed=0,
     rng = np.random.default_rng(seed + 1)
     pts = rng.uniform([-6, -4.5, WALL_Z - RELIEF],
                       [6, 4.5, WALL_Z + RELIEF], (n_points, 3))
+    if n_line_points:
+        lrng = np.random.default_rng(seed + 2)
+        k = lrng.integers(0, len(gt), n_line_points)
+        t = lrng.uniform(0, 1, (n_line_points, 1))
+        pts = np.concatenate([pts, gt[k, 0] + t * (gt[k, 1] - gt[k, 0])])
     h, w = hw
     lo = np.array([w, h]) * (1 - VISIBLE) / 2
     hi = np.array([w, h]) - lo
-    seen = []
+    seen, uvs = [], []
     for img_id in imagecols.get_img_ids():
         view = imagecols.camview(img_id)
         pc = pts @ view.R().T + view.T()
         uv = pc[:, :2] / pc[:, 2:] * view.cam.kvec()[:2] \
             + view.cam.kvec()[2:]
         seen.append((pc[:, 2] > 0) & np.all((uv >= lo) & (uv <= hi), 1))
+        uvs.append(uv)
     seen = np.stack(seen, 1)
     ids = np.asarray(imagecols.get_img_ids())
     points3d = {int(p): {"xyz": pts[p], "image_ids": ids[seen[p]].tolist()}
-                for p in range(n_points) if seen[p].sum() >= 2}
+                for p in range(len(pts)) if seen[p].sum() >= 2}
+    points2d = None
+    if n_line_points:
+        nrng = np.random.default_rng(seed + 3)
+        points2d = {}
+        for v, img_id in enumerate(ids):
+            sel = [p for p in points3d if seen[p, v]]
+            uv = uvs[v][sel] + nrng.normal(0, 0.5, (len(sel), 2))
+            points2d[int(img_id)] = np.concatenate(
+                [uv, np.asarray(sel, np.float64)[:, None]], 1)
+            # COLMAP's track entries index the image's POINTS2D rows
+            for row, p in enumerate(sel):
+                points3d[p].setdefault("point2D_idxs", []).append(row)
     model = os.path.join(workdir, "sparse")
-    write_model_txt(model, imagecols, points3d)
+    write_model_txt(model, imagecols, points3d, points2d)
     return model, image_dir, gt
 
 

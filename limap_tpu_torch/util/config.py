@@ -298,3 +298,66 @@ _DEFAULT_FITNMERGE = {'cfg_type': 'fitnmerge',
                 'num_outliers_aggregator': 2,
                 'use_geometric': True,
                 'geometric_alpha': 10.0}}
+
+
+def default_refinement_config() -> dict:
+    """The contents of ``cfgs/refinement/default.yaml`` as a fresh dict,
+    for a machine without PyYAML (a test holds it to the file)."""
+    return copy.deepcopy(_DEFAULT_REFINEMENT)
+
+
+def default_pl_association_config() -> dict:
+    """The contents of ``cfgs/global_pl_association/default.yaml`` as a
+    fresh dict, for a machine without PyYAML (a test holds it to the
+    file)."""
+    return copy.deepcopy(_DEFAULT_PL_ASSOCIATION)
+
+
+_DEFAULT_REFINEMENT = {'refinement': {'min_num_images': 4,
+                'use_geometric': True,
+                'geometric_alpha': 10.0,
+                'loss': 'cauchy',
+                'loss_scale': 0.25,
+                'max_num_iterations': 100,
+                'num_outliers_aggregator': 2,
+                'use_vp': False,
+                'vp_multiplier': 0.1,
+                'vpdet': {'method': 'jlinkage'},
+                'use_heatmap': False,
+                'sample_range_min': 0.05,
+                'sample_range_max': 0.95,
+                'heatmap_multiplier': 1.0,
+                'use_feature': False,
+                'n_samples_feature': 100,
+                'fconsis_multiplier': 0.1},
+ 'n_visible_views': 4,
+ 'output_folder': 'refined_tracks'}
+
+_DEFAULT_PL_ASSOCIATION = {'global_pl_association': {'constant_vp': False,
+                           'lw_point': 0.1,
+                           'geometric_alpha': 10.0,
+                           'loss': 'cauchy',
+                           'loss_scale': 0.25,
+                           'th_count_lineline': 3,
+                           'th_angle_lineline': 30.0,
+                           'lw_pointline_association': 10.0,
+                           'th_pixel': 2.0,
+                           'th_weight_pointline': 3.0,
+                           'lw_vpline_association': 1.0,
+                           'th_count_vpline': 3,
+                           'lw_vp_orthogonality': 1.0,
+                           'th_angle_orthogonality': 87.0,
+                           'lw_vp_collinearity': 0.0,
+                           'th_angle_collinearity': 1.0,
+                           'th_hard_pl_dist3d': 2.0,
+                           'th_hard_vpline_angle3d': 5.0,
+                           'n_bcd_rounds': 3,
+                           'lm_iterations': 10},
+ 'use_vp': True,
+ 'vpdet_config': {'method': 'jlinkage', 'min_length': 20},
+ 'structures': {'bpt2d': {'threshold_keypoints': 2.0,
+                          'threshold_intersection': 2.0,
+                          'threshold_merge_junctions': 2.0}},
+ 'n_visible_views': 4,
+ 'output_dir': 'tmp_pl_association',
+ 'output_folder': 'associated_tracks'}

@@ -102,12 +102,12 @@ def exists_txt_segments(folder: str, img_id: int) -> bool:
 
 
 def read_all_segments_from_folder(folder: str) -> Dict[int, np.ndarray]:
-    out = {}
-    for fname in os.listdir(folder):
-        if fname.startswith("segments_") and fname.endswith(".txt"):
-            img_id = int(fname[9:-4])
-            out[img_id] = read_txt_segments(folder, img_id)
-    return out
+    """{img_id: segments} of a folder, in order of image id (not the
+    directory's order: a VP detector draws its hypotheses image after
+    image, so the order decides its results)."""
+    ids = sorted(int(f[9:-4]) for f in os.listdir(folder)
+                 if f.startswith("segments_") and f.endswith(".txt"))
+    return {img_id: read_txt_segments(folder, img_id) for img_id in ids}
 
 
 # ------------------------------------------------------------ linetracks

@@ -332,6 +332,53 @@ def test_lm_kernels_refuse_what_they_cannot_take(cuda):
 
 
 
+def test_klm_kernels_vs_plain_seeded(cuda):
+    """K (each term alone and all four), L (with and without VPs) and M
+    (empty, seeded and full association slots) against plain, every row,
+    on the seeded cases; partings witnessed in float64."""
+    failed = [(name, case, res) for name, case, res
+              in lm_checks.check_all_klm() if not res["ok"]]
+    assert not failed, failed
+
+
+def test_klm_kernels_count_their_launches(cuda):
+    from limap_tpu_torch.ops import lm_assoc, lm_line_refine
+    from limap_tpu_torch.ops.lm_assoc import AssocTerms
+    params0, data = lm_checks.seeded_refine(T=8, S=6, F=3)
+    d, terms = lm_checks.refine_case(params0, data, "all")
+    n0 = lm_line_refine.solve.launches
+    lm_line_refine.solve(params0, d, terms, num_iterations=3)
+    lm_line_refine.normal_equations(params0, d, terms)
+    lp, ldata, pp, pdata = lm_checks.seeded_assoc(T=8, S=6, n_points=20)
+    nl, npnt = lm_assoc.solve_lines.launches, lm_assoc.solve_points.launches
+    lm_assoc.solve_lines(lp, ldata, AssocTerms(), num_iterations=3)
+    lm_assoc.solve_points(pp, pdata, AssocTerms(), num_iterations=3)
+    lm_assoc.normal_equations_points(pp, pdata, AssocTerms())
+    torch.cuda.synchronize()
+    assert lm_line_refine.solve.launches == n0 + 1
+    assert lm_assoc.solve_lines.launches == nl + 1
+    assert lm_assoc.solve_points.launches == npnt + 1
+
+
+def test_klm_kernels_refuse_what_they_cannot_take(cuda):
+    from limap_tpu_torch.ops import lm_assoc, lm_line_refine
+    from limap_tpu_torch.ops.lm_assoc import AssocTerms
+    params0, data = lm_checks.seeded_refine(T=8, S=6, F=3)
+    d, terms = lm_checks.refine_case(params0, data, "all")
+    with pytest.raises(ValueError):
+        lm_line_refine.solve(params0.double(), d, terms)
+    with pytest.raises(ValueError):
+        lm_line_refine.solve(params0, d._replace(fc_ref=d.fc_ref.long()),
+                             terms)
+    lp, ldata, pp, pdata = lm_checks.seeded_assoc(T=8, S=6, n_points=20)
+    with pytest.raises(ValueError):
+        lm_assoc.solve_lines(lp, ldata._replace(points=ldata.points[:0]),
+                             AssocTerms())
+    with pytest.raises(ValueError):
+        lm_assoc.solve_points(pp, pdata._replace(mask=pdata.mask.cpu()),
+                              AssocTerms())
+
+
 VP_CASES = ["ragged 491/37/0/950/120/3 lines, H 512",
             "20 lines < H 512, 4 VPs", "on the threshold and tied counts",
             "3500 lines (mask past shared memory)"]

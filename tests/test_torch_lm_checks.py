@@ -225,3 +225,124 @@ def test_wrappers_refuse_bad_inputs(which, ba, loc):
     bad[mask] = bad[mask].float()        # a mask that is not bool
     with pytest.raises(ValueError):
         call(params0, bad)
+
+
+# ----------------------------------------------- kernels K, L and M
+@pytest.fixture(scope="module")
+def refine():
+    return C.seeded_refine(seed=7, T=12, S=8, F=4, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def assoc():
+    return C.seeded_assoc(seed=8, T=16, S=8, n_points=40, device="cpu")
+
+
+@pytest.mark.parametrize("which", C.REFINE_CASES)
+def test_refine_plain_against_itself(refine, which):
+    params0, data = refine
+    d, terms = C.refine_case(params0, data, which)
+    ne, sol = C.check_refine(params0, d, terms, num_iterations=8,
+                             kernels=False)
+    assert ne["ok"] and sol["ok"] and sol["parted"] == 0, (ne, sol)
+    assert sol["accepted"] > 0
+
+
+def test_refine_rounding_partings_are_witnessed(refine):
+    """A start one ulp away stands for a kernel that rounds otherwise:
+    rows part or walk apart, each witnessed (at texel edges the corner
+    witness, and its first costs are not compared there)."""
+    from limap_tpu_torch.ops import lm_line_refine as K
+    params0, data = refine
+    d, terms = C.refine_case(params0, data, "all")
+    out = _solve_pair(one_ulp_up(params0), params0, K.plain_aux(d),
+                      K.refine_residual(terms), lm.retract_quat_so2, 4, 12)
+    problem = C.RowProblem(K.refine_residual(terms), lm.retract_quat_so2, 4,
+                           K.plain_aux(d), K.SHARED)
+    R = K.refine_residual(terms)(params0, *K.plain_aux(d)).shape[1]
+    res = C.compare_solve(*out, problem, R, rules=C.Rules(
+        corner=C.ResidualCorners(d, terms, params0)))
+    assert res["ok"], res
+
+
+def test_refine_refuses_a_fault(refine):
+    """A kernel whose heatmap term is off by a few percent is refused, and
+    so is each planted fault through ``check_refine`` itself, with its
+    corner rules (on the CPU the wrappers run plain on the faulty
+    input)."""
+    from limap_tpu_torch.ops import lm_line_refine as K
+    params0, data = refine
+    d, terms = C.refine_case(params0, data, "heatmap")
+    bad = d._replace(hm_patch=d.hm_patch * 1.05)
+    ne_k = K.normal_equations_plain(params0, bad, terms)
+    ne_p = K.normal_equations_plain(params0, d, terms)
+    d64 = K.RefineData(*(x.double() if x.is_floating_point() else x
+                         for x in d))
+    ne_64 = K.normal_equations_plain(params0.double(), d64, terms)
+    assert not C.compare_normal_equations(ne_k, ne_p, ne_64)["ok"]
+    d, terms = C.refine_case(params0, data, "all")
+    ne, sol = C.check_refine(params0, d, terms, 8)
+    assert ne["ok"] and sol["ok"], (ne, sol)
+    controls = ne["fault_controls"]
+    assert list(controls) == list(C.REFINE_FAULTS)
+    assert all(c["refused"] for c in controls.values()), controls
+
+
+def test_assoc_plain_against_itself_and_faults(assoc):
+    from limap_tpu_torch.ops import lm_assoc as LA
+    from limap_tpu_torch.ops.lm_assoc import AssocTerms
+    lp, ldata, pp, pdata = assoc
+    for use_vps in (True, False):
+        ne, sol = C.check_assoc_lines(lp, ldata, AssocTerms(use_vps=use_vps),
+                                      kernels=False)
+        assert ne["ok"] and sol["ok"] and sol["parted"] == 0, (ne, sol)
+    ne, sol = C.check_assoc_points(pp, pdata, AssocTerms(), kernels=False)
+    assert ne["ok"] and sol["ok"] and sol["parted"] == 0, (ne, sol)
+    # a point step that drops the reprojection's weight is refused
+    terms = AssocTerms()
+    bad = LA.normal_equations_points_plain(
+        pp, pdata, AssocTerms(lw_point=0.12))
+    ne_p = LA.normal_equations_points_plain(pp, pdata, terms)
+    d64 = type(pdata)(*(x.double() if x.is_floating_point() else x
+                        for x in pdata))
+    ne_64 = LA.normal_equations_points_plain(pp.double(), d64, terms)
+    assert not C.compare_normal_equations(bad, ne_p, ne_64)["ok"]
+
+
+def test_assoc_corner_is_found(assoc):
+    """The seeded VP 0 is its track's direction exactly, as the host VP
+    step leaves a VP with a single member line: that row is a corner, and
+    the sine's Jacobian row there is rounding noise."""
+    from limap_tpu_torch.ops.lm_assoc import AssocTerms
+    lp, ldata, _, _ = assoc
+    m = C.assoc_corner_lines(ldata, AssocTerms())(np.arange(16),
+                                                  lp.numpy())
+    assert m[0] <= 1 and (m[1:] > 1).sum() >= 12
+
+
+def test_klm_operation_counts():
+    from limap_tpu_torch.ops.lm_assoc import AssocTerms
+    params0, data = C.seeded_refine(seed=7, T=4, S=5, F=2, device="cpu")
+    d, terms = C.refine_case(params0, data, "all")
+    counts = C.refine_counts(d, terms)
+    assert counts["anchors"] == counts["geometric"] * 16
+    base = C.ops_line_refine(dict(counts, vp=0, anchors=0, fconsis_terms=0),
+                             4, 10)
+    assert C.ops_line_refine(counts, 4, 10) > base > 0
+    lp, ldata, pp, pdata = C.seeded_assoc(seed=8, T=8, S=5, n_points=10,
+                                          device="cpu")
+    lc = C.assoc_line_counts(ldata, AssocTerms())
+    assert lc["vp_slots"] > 0 and lc["point_slots"] > 0
+    assert C.ops_assoc_lines(lc, 8, 10) > C.ops_assoc_lines(
+        dict(lc, vp_slots=0), 8, 10)
+    pc = C.assoc_point_counts(pdata)
+    assert C.ops_assoc_points(pc, 10, 10) > 0
+    # bytes: only weighted items and the texels sampled at params0, well
+    # under every slot of every input; the heatmap and feature texels add
+    full = lambda x: sum(t.numel() * t.element_size() for t in x)
+    nk = C.bytes_line_refine(params0, d, terms)
+    geo = C.bytes_line_refine(params0, d, C.refine_terms("geometric"))
+    assert full(d) > nk > geo > 0
+    assert 0 < C.bytes_assoc_lines(ldata, AssocTerms(use_vps=False)) \
+        < C.bytes_assoc_lines(ldata, AssocTerms()) < full(ldata)
+    assert 0 < C.bytes_assoc_points(pdata) < full(pdata)

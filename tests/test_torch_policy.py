@@ -55,7 +55,12 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "vplib/jlinkage.py", "vplib/progressivex.py",
                 "vplib/vptrack.py", "point2d/superpoint.py",
                 "point2d/matching.py", "runners/colmap_triangulation.py",
-                "testing/vp_checks.py"):
+                "testing/vp_checks.py", "structures/pl_bipartite.py",
+                "structures/vpline_bipartite.py", "features/featuremap.py",
+                "features/extractors.py", "ops/lm_line_refine.py",
+                "ops/lm_assoc.py", "optimize/line_refinement.py",
+                "optimize/global_pl_association.py",
+                "runners/pointline_association.py", "runners/refinement.py"):
         assert "limap_tpu_torch/" + new in covered, new
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -254,14 +259,12 @@ def test_localization_entry_points_run_on_cpu_when_asked(no_gpu, entry):
 QUEUED_NAMES = {
     "evaluation": {"RefLineEvaluator": "9", "point_segment_distance": "9"},
     "ops": {"count_component_sizes": "15b"},
-    "optimize": {"RefinementConfig": "12", "line_refinement": "12",
-                 "solve_line_refinement": "12"},
     "point2d": {"SuperPoint": "14", "log_sinkhorn": "14",
                 "sinkhorn_match": "14"},
 }
 SUBPACKAGES = ("base", "merging", "optimize", "evaluation", "ops", "util",
                "runners", "fitting", "estimators", "line2d", "pointsfm",
-               "undistortion", "vplib", "point2d")
+               "undistortion", "vplib", "point2d", "structures", "features")
 
 
 @pytest.mark.parametrize("name", SUBPACKAGES)
@@ -384,3 +387,70 @@ def test_fitnmerge_entry_points_raise_without_gpu(no_gpu, entry):
 def test_fitnmerge_entry_points_run_on_cpu_when_asked(no_gpu, entry):
     out = _fitnmerge_calls()[entry]("cpu")
     assert set(out) == {0, 1} and out[0].shape == (2, 2, 3)
+
+
+def _association_calls(tmp):
+    from limap_tpu_torch.optimize.global_pl_association import (
+        GlobalAssociator, GlobalAssociatorConfig)
+    from limap_tpu_torch.optimize.line_refinement import line_refinement
+    from limap_tpu_torch.runners import pointline_association
+    from limap_tpu_torch.testing import pipeline
+    from limap_tpu_torch.util.config import default_pl_association_config
+    scene = pipeline.build_scene(n_views=3, n_lines=4, hw=(40, 60),
+                                 n_neighbors=1)
+    cols = scene[0]
+    ids = cols.get_img_ids()
+    segs = {i: np.array([[5.0, 5, 30, 20], [10, 30, 50, 10]], np.float32)
+            for i in ids}
+    from limap_tpu_torch.base.linetrack import LineTrack
+    tracks = [LineTrack(line=np.array([[0.0, 0, 5], [1.0, 0, 5]]),
+                        image_id_list=list(ids), line_id_list=[0] * 3,
+                        line2d_list=[segs[i][0].reshape(2, 2) for i in ids],
+                        line3d_list=[np.zeros((2, 3))] * 3,
+                        score_list=[1.0] * 3)]
+    points3d = {7: {"xyz": np.array([0.5, 0.0, 5.0]), "image_ids": ids}}
+    points2d = {i: np.array([[17.5, 12.5, 7]]) for i in ids}
+
+    def solve(device):
+        from limap_tpu_torch.base.linetrack import tracks_to_batch
+        a = GlobalAssociator(GlobalAssociatorConfig(n_bcd_rounds=1,
+                                                    lm_iterations=2),
+                             device=device)
+        a.init_imagecols(cols)
+        a.init_line_tracks(tracks_to_batch(tracks, cols.img_id_to_index(),
+                                           device=device))
+        a.init_point_tracks([])
+        a.init_vp_tracks([])
+        return a.solve()[0]
+
+    def runner(device):
+        cfg = default_pl_association_config()
+        cfg["output_dir"] = str(tmp)
+        return pointline_association(cfg, cols, tracks, segs, points3d,
+                                     points2d, use_vp=False,
+                                     device=device)[1]
+
+    return {
+        "line_refinement": lambda d: line_refinement(
+            {"min_num_images": 2}, tracks, cols, num_iterations=2,
+            device=d)[0].line,
+        "associator": solve,
+        "pointline_association": runner,
+    }
+
+
+ASSOCIATION = ["line_refinement", "associator", "pointline_association"]
+
+
+@pytest.mark.parametrize("entry", ASSOCIATION)
+def test_association_entry_points_raise_without_gpu(no_gpu, entry,
+                                                    tmp_path):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _association_calls(tmp_path)[entry](None)
+
+
+@pytest.mark.parametrize("entry", ASSOCIATION)
+def test_association_entry_points_run_on_cpu_when_asked(no_gpu, entry,
+                                                        tmp_path):
+    out = _association_calls(tmp_path)[entry]("cpu")
+    assert np.isfinite(np.asarray(out)).all()

@@ -15,6 +15,8 @@ root:
         --exhaustive [N_VIEWS]
     JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
         --colmap-vp [N_VIEWS]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --pointline [N_VIEWS]
 
 Without arguments: the slice from given segments and matches
 (triangulate -> tracks -> filters + remerge -> line BA) on the protocol
@@ -74,6 +76,18 @@ package's VP bank of the neighbour line turns that line's VP into a
 direction with the wrong view, ROADMAP.md section 3), then the JAX
 package's runner beside it; the track counts, the average segments, the
 matches, quality_eval and the stage seconds.
+
+With ``--pointline``: the PORT on the CPU over chip_smoke phase 12's
+inputs: the ``--colmap-vp`` map of the façade (the port's runner), a
+second COLMAP model of the scene with 4,000 points on the GT lines and
+every point's 2D observations (pipeline.write_colmap_scene with
+n_line_points), then limap_tpu_torch/testing/pointline.py::run: the
+refinement CLI's path with use_vp, the refinement with the heatmap and
+feature-consistency terms, and pointline_association; its summary.
+Beside it, the JAX package's line_refinement and pointline_association
+on the same map with the port's VP results replayed (patching the JAX
+runner's get_vp_detector at run time: the J-Linkage hypotheses come from
+another generator).
 """
 
 import json
@@ -329,6 +343,77 @@ def colmap_vp(n_views=100, hw=None):
     print(json.dumps(out))
 
 
+def pointline(n_views=100, hw=None):
+    """Phase 12's path on the CPU: the port's summary, the JAX package's
+    refinement and association beside it (VPs replayed)."""
+    import importlib
+    import limap_tpu.base.linetrack as jlt
+    from limap_tpu.pointsfm import ReadInfos as jax_read_infos
+    from limap_tpu.pointsfm import read_model as jax_read_model
+    from limap_tpu.vplib.jlinkage import VPResult as JResult
+    from limap_tpu_torch.pointsfm import ReadInfos, ReadPointTracks
+    from limap_tpu_torch.runners import line_triangulation as port_runner
+    from limap_tpu_torch.testing import pointline as pl
+    from limap_tpu_torch.util import io as limapio
+    from limap_tpu_torch.vplib import get_vp_detector
+    jlr = importlib.import_module("limap_tpu.optimize.line_refinement")
+    jpl = importlib.import_module("limap_tpu.runners.pointline_association")
+    hw = hw or (pipeline.H, pipeline.W)
+    with tempfile.TemporaryDirectory() as workdir:
+        model, image_dir, gt = pipeline.write_colmap_scene(
+            workdir, n_views, hw=hw)
+        cfg = pipeline.colmap_vp_config(os.path.join(workdir, "port"))
+        t0 = time.perf_counter()
+        cols = ReadInfos(model, image_dir)
+        tracks = port_runner(cfg, cols, points3d=ReadPointTracks(model),
+                             device="cpu")
+        segs = limapio.read_all_segments_from_folder(os.path.join(
+            cfg["dir_save"], "line_detections", "tpu_lsd", "segments"))
+        out = {"n_views": n_views, "hw": list(hw),
+               "map_s": time.perf_counter() - t0}
+        model2, _, _ = pipeline.write_colmap_scene(
+            os.path.join(workdir, "points"), n_views, hw=hw,
+            n_line_points=4000)
+        t0 = time.perf_counter()
+        res, out["port"] = pl.run(tracks, cols, segs, model2, gt,
+                                  os.path.join(workdir, "pl"), "cpu")
+        out["port"]["total_s"] = time.perf_counter() - t0
+        print(json.dumps(out), flush=True)
+
+        class Replay:
+            def __init__(self, res):
+                self.res = res
+
+            def detect_vp_all_images(self, s, camviews=None):
+                return {i: JResult(self.res[i].labels, self.res[i].vps)
+                        for i in s}
+
+        ref_cfg, pl_cfg = pl.configs()
+        jcols = jax_read_infos(model, image_dir)
+        jtracks = [jlt.LineTrack.from_dict(t.as_dict()) for t in tracks]
+        vpres = Replay(res["vpresults"]).detect_vp_all_images(segs)
+        t0 = time.perf_counter()
+        refined = jlr.line_refinement(ref_cfg, jtracks, jcols,
+                                      vpresults=vpres)
+        jax_out = {"refined": pl.track_summary(refined, gt),
+                   "refine_s": time.perf_counter() - t0}
+        # the port's detector draws its hypotheses from a generator seeded
+        # anew for each detector: this repeats the port runner's VPs
+        port_vps = get_vp_detector(pl_cfg["vpdet_config"], device="cpu") \
+            .detect_vp_all_images(segs)
+        jpl.get_vp_detector = lambda c, n_jobs=1: Replay(port_vps)
+        _, _, jp2d, jp3d = jax_read_model(model2)
+        t0 = time.perf_counter()
+        new, pts, vps = jpl.pointline_association(
+            dict(pl_cfg, output_dir=os.path.join(workdir, "jax_pl")),
+            jcols, jtracks, segs, jp3d, jp2d)
+        jax_out.update(associated=pl.track_summary(new, gt),
+                       vps=pl.vp_summary(np.asarray(vps)),
+                       association_s=time.perf_counter() - t0)
+        out["jax"] = jax_out
+    print(json.dumps(out))
+
+
 def _colmap_vp_summary(tracks, cfg, gt, total):
     out = _exhaustive_summary(tracks, cfg, gt, total)
     matches_dir = os.path.join(
@@ -397,5 +482,7 @@ if __name__ == "__main__":
         exhaustive(*map(int, sys.argv[2:3]))
     elif sys.argv[1:2] == ["--colmap-vp"]:
         colmap_vp(*map(int, sys.argv[2:3]))
+    elif sys.argv[1:2] == ["--pointline"]:
+        pointline(*map(int, sys.argv[2:3]))
     else:
         main()
