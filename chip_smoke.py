@@ -75,11 +75,25 @@ Phases, in order; any failure exits non-zero:
      from GradientFeatureExtractor on the rendered images (kernel K), and
      pointline_association (kernels J, L and M), with quality gates from
      the port's own CPU run and at most 2 tracks taken off their heatmap
-     patches; then K, L and M held to their plain versions (K also
-     refusing planted faults) and timed on the path's largest solves.
+     patches, each within 1.5 m of the GT lines; then K, L and M held to
+     their plain versions (K also refusing planted faults; the parted
+     rows' end distances to plain's lines reported) and timed on the
+     path's largest solves.
      Phase 12a, before it, runs that path on the CPU and then on the card
      on a reduced façade (8 views, the CPU's map) and holds the tracks,
      points and VPs card to CPU, the pixel refinement a track at a time.
+ 13. the GT evaluation of phase 7's card tracks (from the second pass,
+     1000 samples a track) at full width: MeshEvaluator against the
+     scene's wall tessellated on a 4 cm grid (135,000 triangles, inner
+     vertices jittered in the plane; kernel N, mesh_min_dist), held to the
+     wall's analytic distance and to PointCloudEvaluator on the GT cloud
+     on the wall (the mesh is never farther, its recall never lower);
+     RefLineEvaluator with the GT lines as reference, held to a float64
+     computation; then N held to its plain version on the whole input and
+     timed in turns.
+Phase 2 also holds kernel N (mesh_min_dist) to its plain version on
+seeded inputs: degenerate triangles, points in each of a triangle's seven
+regions, ragged sizes.
 Phase 2 also holds the triangulator's kernels (tri_propose, F, in both
 input forms and with the VP banks, and tri_score, G) and the VP
 detector (vp_detect, J) to their plain versions on seeded inputs;
@@ -608,7 +622,8 @@ def from_pixels_full_width(card, workdir):
     gates, then GT evaluation of the second pass's tracks.  The scene's
     images and the runner's files go under ``workdir``.  Returns the
     evaluation's queries and cloud on the card, the scene and the
-    runner's tracks (phase 8's map)."""
+    runner's tracks (phase 8's map) and the second pass's lines (phase
+    13's map)."""
     from limap_tpu_torch.evaluation.evaluator import (PointCloudEvaluator,
                                                       report_error_to_gt)
     from limap_tpu_torch.line2d.tpu_lsd import detect_segments
@@ -679,7 +694,7 @@ def from_pixels_full_width(card, workdir):
           and 0 < rep["recall"][0.01] <= rep["recall"][0.1],
           ("GT evaluation of the from-pixels tracks", rep))
     return (evaluation_queries(r["linetracks"], 1000), evaluator.points,
-            scene, runner_tracks)
+            scene, runner_tracks, lines)
 
 
 # FP32 operations per unit of work of the localization kernels, counted
@@ -1414,6 +1429,13 @@ H_SOURCE, I_SOURCE = "lm_line_ba.cu", "lm_jointloc.cu"
 LM_REPLACES = "limap_tpu/optimize/lm.py:64"
 
 
+def parted_end(res):
+    """How far the parted rows of a line kernel end from plain's lines,
+    in metres (testing/lm_checks.py::line_end_distance)."""
+    return {k: res[k] for k in ("parted_end_dist_max_m",
+                                "parted_end_dist_median_m") if k in res}
+
+
 def measure_line_ba(path, recorded, launches):
     """Kernel H on a path's whole BA input: its normal equations at the
     start and its solve held to plain row by row, timed in turns, and its
@@ -1438,7 +1460,7 @@ def measure_line_ba(path, recorded, launches):
     bms, by = bound(ops, lm_checks.bytes_line_ba(T, S))
     shape = {"tracks": T, "supports": S, "active_supports": active,
              "iterations": n_iter, "operations": ops,
-             "parted_rows": res["parted"],
+             "parted_rows": res["parted"], **parted_end(res),
              "normal_equations_max_rel_err": res_ne["max_rel_err"]}
     return timed_entry(
         "lm_line_ba", path, H_SOURCE, LM_REPLACES, launches,
@@ -1844,10 +1866,16 @@ PL_PIXEL_COST_RTOL = 1e-3
 PL_PIXEL_ACCEPT_SHARE = 0.2
 PL_VP_TOL = 1e-3
 # A track that the pixel refinement takes off its heatmap patches is held
-# by the robust geometric term alone and may run far (in the port's CPU
-# run of phase 12 one track raised the mean distance to the GT lines to
-# 2.52 m against a median of 3.30 cm): at most this many on phase 12.
+# by the robust geometric term alone: at most this many on phase 12, and
+# each at most PL_LEFT_PATCHES_DIST_MAX_M from the GT lines.  The pixel
+# solve of phase 12's input, run again in float64 by the plain version
+# (testing/pointline.py::float64_ends), ends its one such track 0.8776 m
+# from the GT lines, where the card ends it (0.8775 m); on the port's CPU
+# input float64 ends its two at 0.0814 m and 4.4 mm, where the CPU's
+# float32 run took the second 685.6 m away (mean distance 2.52 m).  The
+# bound allows 1.7x the float64 end and refuses a float32 run-away.
 PL_LEFT_PATCHES_MAX = 2
+PL_LEFT_PATCHES_DIST_MAX_M = 1.5
 
 
 # The PORT's CPU run of phase 12's path on its own CPU map of the façade
@@ -2088,10 +2116,17 @@ def pointline_full_width(workdir, tracks, imagecols, segs, gt, card):
     check(np.isfinite(out["points"]).all(), "non-finite points")
     hold_pointline_gates(summ)
     left = summ["refined_px"]["n_left_patches"]
+    far = summ["refined_px"]["left_patches_dist_m"]
     log(f"[pointline] gate: {left} tracks taken off their heatmap patches "
-        f"by the pixel refinement (at most {PL_LEFT_PATCHES_MAX}); mean "
-        f"distance to GT {summ['refined_px']['dist_mean_m']:.4f} m")
+        f"by the pixel refinement (at most {PL_LEFT_PATCHES_MAX}), at "
+        f"{far} m from the GT lines (each at most "
+        f"{PL_LEFT_PATCHES_DIST_MAX_M} m; their pixel solve run again in "
+        f"float64 ends them at "
+        f"{summ['refined_px']['left_patches_dist_f64_m']} m); mean distance "
+        f"to GT {summ['refined_px']['dist_mean_m']:.4f} m")
     check(left <= PL_LEFT_PATCHES_MAX, ("tracks off their patches", left))
+    check(max(far, default=0.0) <= PL_LEFT_PATCHES_DIST_MAX_M,
+          ("tracks off their patches run far", far))
     recorded = {k: (rec.args, rec.kwargs) for k, rec in recorders.items()}
     return recorded, launches, wall
 
@@ -2144,6 +2179,7 @@ def measure_klm(recorded, launches):
         bms, by = bound(ops, nbytes)
         shape = {"rows": R, "iterations": n_iter, "operations": ops,
                  "bytes": nbytes, **counts, "parted_rows": res["parted"],
+                 **parted_end(res),
                  "normal_equations_max_rel_err": res_ne["max_rel_err"],
                  "library": "none: no library call runs a whole LM solve"}
         entries.append(timed_entry(
@@ -2153,6 +2189,173 @@ def measure_klm(recorded, launches):
             res["max_abs_err"], bms, by, shape, (5, 1)))
     return entries
 
+
+N_SOURCE = "mesh_min_dist.cu"
+N_REPLACES = "limap_tpu/evaluation/mesh_evaluator.py:79"
+# Kernel N against its plain version and the wall's analytic distance:
+# both compute each pair by the same correctly rounded fp32 operations
+# (bit-equal on the card), and the analytic truth holds to the rounding
+# of the foot's coordinates (~1e-6 m at 12 m); 1e-5 m either way.
+MESH_TOL = 1e-5
+# RefLineEvaluator (fp32 on the card) against a float64 numpy computation
+# of the same quantity: a sample within fp32 rounding of tau may fall on
+# the other side, moving the recall by 1e-3 of a line's length at most.
+REFLINE_RTOL = 1e-3
+
+
+def mesh_seeded_cases():
+    """Kernel N against its plain version on the seeded cases of
+    testing/evaluation.py (degenerate triangles, the seven regions, ragged
+    sizes), and the empty inputs."""
+    from limap_tpu_torch.ops import mesh_distance as md
+    from limap_tpu_torch.testing.evaluation import mesh_cases
+    for name, p, t in mesh_cases():
+        pc = torch.as_tensor(p, device="cuda")
+        tc = torch.as_tensor(t, device="cuda")
+        n0 = md.mesh_min_dist.launches
+        k = md.mesh_min_dist(pc, tc)
+        pl = md.mesh_min_dist_plain(pc, tc)
+        torch.cuda.synchronize()
+        err = float((k - pl).abs().max())
+        log(f"[kernel] mesh_min_dist vs plain, case {name} ({len(p)} x "
+            f"{len(t)}): bit-equal {torch.equal(k, pl)}, max abs err "
+            f"{err:.3e}")
+        check(md.mesh_min_dist.launches == n0 + 1, "N: launch not counted")
+        check(err <= MESH_TOL, ("mesh_min_dist vs plain", name, err))
+    n0 = md.mesh_min_dist.launches
+    empty = md.mesh_min_dist(pc, tc[:0])
+    none = md.mesh_min_dist(pc[:0], tc)
+    check(bool(torch.isinf(empty).all()) and none.shape == (0,)
+          and md.mesh_min_dist.launches == n0,
+          "mesh_min_dist: M = 0 gives inf and P = 0 nothing, no launch")
+
+
+def evaluation_full_width(lines, gt, card):
+    """Phase 13: the GT evaluation of phase 7's card tracks against the
+    wall's mesh (MeshEvaluator, kernel N), the GT cloud on the wall
+    (PointCloudEvaluator) and the GT lines (RefLineEvaluator), each
+    checked against a truth independent of the kernel; then N held to its
+    plain version on the whole input and timed in turns."""
+    from limap_tpu_torch.base.lines import Segments
+    from limap_tpu_torch.evaluation import (MeshEvaluator,
+                                            PointCloudEvaluator,
+                                            RefLineEvaluator,
+                                            sample_points_on_segments)
+    from limap_tpu_torch.ops import mesh_distance as md
+    from limap_tpu_torch.testing import evaluation as ev
+    from limap_tpu_torch.testing.synthetic import gt_point_cloud
+
+    verts, faces = ev.wall_mesh()
+    cloud = ev.on_wall(gt_point_cloud(gt.astype(np.float32), 500))
+    t = torch.as_tensor(lines, dtype=torch.float32, device="cuda")
+    seg = Segments(t[:, 0], t[:, 1])
+    lengths = seg.length()
+    md.mesh_min_dist.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = MeshEvaluator(verts, faces, device="cuda")
+    d_mesh = mesh.ComputeDistsLine(seg, 1000)
+    recall = {tau: float(torch.sum(mesh.ComputeInlierRatio(seg, tau, 1000)
+                                   * lengths)) for tau in TAUS}
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    launches = md.mesh_min_dist.launches
+    t0 = time.perf_counter()
+    ref = RefLineEvaluator(gt, device="cuda")
+    ref_len = ref.SumLength()
+    ref_recall = {tau: ref.ComputeRecallRef(lines, tau, 1000) for tau in TAUS}
+    ref_s = time.perf_counter() - t0
+    pc = PointCloudEvaluator(cloud, device="cuda")
+    d_cloud = pc.ComputeDistsLine(seg, 1000)
+    cloud_recall = {tau: float(torch.sum(torch.mean(
+        (d_cloud <= tau).float(), 1) * lengths)) for tau in TAUS}
+    log(f"[evaluation] {len(lines)} tracks x 1000 samples against the wall "
+        f"mesh ({faces.shape[0]} triangles, {verts.shape[0]} vertices): "
+        f"{mesh_s:.3f} s for ComputeDistsLine and the {len(TAUS)} inlier "
+        f"ratios, {launches} launches of mesh_min_dist; length recall "
+        f"{recall}; against the GT cloud on the wall ({len(cloud)} points) "
+        f"{cloud_recall}; reference lines: {len(gt)} of {ref_len:.4f} m, "
+        f"recall {ref_recall} ({ref_s:.3f} s) on {card}")
+    check(launches > 0, "the evaluation path did not launch mesh_min_dist")
+
+    # the mesh distance against the wall's analytic distance (float64)
+    queries = sample_points_on_segments(seg, 1000).reshape(-1, 3) \
+        .contiguous()
+    d = d_mesh.reshape(-1).double().cpu().numpy()
+    inside, dz = ev.wall_distance(queries.cpu().numpy())
+    err_in = float(np.abs(d[inside] - dz[inside]).max(initial=0.0))
+    short = float((dz[~inside] - d[~inside]).max(initial=-np.inf))
+    log(f"[evaluation] mesh distance against the wall's analytic distance: "
+        f"{int(inside.sum())} samples over the wall within {err_in:.3e} m, "
+        f"{int((~inside).sum())} beside it, none nearer than the plane by "
+        f"more than {max(short, 0.0):.3e} m")
+    check(np.isfinite(d).all() and d.shape == (len(lines) * 1000,),
+          "mesh distances finite, one a sample")
+    check(inside.any() and err_in <= MESH_TOL, ("analytic wall", err_in))
+    check(short <= MESH_TOL, ("samples beside the wall", short))
+
+    # the cloud lies on the mesh: no sample is farther from the mesh
+    over = float((d_mesh - d_cloud).max())
+    check(over <= MESH_TOL, ("mesh distance above the cloud's", over))
+    for tau in TAUS:
+        near = (d_cloud <= tau) & (d_mesh > tau)
+        slack = float(torch.sum(near.float().mean(1) * lengths))
+        check(recall[tau] + slack >= cloud_recall[tau] - 1e-6,
+              ("mesh recall below the cloud's", tau, recall, cloud_recall))
+    log(f"[evaluation] mesh distance <= cloud distance + {over:.3e} m on "
+        f"every sample; mesh recall >= cloud recall at every tau")
+
+    # RefLineEvaluator against float64
+    len64, rec64 = ev.refline_f64(gt, lines, TAUS, 1000)
+    rel = {tau: abs(ref_recall[tau] - rec64[tau]) / max(rec64[tau], 1e-12)
+           for tau in TAUS}
+    log(f"[evaluation] RefLineEvaluator against float64: length "
+        f"{ref_len:.6f} / {len64:.6f} m, recall {rec64}, relative "
+        f"differences {rel}")
+    check(abs(ref_len - len64) <= REFLINE_RTOL * len64, "SumLength")
+    for tau in TAUS:
+        check(rel[tau] <= REFLINE_RTOL, ("ComputeRecallRef", tau, rel))
+    return measure_mesh(queries, mesh.tris, launches)
+
+
+def measure_mesh(queries, tris, launches):
+    """Kernel N on the evaluation's whole input: held to the plain version
+    (its first turn), timed in turns plain, kernel, kernel, plain, and its
+    bound."""
+    from limap_tpu_torch.ops import mesh_distance as md
+    P, M = queries.shape[0], tris.shape[0]
+    times = {"kernel": [], "plain": []}
+    out = {}
+    for which in LOC_TURNS:
+        fn = md.mesh_min_dist if which == "kernel" else md.mesh_min_dist_plain
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        d = fn(queries, tris)
+        end.record()
+        torch.cuda.synchronize()
+        times[which].append(start.elapsed_time(end))
+        out.setdefault(which, d)
+    err = float((out["kernel"] - out["plain"]).abs().max())
+    equal = torch.equal(out["kernel"], out["plain"])
+    check(err <= MESH_TOL, ("mesh_min_dist vs plain on the whole input", err))
+    pairs = P * M
+    bms, by = bound(pairs * md.OPS_PAIR, P * 12 + M * 36 + P * 4)
+    shape = {"queries": P, "triangles": M, "pairs": pairs,
+             "ops_per_pair": md.OPS_PAIR, "bit_equal_to_plain": equal,
+             "library": "none (no PyTorch call computes a point-to-triangle "
+                        "distance)"}
+    log(f"[kernel] evaluation mesh_min_dist {json.dumps(shape)}: max abs err "
+        f"to plain {err:.3e} on the whole input; ms in turns "
+        f"{list(LOC_TURNS)}: {json.dumps(times)}; bound {bms:.4f} ms ({by})")
+    return {"name": "mesh_min_dist", "path": "evaluation", "route": "cuda",
+            "source": "limap_tpu_torch/csrc/" + N_SOURCE,
+            "replaces": N_REPLACES, "launches": launches, "max_abs_err": err,
+            "ms": float(np.mean(times["kernel"])),
+            "ms_turns": times["kernel"],
+            "plain_ms": float(np.mean(times["plain"])),
+            "plain_ms_turns": times["plain"], "bound_ms": bms,
+            "bound_by": by, "library_ms": None, **shape}
 
 def main():
     if not torch.cuda.is_available():
@@ -2171,15 +2374,15 @@ def main():
     # ---- 1. build: one nvcc a source, all started together ----
     from limap_tpu_torch.ops import (epipolar_iou, line_ransac,
                                      linker_edges, lm_assoc, lm_jointloc,
-                                     lm_line_ba, lm_line_refine, pose_score,
-                                     trace_roots, tri_propose, tri_score,
-                                     vp_detect)
+                                     lm_line_ba, lm_line_refine,
+                                     mesh_distance, pose_score, trace_roots,
+                                     tri_propose, tri_score, vp_detect)
     from limap_tpu_torch.testing import (fitnmerge_checks, kernel_checks,
                                          lm_checks, tri_checks, vp_checks)
     t0 = time.perf_counter()
     libs = (nnd, trace_roots, pose_score, epipolar_iou, line_ransac,
             linker_edges, tri_propose, tri_score, lm_line_ba, lm_jointloc,
-            vp_detect, lm_line_refine, lm_assoc)
+            vp_detect, lm_line_refine, lm_assoc, mesh_distance)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda m: m.build(), libs))
     log(f"[build] {len(libs)} kernel libraries built in "
@@ -2264,6 +2467,7 @@ def main():
                                           n0, n1))
     log(f"[kernel] lm_line_refine, lm_assoc_lines, lm_assoc_points seeded "
         f"cases took {time.perf_counter() - t0:.1f} s")
+    mesh_seeded_cases()
 
     # ---- 3. card against CPU on a reduced scene ----
     # Endpoint noise (0.3 px) keeps the proposals' scores off the
@@ -2387,8 +2591,8 @@ def main():
         reset_triangulator_launches()
         recorders = triangulator_recorders()
         try:
-            pixel_queries, pixel_cloud, scene, runner_tracks = \
-                from_pixels_full_width(card, workdir)
+            pixel_queries, pixel_cloud, scene, runner_tracks, \
+                pixel_lines = from_pixels_full_width(card, workdir)
         finally:
             for rec in recorders.values():
                 rec.restore()
@@ -2490,6 +2694,11 @@ def main():
         entries += measure_klm(recorded, pl_launches)
         del recorded, facade_map
         log(f"[pointline] phase 12 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. the GT evaluation of phase 7's map at full width ----
+    t0 = time.perf_counter()
+    entries.append(evaluation_full_width(pixel_lines, scene[3], card))
+    log(f"[evaluation] phase 13 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

@@ -91,6 +91,11 @@ class Camera:
     def K_inv(self) -> np.ndarray:
         return np.linalg.inv(self.K())
 
+    def uncertainty(self, depth: float, var2d: float = 5.0) -> float:
+        """var2d * depth / the mean focal length."""
+        f = float(np.mean([self.params[i] for i in self.focal_idxs()]))
+        return var2d * depth / f
+
     def is_undistorted(self) -> bool:
         if self.model_id in _UNDISTORTED_MODELS:
             return True
@@ -169,6 +174,10 @@ class CameraPose:
     def center(self) -> np.ndarray:
         return -self.R().T @ self.tvec
 
+    def projdepth(self, p3d) -> float:
+        """Depth of a world point in this pose's camera frame."""
+        return float((self.R() @ np.asarray(p3d) + self.tvec)[2])
+
     def as_dict(self) -> dict:
         return {"qvec": self.qvec.tolist(), "tvec": self.tvec.tolist(),
                 "initialized": self.initialized}
@@ -207,11 +216,35 @@ class CameraView:
     def T(self) -> np.ndarray:
         return self.pose.T()
 
+    def matrix(self) -> np.ndarray:
+        """The projection matrix K [R | t]."""
+        return self.K() @ np.concatenate([self.R(), self.T()[:, None]], 1)
+
+    def projection(self, p3d) -> np.ndarray:
+        """Pixel of a world point."""
+        p = self.K() @ (self.R() @ np.asarray(p3d) + self.T())
+        return p[:2] / (p[2] + EPS)
+
+    def ray_direction(self, p2d) -> np.ndarray:
+        """Unit world direction of the ray through a pixel."""
+        v = self.R().T @ self.K_inv() @ np.array([p2d[0], p2d[1], 1.0])
+        return v / np.linalg.norm(v)
+
     def get_direction_from_vp(self, vp) -> np.ndarray:
         """Unit world direction of a vanishing point in this view's
         pixels: R^T K^-1 vp."""
         v = self.R().T @ self.K_inv() @ np.asarray(vp)
         return v / np.linalg.norm(v)
+
+    def as_dict(self) -> dict:
+        return {"camera": self.cam.as_dict(), "pose": self.pose.as_dict(),
+                "image_name": self.image_name}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CameraView":
+        return cls(Camera.from_dict(d["camera"]),
+                   CameraPose.from_dict(d["pose"]),
+                   d.get("image_name", "none"))
 
     def read_image(self, set_gray: bool = False) -> np.ndarray:
         """The view's image at the camera's size: uint8 [H, W, 3] (BGR),
@@ -266,6 +299,15 @@ class CameraViewsBatch(NamedTuple):
             idx = idx.long()
         return CameraViewsBatch(self.kvec[idx], self.qvec[idx],
                                 self.tvec[idx])
+
+    def R(self) -> torch.Tensor:
+        return quat_to_rotmat(self.qvec)
+
+    def K(self) -> torch.Tensor:
+        fx, fy, cx, cy = self.kvec.unbind(-1)
+        z, o = torch.zeros_like(fx), torch.ones_like(fx)
+        K = torch.stack([fx, z, cx, z, fy, cy, z, z, o], -1)
+        return K.reshape(K.shape[:-1] + (3, 3))
 
     def center(self) -> torch.Tensor:
         """-R^T t, by the conjugate quaternion."""

@@ -21,6 +21,17 @@ def _normalize(v):
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + EPS)
 
 
+def get_direction_from_vp(vp: torch.Tensor, kvec: torch.Tensor
+                          ) -> torch.Tensor:
+    """Unit camera-frame direction of a vanishing point [..., 3] in
+    homogeneous pixels: K^-1 vp, normalized.  (Its world direction, R^T
+    K^-1 vp, is ``triangulation.functions.get_direction_from_vp``.)"""
+    fx, fy, cx, cy = kvec.unbind(-1)
+    return _normalize(torch.stack([vp[..., 0] / fx - cx / fx * vp[..., 2],
+                                   vp[..., 1] / fy - cy / fy * vp[..., 2],
+                                   vp[..., 2]], dim=-1))
+
+
 def infline2d_from_segment(seg: Segments) -> torch.Tensor:
     """Normalized homogeneous coords [..., 3] of a 2D segment's line."""
     return seg.coords()

@@ -36,6 +36,33 @@ class Segments(NamedTuple):
         d = self.end - self.start
         return d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + EPS)
 
+    def perp_direction(self) -> torch.Tensor:
+        """2D only: the direction turned by -90 deg."""
+        d = self.direction()
+        return torch.stack([d[..., 1], -d[..., 0]], dim=-1)
+
+    def point_projection(self, p: torch.Tensor) -> torch.Tensor:
+        """The point(s) of the segment nearest to ``p``."""
+        d = self.direction()
+        t = torch.sum((p - self.start) * d, dim=-1)
+        t = torch.minimum(torch.clamp(t, min=0.0), self.length())
+        return self.start + t[..., None] * d
+
+    def point_distance(self, p: torch.Tensor) -> torch.Tensor:
+        return torch.linalg.vector_norm(p - self.point_projection(p), dim=-1)
+
+    def as_array(self) -> torch.Tensor:
+        """[..., 2, D] endpoints."""
+        return torch.stack([self.start, self.end], dim=-2)
+
+    def as_flat(self) -> torch.Tensor:
+        """[..., 2 D] rows (x1 y1 [z1] x2 y2 [z2])."""
+        return torch.cat([self.start, self.end], dim=-1)
+
+    def select(self, idx) -> "Segments":
+        """A subset or reordering along the leading axis."""
+        return Segments(*(None if x is None else x[idx] for x in self))
+
     def coords(self) -> torch.Tensor:
         """2D only: normalized homogeneous line coordinates [..., 3]."""
         one = torch.ones_like(self.start[..., :1])

@@ -35,8 +35,29 @@ class LineTrack:
     def count_lines(self) -> int:
         return len(self.image_id_list)
 
+    def GetSortedImageIds(self) -> List[int]:
+        return sorted(set(self.image_id_list))
+
     def count_images(self) -> int:
         return len(set(self.image_id_list))
+
+    def HasImage(self, image_id: int) -> bool:
+        return image_id in self.image_id_list
+
+    def GetIdMap(self) -> Dict[int, List[int]]:
+        """image id -> the indices of its supports."""
+        out: Dict[int, List[int]] = {}
+        for idx, img_id in enumerate(self.image_id_list):
+            out.setdefault(img_id, []).append(idx)
+        return out
+
+    @property
+    def start(self) -> np.ndarray:
+        return self.line[0]
+
+    @property
+    def end(self) -> np.ndarray:
+        return self.line[1]
 
     def length(self) -> float:
         return float(np.linalg.norm(self.line[1] - self.line[0]))
@@ -153,6 +174,17 @@ class TrackBatch(NamedTuple):
     mask: torch.Tensor             # [T, S] bool
     track_mask: torch.Tensor       # [T] bool
 
+    @property
+    def num_tracks(self) -> int:
+        return self.mask.shape[0]
+
+    @property
+    def max_supports(self) -> int:
+        return self.mask.shape[1]
+
+    def count_lines(self) -> torch.Tensor:
+        return torch.sum(self.mask, dim=1)
+
     def count_images(self) -> torch.Tensor:
         return distinct_count(self.img_index, self.mask)
 
@@ -181,6 +213,14 @@ class HostTrackBatch(NamedTuple):
             out = out._replace(line=torch.stack(
                 [batch.line.start, batch.line.end], 1).cpu().numpy())
         return out
+
+    def flat_supports(self):
+        """(track_of, per-support field tuple) of all valid supports of
+        valid tracks, ordered by track."""
+        ti, si = np.nonzero(self.mask & self.track_mask[:, None])
+        return ti, (self.img_index[ti, si], self.image_ids[ti, si],
+                    self.line_ids[ti, si], self.l2d[ti, si],
+                    self.l3d[ti, si], self.score[ti, si])
 
     @classmethod
     def download(cls, batch: TrackBatch) -> "HostTrackBatch":

@@ -98,3 +98,15 @@ def so2_rotate(w: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     c, s = torch.cos(theta), torch.sin(theta)
     return torch.stack([c * w[..., 0] - s * w[..., 1],
                         s * w[..., 0] + c * w[..., 1]], dim=-1)
+
+
+def pose_center(qvec: torch.Tensor, tvec: torch.Tensor) -> torch.Tensor:
+    """Camera centre -R^T t of qvec [..., 4], tvec [..., 3]."""
+    R = quat_to_rotmat(qvec)
+    return -torch.einsum("...ji,...j->...i", R, tvec)
+
+
+def projdepth(qvec: torch.Tensor, tvec: torch.Tensor,
+              p3d: torch.Tensor) -> torch.Tensor:
+    """Depth of world point(s) in the camera frame (z of R p + t)."""
+    return (quat_rotate(qvec, p3d) + tvec)[..., 2]

@@ -50,6 +50,18 @@ def compact_labels(labels: torch.Tensor, node_mask=None):
     return dense, int(is_root.sum())
 
 
+
+def count_component_sizes(dense_labels: torch.Tensor,
+                          max_components: int) -> torch.Tensor:
+    """[max_components] int32 histogram of component sizes; label -1
+    (and a label past ``max_components``) is ignored."""
+    lab = dense_labels.long()
+    valid = (lab >= 0) & (lab < max_components)
+    out = torch.zeros(max_components, dtype=torch.int32,
+                      device=dense_labels.device)
+    return out.index_add_(0, lab[valid], torch.ones_like(
+        lab[valid], dtype=torch.int32))
+
 def union_find_numpy(n_nodes, edges):
     """Host union-find: the root label (the least node id of its
     component) of each of ``n_nodes`` nodes under ``edges`` [E, 2]."""

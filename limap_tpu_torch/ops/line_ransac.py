@@ -27,7 +27,7 @@ MAX_SAMPLES = 256     # samples a segment the kernel holds in shared memory
 PLAIN_CHUNK = 4096    # segments a step of the plain version
 
 
-def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a0 b0 + a1 b1) + a2 b2, each operation rounded (no reduction
     kernel, whose order differs between devices)."""
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
@@ -39,10 +39,10 @@ def point_line_dist(points: torch.Tensor, a: torch.Tensor,
     [..., 3]: unit direction with ``+EPS``, then |disp|^2 - along^2
     clamped at 0 (NaN kept), then the root."""
     d = b - a
-    d = d / (torch.sqrt(_dot3(d, d)) + EPS)[..., None]
+    d = d / (torch.sqrt(dot3(d, d)) + EPS)[..., None]
     disp = points - a[..., None, :]
-    along = _dot3(disp, d[..., None, :])
-    d2 = _dot3(disp, disp) - along * along
+    along = dot3(disp, d[..., None, :])
+    d2 = dot3(disp, disp) - along * along
     return torch.sqrt(torch.clamp(d2, min=0.0))
 
 

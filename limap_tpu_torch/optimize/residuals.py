@@ -5,7 +5,8 @@ from __future__ import annotations
 import torch
 
 from limap_tpu_torch.base.camera import CameraViewsBatch
-from limap_tpu_torch.base.infinite_line import (line_world_to_pixel,
+from limap_tpu_torch.base.infinite_line import (get_direction_from_vp,
+                                                line_world_to_pixel,
                                                 minimal_to_plucker)
 from limap_tpu_torch.base.lines import EPS, Segments
 from limap_tpu_torch.base.pose import cross, quat_rotate
@@ -48,16 +49,6 @@ def point_geometric_residual(p3d: torch.Tensor, views: CameraViewsBatch,
     return views.project(p3d) - p2d
 
 
-def direction_from_vp(vp: torch.Tensor, kvec: torch.Tensor) -> torch.Tensor:
-    """Unit camera-frame direction of a vanishing point [..., 3] in
-    homogeneous pixels: K^-1 vp, normalized."""
-    fx, fy, cx, cy = kvec.unbind(-1)
-    d = torch.stack([vp[..., 0] / fx - cx / fx * vp[..., 2],
-                     vp[..., 1] / fy - cy / fy * vp[..., 2],
-                     vp[..., 2]], dim=-1)
-    return d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + EPS)
-
-
 def vp_constraint_residual(uvec: torch.Tensor, wvec: torch.Tensor,
                            views: CameraViewsBatch,
                            vp: torch.Tensor) -> torch.Tensor:
@@ -67,7 +58,7 @@ def vp_constraint_residual(uvec: torch.Tensor, wvec: torch.Tensor,
     d_rot = quat_rotate(views.qvec, d)
     d_rot = d_rot / (torch.linalg.vector_norm(d_rot, dim=-1, keepdim=True)
                      + EPS)
-    return torch.linalg.vector_norm(cross(d_rot, direction_from_vp(
+    return torch.linalg.vector_norm(cross(d_rot, get_direction_from_vp(
         vp, views.kvec)), dim=-1)
 
 

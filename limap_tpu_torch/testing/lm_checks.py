@@ -89,6 +89,13 @@ things are compared apart:
   version's own arithmetic stops that row, and only its witness is
   required.
 
+How far a parted row ends from plain's (``compare_solve``'s
+``end_distance``): for the line kernels H, K and L
+(:func:`line_end_distance`), the largest distance from the points of
+plain's final line within ``END_SPAN`` m of its point nearest the world
+origin (where the scenes' lines are seen) to the kernel's final line, in
+metres; the max and the median over the parted rows.
+
 The operation counts of the kernels (``ops_line_ba``, ``ops_jointloc``,
 ``ops_line_refine``, ``ops_assoc_lines``, ``ops_assoc_points``) are
 counted by hand from their sources: a Jet<D> operation counts D + 1,
@@ -117,6 +124,9 @@ PARAM_TOL = 1e-3
 COST_RTOL = 1e-3
 # a cosine within this of 1 is 1 to float32 (16 ulps at 1)
 COS_TOL = 1e-6
+# half the span of plain's line over which a parted line's end distance
+# is measured, in metres
+END_SPAN = 1.0
 U32 = 2.0 ** -24
 
 
@@ -417,14 +427,34 @@ def _count(kinds, ok):
         done |= ok[k]
 
 
+def line_end_distance(params_k, params_p) -> np.ndarray:
+    """[n] metres: the largest distance from the points of plain's line
+    (minimal parameters ``params_p`` [n, 6]) within ``END_SPAN`` of its
+    point nearest the origin to the kernel's line (``params_k``), at
+    that point and at both ends of the span, in float64."""
+    from limap_tpu_torch.base.infinite_line import (InfiniteLines3d,
+                                                    minimal_to_plucker)
+    pk = torch.as_tensor(np.asarray(params_k, np.float64))
+    pp = torch.as_tensor(np.asarray(params_p, np.float64))
+    line_k = InfiniteLines3d(*minimal_to_plucker(pk[:, :4], pk[:, 4:]))
+    d, m = minimal_to_plucker(pp[:, :4], pp[:, 4:])
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    foot = torch.linalg.cross(d, m)
+    dist = [line_k.point_distance(foot + s * END_SPAN * d)
+            for s in (-1.0, 0.0, 1.0)]
+    return torch.stack(dist, 1).amax(1).numpy()
+
+
 def compare_solve(res_k, tr_k, res_p, tr_p, problem, R, singular=None,
-                  rules=Rules()):
+                  rules=Rules(), end_distance=None):
     """Row by row: kernel (LMResult, trace) against plain's.  ``problem``
     a :class:`RowProblem` of the input; ``R`` the residual count of a
     row ([T] or a number); ``singular`` (rows, params) -> each row's
     margin to a singular Jacobian (<= 1: within rounding of one), or
     None where the residual has no such point; ``rules`` as
-    :class:`Rules`."""
+    :class:`Rules`; ``end_distance`` (kernel's final params, plain's)
+    [n, P] -> [n] metres, how far each parted row ends from plain's
+    (:func:`line_end_distance`), reported as its max and median."""
     res_k = lm.LMResult(*(x.detach().cpu() for x in res_k))
     res_p = lm.LMResult(*(x.detach().cpu() for x in res_p))
     tr_k, tr_p = tr_k.detach().cpu().double(), tr_p.detach().cpu().double()
@@ -529,6 +559,12 @@ def compare_solve(res_k, tr_k, res_p, tr_p, problem, R, singular=None,
             rows[~witnessed][:5], first[~witnessed][:5])]
     if len(rows):
         out["parted_first_iterations"] = sorted(set(int(x) for x in first))
+    if end_distance is not None:
+        far = end_distance(pk[rows].numpy(), pp[rows].numpy()) \
+            if len(rows) else np.zeros(0)
+        out["parted_end_dist_max_m"] = float(far.max(initial=0.0))
+        out["parted_end_dist_median_m"] = float(np.median(far)) \
+            if len(far) else 0.0
     # the parameters' error where the accept sequences agree
     out["max_abs_err"] = float((pk - pp)[same].abs().max()) \
         if s.any() else 0.0
@@ -871,7 +907,8 @@ def check_line_ba(params0, aux, cfg, num_iterations=20, kernels=True):
         res_k, tr_k = H.solve(params0, *aux, cfg, num_iterations, trace=True)
     else:
         res_k, tr_k = res_p, tr_p
-    res = compare_solve(res_k, tr_k, res_p, tr_p, problem, R)
+    res = compare_solve(res_k, tr_k, res_p, tr_p, problem, R,
+                        end_distance=line_end_distance)
     return res_ne, res
 
 
@@ -1414,14 +1451,15 @@ class ResidualCorners:
 
 def _check_lm(kernel_ne, kernel_solve, plain_ne, plain_solve, residual,
               retract, D, aux, shared, params0, data, terms, num_iterations,
-              kernels, corner=None, faults=None):
+              kernels, corner=None, faults=None, end_distance=None):
     """A kernel held to plain on one input: (normal equations, solve);
     ``corner`` the input's :class:`RowCorners` or
     :class:`ResidualCorners`.  ``faults`` {name: data -> data}: controls,
     each the kernel fed a faulty input and held to plain's clean one,
     which the comparison must refuse (the solve compared where the
     normal equations pass); their outcome is the normal equations'
-    ``fault_controls`` and a control passed fails ``ok``."""
+    ``fault_controls`` and a control passed fails ``ok``.
+    ``end_distance`` as :func:`compare_solve` takes it."""
     d64 = type(data)(*(x.detach().cpu().double() if x.is_floating_point()
                        else x.detach().cpu() for x in data))
     ne_64 = plain_ne(params0.detach().cpu().double(), d64, terms)
@@ -1452,10 +1490,11 @@ def _check_lm(kernel_ne, kernel_solve, plain_ne, plain_solve, residual,
         res_k, tr_k = kernel_solve(params0, d, terms, num_iterations,
                                    trace=True)
         return compare_solve(res_k, tr_k, res_p, tr_p, problem, R,
-                             rules=rules)
+                             rules=rules, end_distance=end_distance)
 
     res = held(data) if kernels else compare_solve(
-        res_p, tr_p, res_p, tr_p, problem, R, rules=rules)
+        res_p, tr_p, res_p, tr_p, problem, R, rules=rules,
+        end_distance=end_distance)
     if faults:
         out = {}
         for name, fault in faults.items():
@@ -1501,7 +1540,7 @@ def check_refine(params0, data, terms, num_iterations=20, kernels=True):
                      num_iterations, kernels,
                      ResidualCorners(data, terms, params0)
                      if terms.use_heatmap or terms.use_fconsis else None,
-                     faults)
+                     faults, line_end_distance)
 
 
 def check_assoc_lines(params0, data, terms, num_iterations=10,
@@ -1513,7 +1552,7 @@ def check_assoc_lines(params0, data, terms, num_iterations=10,
                      LA.line_residual, lm.retract_quat_so2, 4, LA.line_aux,
                      LA.LINE_SHARED, params0, data, terms, num_iterations,
                      kernels, RowCorners(assoc_corner_lines(data, terms),
-                                         params0))
+                                         params0), None, line_end_distance)
 
 
 def check_assoc_points(params0, data, terms, num_iterations=10,

@@ -19,8 +19,10 @@ rendered images:
 :func:`run` returns the outputs (with the pixel solve's input) and a
 summary: tracks, distances to the GT lines, quality at 5 cm, the pixel
 solve's costs, accepted steps and the tracks it took off their heatmap
-patches, the points' distances, the hard point-line associations, the
-VPs and their orthogonality, the stage seconds.
+patches (their count, their distances to the GT lines, and those of
+their float64 ends: ``float64_ends``), the points' distances, the hard
+point-line associations, the VPs and their orthogonality, the stage
+seconds.
 """
 
 from __future__ import annotations
@@ -102,6 +104,31 @@ def left_patches(params0, data, terms, params):
     return (inside(params0) & ~inside(params)).numpy()
 
 
+def float64_ends(batch, views, cfg, solve_input, params, rows):
+    """The output tracks of ``rows`` when their pixel solve (``solve_input``
+    = (params0, data, terms)) runs again in float64 through the plain
+    version, on the input's device, the other rows kept at ``params``:
+    where exact arithmetic would end the tracks that the solve took off
+    their patches."""
+    from limap_tpu_torch.base.linetrack import batch_to_tracks
+    from limap_tpu_torch.ops import lm_line_refine as K
+    from limap_tpu_torch.optimize.line_ba import get_output_tracks
+    from limap_tpu_torch.optimize.line_refinement import unpack_minimal_lines
+    params0, data, terms = solve_input
+    idx = torch.as_tensor(np.asarray(rows), device=params0.device)
+    sub = K.RefineData(*[t if i in K.SHARED else t[idx]
+                         for i, t in enumerate(data)])
+    sub = K.RefineData(*[t.double() if t.is_floating_point() else t
+                         for t in sub])
+    mixed = params.clone()
+    mixed[idx] = K.solve_plain(params0[idx].double(), sub, terms).params \
+        .to(params.dtype)
+    tracks = batch_to_tracks(get_output_tracks(
+        batch, views, unpack_minimal_lines(mixed),
+        cfg.num_outliers_aggregator))
+    return [tracks[r] for r in rows]
+
+
 def vp_summary(vps, th_orth=87.0):
     """The VPs and the worst |angle - 90 deg| of the pairs at least
     ``th_orth`` apart."""
@@ -164,6 +191,9 @@ def run(tracks, imagecols, all_2d_segs, model_path, gt, out_dir, device,
     # padding) and the tracks it took off their heatmap patches
     out["pixel_solve"] = refine_data(batch, views, cfg_px, vps, has, hm, fc)
     left = left_patches(*out["pixel_solve"], result.params)
+    left_rows = np.nonzero(left)[0]
+    left64 = float64_ends(batch, views, cfg_px, out["pixel_solve"],
+                          result.params, left_rows) if len(left_rows) else []
     with prof.stage("association"):
         _, _, p2d, p3d = read_model(model_path)
         cfg = dict(pl_cfg, output_dir=out_dir)
@@ -188,7 +218,12 @@ def run(tracks, imagecols, all_2d_segs, model_path, gt, out_dir, device,
                            pixel_cost0=float(result.cost0.sum()),
                            pixel_cost=float(result.cost.sum()),
                            n_accepted=int(result.n_accepted.sum()),
-                           n_left_patches=int(left.sum())),
+                           n_left_patches=int(left.sum()),
+                           left_patches_dist_m=line_distances(
+                               [out["refined_px"][r] for r in left_rows],
+                               gt).tolist(),
+                           left_patches_dist_f64_m=line_distances(
+                               left64, gt).tolist()),
         "associated": track_summary(new_tracks, gt),
         "input": track_summary(tracks, gt),
         "points": {"n": len(points), "n_on_lines": int(on_line.sum()),

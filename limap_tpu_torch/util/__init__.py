@@ -1,4 +1,5 @@
-"""Small shared helpers, and the config, evaluation and io modules."""
+"""Small shared helpers, and the config, evaluation, geometry and io
+modules."""
 
 import dataclasses
 import importlib
@@ -7,7 +8,7 @@ import numpy as np
 
 __all__ = ["config", "evaluation", "io", "shape_bucket",
            "dataclass_from_dict"]
-_SUBMODULES = ("config", "evaluation", "io")
+_SUBMODULES = ("config", "evaluation", "geometry", "io")
 
 
 def __getattr__(name):

@@ -231,3 +231,91 @@ def read_ply(fname: str) -> np.ndarray:
             break
     return np.array([[float(v) for v in lines[start + i].split()[:3]]
                      for i in range(n)])
+
+
+# ---------------------------------------------------------- name lists
+def save_txt_imname_dict(fname: str, imname_dict: Dict[int, str]) -> None:
+    check_directory(fname)
+    with open(fname, "w") as f:
+        f.write(f"{len(imname_dict)}\n")
+        for img_id, name in imname_dict.items():
+            f.write(f"{img_id} {name}\n")
+
+
+def read_txt_imname_dict(fname: str) -> Dict[int, str]:
+    check_path(fname)
+    with open(fname) as f:
+        lines = f.readlines()
+    out = {}
+    for i in range(int(lines[0].strip())):
+        tok = lines[1 + i].strip().split(maxsplit=1)
+        out[int(tok[0])] = tok[1] if len(tok) > 1 else ""
+    return out
+
+
+# ------------------------------------------------------ Line3D++ interop
+def save_l3dpp(folder: str, imagecols: ImageCollection,
+               all_2d_segs) -> None:
+    """Each image's 2D segments in Line3D++'s input format,
+    ``segments_L3D++_{id}_{w}x{h}_3000.txt``; the image size is the
+    first camera's.  Images named like Tanks and Temples' (a leading
+    "0") are numbered by the rank of their file number."""
+    if os.path.exists(folder):
+        shutil.rmtree(folder)
+    os.makedirs(folder)
+    img_ids = imagecols.get_img_ids()
+    names = [imagecols.image_name(i) for i in img_ids]
+    first_cam = imagecols.cameras[list(imagecols.cameras.keys())[0]]
+    height, width = first_cam.h(), first_cam.w()
+    tnt = bool(names) and os.path.basename(names[0])[:1] == "0"
+    if tnt:
+        order = np.argsort([int(os.path.basename(n)[:-4])
+                            for n in names]).tolist()
+    for k, idx in enumerate(img_ids):
+        image_id = order.index(k) if tnt else idx
+        fname = os.path.join(
+            folder, f"segments_L3D++_{image_id}_{width}x{height}_3000.txt")
+        segs = np.asarray(all_2d_segs[idx])
+        with open(fname, "w") as f:
+            f.write(f"{segs.shape[0]}\n")
+            for line in segs:
+                f.write(f"{line[0]} {line[1]} {line[2]} {line[3]}\n")
+
+
+def read_txt_Line3Dpp(fname: str):
+    """A Line3D++ result file -> (linetracks, line_track_id_list,
+    line_counts, mergemat [tracks, 3D lines])."""
+    linetracks, line_counts, line_track_id_list = [], [], []
+    n_total = 0
+    with open(fname) as f:
+        txt_lines = f.readlines()
+    for txt_line in txt_lines:
+        tok = txt_line.strip().split(" ")
+        c = 0
+        n_lines = int(tok[c])
+        c += 1
+        n_total += n_lines
+        line3d_list = []
+        for _ in range(n_lines):
+            vals = [float(k) for k in tok[c:c + 6]]
+            c += 6
+            line3d_list.append(np.array([vals[:3], vals[3:]]))
+        n_supports = int(tok[c])
+        c += 1
+        img_ids, line_ids, line2ds = [], [], []
+        for _ in range(n_supports):
+            img_ids.append(int(tok[c]))
+            line_ids.append(int(tok[c + 1]))
+            vals = [float(k) for k in tok[c + 2:c + 6]]
+            c += 6
+            line2ds.append(np.array([vals[:2], vals[2:]]))
+        track = LineTrack(line=line3d_list[0], image_id_list=img_ids,
+                          line_id_list=line_ids, line2d_list=line2ds)
+        linetracks.append(track)
+        for _ in range(n_lines):
+            line_counts.append(track.count_images())
+            line_track_id_list.append(len(linetracks) - 1)
+    mergemat = np.zeros((len(linetracks), n_total))
+    for idx, track_id in enumerate(line_track_id_list):
+        mergemat[track_id, idx] = 1
+    return linetracks, line_track_id_list, line_counts, mergemat

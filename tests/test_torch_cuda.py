@@ -19,6 +19,7 @@ from limap_tpu_torch.ops.pose_score import pose_score
 from limap_tpu_torch.ops.trace_roots import trace_roots
 from limap_tpu_torch.testing import (fitnmerge_checks, kernel_checks,
                                      lm_checks, tri_checks)
+from limap_tpu_torch.testing.evaluation import mesh_cases
 from limap_tpu_torch.ops.nn_distance import (nn_min_dist, nn_min_dist_plain,
                                              nn_min_dist_scalar)
 
@@ -433,3 +434,59 @@ def tri_vp_results():
 def test_triangulator_vp_banks_vs_plain(tri_vp_results, name, case):
     res = tri_vp_results[(name, case)]
     assert res["ok_to_plain"], res
+
+
+@pytest.mark.parametrize("case", range(len(mesh_cases())))
+def test_mesh_min_dist_kernel_vs_plain(cuda, case):
+    """Kernel N against its plain scan on the seeded cases: bit for bit
+    (the same correctly rounded fp32 operations in the same order), one
+    launch counted."""
+    from limap_tpu_torch.ops import mesh_distance as md
+    _, p, t = mesh_cases()[case]
+    pc = torch.as_tensor(p, device="cuda")
+    tc = torch.as_tensor(t, device="cuda")
+    n0 = md.mesh_min_dist.launches
+    got = md.mesh_min_dist(pc, tc)
+    ref = md.mesh_min_dist_plain(pc, tc)
+    torch.cuda.synchronize()
+    assert md.mesh_min_dist.launches == n0 + 1
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+def test_mesh_evaluator_on_the_card_never_takes_the_plain_scan(
+        cuda, monkeypatch):
+    """MeshEvaluator on the card launches kernel N for each call and never
+    reaches the plain scan; the empty inputs make no launch."""
+    from limap_tpu_torch.base.lines import Segments
+    from limap_tpu_torch.evaluation import MeshEvaluator
+    from limap_tpu_torch.ops import mesh_distance as md
+    from limap_tpu_torch.testing.evaluation import wall_mesh, wall_distance
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain scan ran on the card")
+
+    monkeypatch.setattr(md, "mesh_min_dist_plain", refuse)
+    verts, faces = wall_mesh(cell=0.2, jitter=0.05)
+    mesh = MeshEvaluator(verts, faces, device="cuda")
+    rng = np.random.default_rng(5)
+    s = np.stack([rng.uniform(-5, 5, 50), rng.uniform(-4, 4, 50),
+                  10 + rng.normal(0, 0.3, 50)], 1)
+    lines = torch.as_tensor(np.stack([s, s + rng.normal(0, 0.2, (50, 3))],
+                                     1), dtype=torch.float32, device="cuda")
+    seg = Segments(lines[:, 0], lines[:, 1])
+    n0 = md.mesh_min_dist.launches
+    d = mesh.ComputeDistsLine(seg, 100)
+    mesh.ComputeInlierRatio(seg, 0.05, 100)
+    mesh.ComputeDistPoint([0.0, 0.0, 10.5])
+    torch.cuda.synchronize()
+    assert md.mesh_min_dist.launches == n0 + 3
+    q = (lines[:, :1] + torch.linspace(0, 1, 100, device="cuda")[None, :,
+                                                                  None]
+         * (lines[:, 1:] - lines[:, :1])).reshape(-1, 3)
+    inside, dz = wall_distance(q.cpu().numpy())
+    dd = d.reshape(-1).double().cpu().numpy()
+    assert np.abs(dd[inside] - dz[inside]).max() <= 1e-5
+    n1 = md.mesh_min_dist.launches
+    assert md.mesh_min_dist(q[:0], mesh.tris).shape == (0,)
+    assert torch.isinf(md.mesh_min_dist(q, mesh.tris[:0])).all()
+    assert md.mesh_min_dist.launches == n1

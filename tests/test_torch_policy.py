@@ -60,7 +60,14 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "features/extractors.py", "ops/lm_line_refine.py",
                 "ops/lm_assoc.py", "optimize/line_refinement.py",
                 "optimize/global_pl_association.py",
-                "runners/pointline_association.py", "runners/refinement.py"):
+                "runners/pointline_association.py", "runners/refinement.py",
+                "ops/mesh_distance.py", "evaluation/mesh_evaluator.py",
+                "testing/evaluation.py", "base/align.py", "base/graph.py",
+                "util/geometry.py", "visualize/trackvis.py",
+                "visualize/vis_bipartite.py", "visualize/vis_lines.py",
+                "visualize/vis_matches.py", "visualize/vis_utils.py",
+                "scripts/eval_tnt.py", "scripts/eval_hypersim.py",
+                "runners/hypersim/loader.py"):
         assert "limap_tpu_torch/" + new in covered, new
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -257,14 +264,13 @@ def test_localization_entry_points_run_on_cpu_when_asked(no_gpu, entry):
 # other name of a JAX subpackage's __all__ must be exported by the port's
 # subpackage of the same name.
 QUEUED_NAMES = {
-    "evaluation": {"RefLineEvaluator": "9", "point_segment_distance": "9"},
-    "ops": {"count_component_sizes": "15b"},
     "point2d": {"SuperPoint": "14", "log_sinkhorn": "14",
                 "sinkhorn_match": "14"},
 }
 SUBPACKAGES = ("base", "merging", "optimize", "evaluation", "ops", "util",
                "runners", "fitting", "estimators", "line2d", "pointsfm",
-               "undistortion", "vplib", "point2d", "structures", "features")
+               "undistortion", "vplib", "point2d", "structures", "features",
+               "visualize")
 
 
 @pytest.mark.parametrize("name", SUBPACKAGES)
