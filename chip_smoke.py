@@ -91,6 +91,32 @@ Phases, in order; any failure exits non-zero:
      RefLineEvaluator with the GT lines as reference, held to a float64
      computation; then N held to its plain version on the whole input and
      timed in turns.
+ 14. the joint SfM refinement at full width: phase 11's façade (100
+     views of 800x600) written as a COLMAP model with 4,000 wall points
+     and their 2D observations on poses perturbed by refine_sfm's rule,
+     then runners/hypersim/refine_sfm.py::run_refine_sfm through the
+     COLMAP branch (a line map from the .npy pixels, then the hybrid
+     bundle adjustment of poses, points and lines on kernels O, P and Q,
+     hybrid_terms, hybrid_apply and hybrid_cost), gated: both median pose
+     errors fall, and they and the track count stay within gates of the
+     port's CPU run; the same BA with CG agrees with the dense solve;
+     then the line half at a real map's size: the GT-pose line map (212
+     tracks; the noisy poses leave 2) through the same BA on the noisy
+     poses, dense and CG, gated the same way; O, P and Q held to their
+     plain versions on the first steps and timed in turns, with the
+     dense solve's time, their launches counted by kind and mode in the
+     runs (a product's in the CG runs); then the CLIs in process:
+     visualsfm_triangulation (the GT model converted by convert_model)
+     and bundler_triangulation (a Bundler model) against the direct call
+     (cameras read back within 1e-6, the phase-7 gates), and, right after
+     phase 8, the localization CLI on phase 8's map and queries (the
+     phase-8 pose tolerances).  Phase 14a, before it, runs run_refine_sfm
+     on a reduced façade (8 views) on the CPU and then on the card (the
+     CPU's segments and matches) and holds the line map, the costs, the
+     poses, the points and the lines card to CPU.
+Phase 2 also holds kernels O, P and Q to their plain versions on seeded
+inputs (lines and points, optimize_focal on and off, each constancy flag,
+ragged slots of weight 0, one track, one support).
 Phase 2 also holds kernel N (mesh_min_dist) to its plain version on
 seeded inputs: degenerate triangles, points in each of a triangle's seven
 regions, ragged sizes.
@@ -944,7 +970,8 @@ def localization_full_width(scene, tracks, workdir, card):
           ("median rotation error", summary, ref))
     return launches, dict({k: (r.args, r.kwargs)
                            for k, r in recorders.items()},
-                          lm_jointloc=lo_calls)
+                          lm_jointloc=lo_calls), \
+        {"q": q, "cfg": cfg, "poses": poses}
 
 
 LOC_TURNS = ("plain", "kernel", "kernel", "plain")
@@ -2357,6 +2384,568 @@ def measure_mesh(queries, tris, launches):
             "plain_ms_turns": times["plain"], "bound_ms": bms,
             "bound_by": by, "library_ms": None, **shape}
 
+
+# ---------------------------------------------------------------- phase 14
+O_SOURCE = "hybrid_ba.cu"
+O_REPLACES = "limap_tpu/parallel/sharded_ba.py:303"
+P_REPLACES = "limap_tpu/parallel/sharded_ba.py:233, :375"
+Q_REPLACES = "limap_tpu/parallel/sharded_ba.py:407"
+# The PORT's CPU run of phase 14's path (tests/torch_port_reference_gates.py
+# --refine-sfm 100, 647 s): median pose errors before and after the BA
+# (m, deg, in float64 from the quaternions), the line map's tracks, the
+# BA's costs and accepts.
+REFERENCE_REFINE = {
+    "trans_before": 0.023613074445552287, "rot_before": 0.42919357448270107,
+    "trans_after": 0.007199142538723216, "rot_after": 0.027871723311361014,
+    "n_tracks": 2, "n_points": 3986, "n_point_obs": 120621,
+    "cost_first": 6867.83447265625, "cost_last": 1396.63037109375,
+    "n_accepted": 10}
+# The noisy-pose line map is a few tracks, one of which may fall either
+# way of a filter (one track of slack); the errors after the BA within a
+# quarter of the reference's (a track more or less moves them); the
+# costs within 1e-4 (the same observations; the decisions near the
+# float32 floor may differ, as the accepts did: 11 on an H100, 10 here).
+REFINE_GATES = (("n_tracks", "points", 1),
+                ("n_point_obs", "points", 0),
+                ("trans_after", "relative", 0.25),
+                ("rot_after", "relative", 0.25),
+                ("cost_first", "relative", 1e-5),
+                ("cost_last", "relative", 1e-4))
+# The PORT's CPU run of phase 14's line half
+# (python -m limap_tpu_torch.testing.refine 100 cpu --gt-map; 573 s on
+# the 8 host cores of an H100 machine): the façade's line map on its GT
+# poses through the hybrid BA on the noisy poses and points, 20 steps
+# (testing/refine.py::run_map_ba).
+REFERENCE_REFINE_GT_MAP = {
+    "trans_before": 0.023613074445552287, "rot_before": 0.42919357448270107,
+    "trans_after": 0.007077141190147794, "rot_after": 0.035823920032890824,
+    "n_tracks_in": 213, "n_tracks": 213,
+    "line_dist_before": 0.03478383331513145,
+    "line_dist_after": 0.033773304172170254,
+    "cost_first": 6959.50439453125, "cost_last": 1427.1903076171875,
+    "n_accepted": 20}
+# The card's map may differ from the CPU's by a track or two (phase 7's
+# 1 % on the track count), which moves the costs by about the share of
+# a few tracks' supports: the costs within 2 %; the errors after the BA
+# within a quarter of the reference's, as REFINE_GATES.
+REFINE_GT_MAP_GATES = (("n_tracks_in", "relative", 0.01),
+                       ("n_tracks", "relative", 0.02),
+                       ("trans_after", "relative", 0.25),
+                       ("rot_after", "relative", 0.25),
+                       ("line_dist_after", "relative", 0.25),
+                       ("cost_first", "relative", 0.02),
+                       ("cost_last", "relative", 0.02))
+# CG against the dense solve (64 CG iterations a step, 20 steps), as
+# tests/test_sharded_ba.py:128 holds them: the final costs agree within
+# CG_COST_RTOL.  The poses are weakly determined along a near-gauge
+# direction (on an H100 the two runs' final costs differed by 4e-6 while
+# the median image's pose differed by 3.8 mm of the 16.4 mm the BA took
+# out), so the median image's poses agree within half the median error
+# taken out.
+CG_COST_RTOL = 1e-4
+CG_POSE_SHARE = 0.5
+# Card against CPU on the reduced façade (phase 14a): the same line map
+# (the card's run reads the CPU's segments and matches), then the BA in
+# float32 on both: the costs within COST_RTOL_14A at every step where
+# both took the same decision, the poses, points and lines within these.
+COST_RTOL_14A = 1e-3
+# refine_sfm's pose noise (0.01) leaves the reduced façade no line track;
+# a third of it leaves two
+REFINE_14A_POSE_NOISE = 0.003
+POSE_TOL_14A_M = 1e-3
+POSE_TOL_14A_DEG = 1e-2
+POINT_TOL_14A_M = 1e-2
+LINE_TOL_14A_M = 1e-2
+
+
+def hybrid_seeded_cases():
+    """Kernels O, P and Q against their plain versions on the seeded cases
+    of testing/hybrid_checks.py."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    from limap_tpu_torch.testing import hybrid_checks
+    t0 = time.perf_counter()
+    n0 = (O.hybrid_terms.launches, O.hybrid_apply.launches,
+          O.hybrid_cost.launches)
+    for name, case, res in hybrid_checks.check_all():
+        log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
+        check(res["ok"], (name, "vs plain", case, res))
+    n1 = (O.hybrid_terms.launches, O.hybrid_apply.launches,
+          O.hybrid_cost.launches)
+    check(all(b > a for a, b in zip(n0, n1)), ("O, P, Q launches", n0, n1))
+    log(f"[kernel] hybrid_terms, hybrid_apply, hybrid_cost seeded cases "
+        f"took {time.perf_counter() - t0:.1f} s")
+
+
+def pose_errors_between(a, b):
+    """Largest (centre distance m, angle deg) between two collections'
+    poses of the same images."""
+    from limap_tpu_torch.testing.refine import pose_errors64
+    te, re = pose_errors64(a, b)
+    return max(te), max(re)
+
+
+def track_line_distance(a, b):
+    """Largest endpoint difference of two track lists, track by track."""
+    return max((endpoint_error(np.asarray(x.line), np.asarray(y.line))
+                for x, y in zip(a, b)), default=0.0)
+
+
+def refine_card_vs_cpu(workdir):
+    """Phase 14a: run_refine_sfm on a reduced façade (8 views) on the CPU,
+    then on the card with the CPU's segments and matches: the same line
+    map, then the hybrid BA held card to CPU (costs, poses, points,
+    lines)."""
+    from limap_tpu_torch.testing import refine
+    scene = refine.write_refine_scene(workdir, 8, n_lines=60,
+                                      hw=(480, 640), n_points=800,
+                                      pose_noise=REFINE_14A_POSE_NOISE)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        cfg = refine.refine_config(os.path.join(workdir, dev), n_neighbors=4)
+        cfg["n_visible_views"] = 3
+        cfg["triangulation"]["fullscore_th"] = 0.5
+        if dev == "cuda":
+            cfg.update(load_det=True, load_match=True,
+                       load_dir=os.path.join(workdir, "cpu"))
+        outs[dev] = refine.run(scene, os.path.join(workdir, dev), dev,
+                               cfg)
+    (c, _, sc), (g, secs, sg) = outs["cpu"], outs["cuda"]
+    check(len(g["linetracks_in"]) == len(c["linetracks_in"])
+          and sorted(map(key, g["linetracks_in"]))
+          == sorted(map(key, c["linetracks_in"])),
+          ("refine line map card vs CPU", len(g["linetracks_in"]),
+           len(c["linetracks_in"])))
+    cc, gc = c["costs"], g["costs"]
+    parted = None
+    for i in range(len(cc)):
+        check(abs(gc[i] - cc[i]) <= COST_RTOL_14A * cc[i],
+              ("refine costs card vs CPU", i, gc, cc))
+        if i and (gc[i] < gc[i - 1]) != (cc[i] < cc[i - 1]):
+            parted = i
+            break
+    dt, dr = pose_errors_between(g["imagecols"], c["imagecols"])
+    dp = float(np.abs(g["points"] - c["points"]).max())
+    dl = track_line_distance(g["linetracks"], c["linetracks"])
+    log(f"[refine card-vs-cpu] {len(g['linetracks_in'])} tracks, identical "
+        f"supports; costs {gc[0]:.6f} -> {gc[-1]:.6f} (CPU {cc[0]:.6f} -> "
+        f"{cc[-1]:.6f}), decisions part at {parted}; poses within "
+        f"{dt:.2e} m, {dr:.2e} deg; points {dp:.2e} m; lines {dl:.2e} m; "
+        f"card {json.dumps(sg)} in {secs:.2f} s; CPU {json.dumps(sc)}")
+    check(parted is None, ("refine decisions card vs CPU", gc, cc))
+    check(dt <= POSE_TOL_14A_M and dr <= POSE_TOL_14A_DEG,
+          ("refine poses card vs CPU", dt, dr))
+    check(dp <= POINT_TOL_14A_M, ("refine points card vs CPU", dp))
+    check(dl <= LINE_TOL_14A_M, ("refine lines card vs CPU", dl))
+
+
+class FirstCalls:
+    """Wraps ``module.name`` to keep the arguments of its first call of
+    each kind (``kind_of``)."""
+
+    def __init__(self, module, name, kind_of):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.calls = {}
+
+        def wrapper(*args, **kwargs):
+            self.calls.setdefault(kind_of(*args, **kwargs), (args, kwargs))
+            return self.orig(*args, **kwargs)
+
+        setattr(module, name, wrapper)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def refine_full_width(workdir, card):
+    """Phase 14: the façade (100 views of 800x600) with 4,000 wall points
+    and their 2D observations as a COLMAP model on noisy poses, through
+    run_refine_sfm (line map from the .npy pixels, then the hybrid BA on
+    kernels O, P and Q), gated against the port's CPU run; then the same
+    BA with CG against the dense solve.  Returns the recorded kernel
+    inputs, the launches and the scene."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    from limap_tpu_torch.parallel import (HybridBAOptions,
+                                          solve_hybrid_bundle_adjustment)
+    from limap_tpu_torch.runners.hypersim.refine_sfm import \
+        read_colmap_inputs
+    from limap_tpu_torch.testing import refine
+
+    t0 = time.perf_counter()
+    scene = refine.write_refine_scene(workdir)
+    n_obs = sum(len(v["image_ids"]) for v in scene["points3d"].values())
+    log(f"[refine] façade written as COLMAP models ({len(scene['points3d'])} "
+        f"wall points, {n_obs} observations) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    O.reset_counts()
+    rec = {"terms": FirstCalls(O, "hybrid_terms", lambda *a, **k: a[0]),
+           "cost": FirstCalls(O, "hybrid_cost", lambda *a, **k: 0)}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out, secs, summ = refine.run(scene, os.path.join(workdir, "out"),
+                                     "cuda")
+    finally:
+        for r in rec.values():
+            r.restore()
+    launches = hybrid_launches()
+    log(f"[refine] run_refine_sfm through the COLMAP branch in {secs:.3f} s "
+        f"(stage seconds {json.dumps(out['seconds'])}) on {card}; "
+        f"{json.dumps(summ)}; kernel launches {json.dumps(launches)}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check_hybrid_launches("the refine path", launches, product=False)
+    check(summ["trans_after"] < summ["trans_before"]
+          and summ["rot_after"] < summ["rot_before"],
+          ("the hybrid BA did not lower the median pose errors", summ))
+    check(np.isfinite(out["points"]).all()
+          and np.isfinite([t.line for t in out["linetracks"]]).all(),
+          "non-finite BA output")
+    hold_to_gates("refine", summ, REFERENCE_REFINE, REFINE_GATES)
+
+    # the same BA with CG (ITERATIVE_SCHUR) against the dense solve
+    imagecols, pointtracks = read_colmap_inputs(scene["model"],
+                                                scene["image_dir"])
+    O.reset_counts()
+    t0 = time.perf_counter()
+    cg = solve_hybrid_bundle_adjustment(
+        imagecols, pointtracks, out["linetracks_in"],
+        HybridBAOptions(n_fixed_poses=2, solver="cg"),
+        n_iterations=len(out["costs"]) - 1, device="cuda")
+    cg_s = time.perf_counter() - t0
+    cg_launches = hybrid_launches()
+    check_hybrid_launches("the refine path's CG run", cg_launches,
+                          product=True)
+    launches["hybrid_apply"].update(
+        {k: n for k, n in cg_launches["hybrid_apply"].items()
+         if k.endswith("apply")})
+    hold_cg_to_dense("refine", cg, cg_s, out["imagecols"], out["costs"],
+                     summ, refine.imagecols_gt_read(scene))
+    recorded = {"terms": rec["terms"].calls, "cost": rec["cost"].calls[0]}
+    return recorded, launches, scene, out
+
+
+def hybrid_launches():
+    """O's and P's launches by kind and mode, Q's in all, since the last
+    ``reset_counts``."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    return {"hybrid_terms": dict(O.hybrid_terms.counts),
+            "hybrid_apply": dict(O.hybrid_apply.counts),
+            "hybrid_cost": O.hybrid_cost.launches}
+
+
+def check_hybrid_launches(what, launches, product):
+    """Every kind went through O and P's back-substitution (with
+    ``product`` also P's product: the CG runs), and Q ran."""
+    modes = ["backsub"] + (["apply"] if product else [])
+    for kind in ("line", "point"):
+        check(launches["hybrid_terms"].get(kind, 0) > 0,
+              f"{what} did not launch hybrid_terms on the {kind}s")
+        for mode in modes:
+            check(launches["hybrid_apply"].get(f"{kind}, {mode}", 0) > 0,
+                  f"{what} did not launch hybrid_apply ({mode}) on the "
+                  f"{kind}s")
+    check(launches["hybrid_cost"] > 0, f"{what} did not launch hybrid_cost")
+    if not product:
+        check(not any(k.endswith("apply") for k in launches["hybrid_apply"]),
+              f"{what} launched CG's product on the dense path")
+
+
+def hold_cg_to_dense(what, cg, cg_s, dense_cols, dense_costs, summ, gt):
+    """The same BA with CG against the dense solve: the final costs
+    within CG_COST_RTOL, the median image's pose within CG_POSE_SHARE of
+    the median error the dense BA took out."""
+    from limap_tpu_torch.testing import refine
+    diffs = np.asarray(refine.pose_errors64(cg[0], dense_cols)).T
+    dt, dr = np.median(diffs, 0)
+    te, re = refine.pose_errors64(cg[0], gt)
+    log(f"[{what}] CG: {cg_s:.3f} s, costs {cg[3][0]:.4f} -> "
+        f"{cg[3][-1]:.4f} (dense {dense_costs[-1]:.4f}); median errors "
+        f"{np.median(te):.5f} m, {np.median(re):.5f} deg; poses from the "
+        f"dense run's: median {dt:.2e} m, {dr:.2e} deg, largest "
+        f"{diffs[:, 0].max():.2e} m, {diffs[:, 1].max():.2e} deg")
+    noise_m = summ["trans_before"] - summ["trans_after"]
+    noise_deg = summ["rot_before"] - summ["rot_after"]
+    check(abs(cg[3][-1] - dense_costs[-1]) <= CG_COST_RTOL * dense_costs[-1],
+          (what, "CG cost against the dense solve", cg[3][-1],
+           dense_costs[-1]))
+    check(dt <= CG_POSE_SHARE * noise_m and dr <= CG_POSE_SHARE * noise_deg,
+          (what, "CG poses against the dense solve", dt, dr, noise_m,
+           noise_deg))
+
+
+def refine_gt_map(scene, card):
+    """Phase 14's line half: the façade's line map on its GT poses (the
+    direct call of phase 14's CLIs; 212 tracks, where refine_sfm's noisy
+    poses leave 2) through the hybrid BA on the noisy poses and points
+    for 20 steps, dense and then CG: both median pose errors must fall;
+    the errors, the lines' median distance to the GT lines (triangulated
+    on the GT poses, they start near their best), the tracks and the
+    costs are gated against the port's CPU run (REFERENCE_REFINE_GT_MAP);
+    CG is held to the dense run.
+    Returns the map, O's first line call and the run's launches."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    from limap_tpu_torch.testing import refine
+    direct = refine.gt_line_map(
+        scene, os.path.join(scene["image_dir"], "..", "direct"), "cuda")
+    O.reset_counts()
+    rec = FirstCalls(O, "hybrid_terms", lambda *a, **k: a[0])
+    try:
+        out, secs, summ = refine.run_map_ba(scene, direct, "cuda")
+    finally:
+        rec.restore()
+    launches = hybrid_launches()
+    log(f"[refine gt-map] the GT-pose line map ({len(direct)} tracks) "
+        f"through the hybrid BA on the noisy poses in {secs:.3f} s on "
+        f"{card}: {json.dumps(summ)}; kernel launches "
+        f"{json.dumps(launches)}")
+    check_hybrid_launches("the GT-pose map's BA", launches, product=False)
+    check(summ["trans_after"] < summ["trans_before"]
+          and summ["rot_after"] < summ["rot_before"],
+          ("the hybrid BA on the GT-pose map did not lower the median "
+           "pose errors", summ))
+    check(np.isfinite(out[1]).all()
+          and np.isfinite([t.line for t in out[2]]).all(),
+          "non-finite BA output on the GT-pose map")
+    hold_to_gates("refine gt-map", summ, REFERENCE_REFINE_GT_MAP,
+                  REFINE_GT_MAP_GATES)
+    O.reset_counts()
+    cg, cg_s, _ = refine.run_map_ba(scene, direct, "cuda", solver="cg")
+    cg_launches = hybrid_launches()
+    check_hybrid_launches("the GT-pose map's CG run", cg_launches,
+                          product=True)
+    launches["hybrid_apply"].update(
+        {k: n for k, n in cg_launches["hybrid_apply"].items()
+         if k.endswith("apply")})
+    hold_cg_to_dense("refine gt-map", cg, cg_s, out[0], out[3], summ,
+                     refine.imagecols_gt_read(scene))
+    return direct, rec.calls["line"], launches
+
+
+def measure_hybrid(recorded, launches, gt_line_call=None, gt_launches=None):
+    """O, P and Q on the BA's first step of phase 14: held to their plain
+    versions (testing/hybrid_checks.py), timed in turns (plain, kernel,
+    kernel, plain) beside their bounds; with ``gt_line_call`` also O and P
+    on the first step of the GT-pose line map's BA (``gt_launches`` its
+    run's launches); and the dense solve's torch.linalg.solve on the
+    path's reduced system.  A product's launches are its CG run's."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    from limap_tpu_torch.testing import hybrid_checks as HC
+    entries, errs = [], {}
+    terms = {}
+    calls = dict(recorded["terms"])
+    runs = {label: launches for label in calls}
+    if gt_line_call is not None:
+        calls["line, GT-pose map"] = gt_line_call
+        runs["line, GT-pose map"] = gt_launches
+    for label, (args, kwargs) in calls.items():
+        kind = args[0]
+        (kind_, land, pose, fxfy, kvec, cam, img, obs, w, opts, lam, I, C,
+         dense) = args
+        from limap_tpu_torch.parallel.sharded_ba import HybridBAState
+        state = HybridBAState(land if kind == "line" else None,
+                              land if kind == "point" else None, pose, fxfy)
+        data = (kvec, cam, img) + tuple(obs) + (w,)
+        t0 = time.perf_counter()
+        res, k = HC.check_terms(kind, state, data, opts, lam, I, C, dense)
+        log(f"[kernel] refine hybrid_terms + hybrid_apply, {label}, on the "
+            f"first step's input ({time.perf_counter() - t0:.1f} s): "
+            f"{json.dumps(res)}")
+        check(res["ok"], ("O, P vs plain on phase 14's input", label, res))
+        terms[label] = (args, k)
+        errs[label] = res
+    D = O.dims(I, C, opts.optimize_focal)
+    Dc = 8 if opts.optimize_focal else 6
+    # O
+    for label, (args, k) in terms.items():
+        kind = args[0]
+        L = O.LAND[kind]
+        w = args[8]
+        ops, nbytes = HC.terms_work(kind, w, args[6], args[5], L, Dc, D,
+                                    args[13], O.PARAMS[kind], O.OBS[kind])
+        bms, by = bound(ops, nbytes)
+        res = errs[label]
+        shape = {"kind": label, "tracks": int(w.shape[0]),
+                 "slots": int(w.shape[1]), "weighted": int((w > 0).sum()),
+                 "D": D, "dense": bool(args[13]), "operations": ops,
+                 "bytes": nbytes,
+                 "library": "none (no PyTorch call builds a Schur system)"}
+        err = max(res[n][0] for n in ("g", "diag0", "Hp") if n in res)
+        entries.append(timed_entry(
+            f"hybrid_terms ({label})", "refine", O_SOURCE, O_REPLACES,
+            runs[label]["hybrid_terms"][kind], O.hybrid_terms,
+            O.hybrid_terms_plain,
+            args, {}, err, bms, by, shape, (5, 1)))
+    # P: the product and the back-substitution on O's terms
+    for label, (args, k) in terms.items():
+        kind = args[0]
+        L = O.LAND[kind]
+        gen = torch.Generator().manual_seed(1)
+        v = torch.randn(D, generator=gen).to("cuda")
+        for backsub in (False, True):
+            ops, nbytes = HC.apply_work(k.weight, k.img, k.cam, L, Dc, D,
+                                        backsub)
+            bms, by = bound(ops, nbytes)
+            name = "backsub" if backsub else "apply"
+            shape = {"kind": label, "backsub": backsub, "operations": ops,
+                     "bytes": nbytes, "library": "none",
+                     "launches_from": "the dense run" if backsub
+                     else "the CG run"}
+            entries.append(timed_entry(
+                f"hybrid_apply ({label}, {name})", "refine", O_SOURCE,
+                P_REPLACES, runs[label]["hybrid_apply"][f"{kind}, {name}"],
+                O.hybrid_apply,
+                O.hybrid_apply_plain, (k, v, backsub), {},
+                errs[label][name][0], bms, by, shape, (20, 5)))
+    # Q
+    (cargs, _) = recorded["cost"]
+    state, ld, pd, opts_c = cargs
+    res = HC.check_cost(state, ld, pd, opts_c)
+    log(f"[kernel] refine hybrid_cost on the first state: {json.dumps(res)}")
+    check(res["ok"], ("Q vs plain on phase 14's input", res))
+    ops, nbytes = HC.cost_work(
+        {"line": (ld[-1], ld[2], ld[1], O.PARAMS["line"], O.OBS["line"]),
+         "point": (pd[-1], pd[2], pd[1], O.PARAMS["point"],
+                   O.OBS["point"])})
+    bms, by = bound(ops, nbytes)
+    entries.append(timed_entry(
+        "hybrid_cost", "refine", O_SOURCE, Q_REPLACES,
+        launches["hybrid_cost"], O.hybrid_cost, O.hybrid_cost_plain,
+        cargs, {}, res["abs_err"], bms, by,
+        {"line_slots": int(ld[-1].numel()), "point_slots": int(pd[-1].numel()),
+         "operations": ops, "bytes": nbytes, "library": "none"}, (20, 5)))
+    # the dense solve beside them: the first step's damped reduced system
+    tl, tp = terms["line"][1], terms["point"][1]
+    Hp = tl.Hp + tp.Hp
+    A = Hp + 1e-3 * torch.diag(torch.clamp(torch.diagonal(Hp), min=1e-8)) \
+        + 1e-8 * torch.eye(D, device="cuda")
+    g = tl.g + tp.g
+    solve_ms = cuda_ms(lambda: torch.linalg.solve(A, g), 20)
+    log(f"[kernel] refine torch.linalg.solve of the {D} x {D} reduced "
+        f"system: {solve_ms:.4f} ms")
+    for e in entries:
+        e["dense_solve_ms"] = solve_ms
+    return entries
+
+
+def refine_clis(scene, direct, workdir, card):
+    """Phase 14's CLIs in process on the façade: visualsfm_triangulation
+    on the GT model converted by scripts/convert_model.py and
+    bundler_triangulation on a Bundler model written by
+    testing/refine.py::write_bundler, each against the direct call of
+    line_triangulation on the GT model (the phase-7 gates), with the
+    cameras read back within 1e-6 of the written ones."""
+    from limap_tpu_torch.pointsfm import ReadInfos
+    from limap_tpu_torch.pointsfm.readers import (ReadModelBundler,
+                                                  ReadModelVisualSfM,
+                                                  fill_principal_points)
+    from limap_tpu_torch.runners import (bundler_triangulation,
+                                         visualsfm_triangulation)
+    from limap_tpu_torch.scripts import convert_model
+    from limap_tpu_torch.testing import pipeline, refine
+
+    gt_cols = refine.imagecols_gt_read(scene)
+    ref = pipeline.quality_eval(direct, scene["gt"])
+    ref["n_tracks_all"] = len(direct)
+    log(f"[refine cli] direct line_triangulation on the GT model: "
+        f"{len(direct)} tracks; {json.dumps(ref)}")
+
+    def cameras_agree(cols, what):
+        worst = 0.0
+        for i in gt_cols.get_img_ids():
+            a, b = cols.camview(i), gt_cols.camview(i)
+            for x, y in ((a.cam.kvec(), b.cam.kvec()),
+                         (a.pose.qvec * np.sign(a.pose.qvec[0]),
+                          b.pose.qvec * np.sign(b.pose.qvec[0])),
+                         (a.pose.tvec, b.pose.tvec)):
+                worst = max(worst, float(np.abs(np.asarray(x) - y).max()
+                                         / max(np.abs(y).max(), 1.0)))
+        log(f"[refine cli] {what}: cameras read back within {worst:.2e} "
+            f"(relative) of the written ones")
+        check(worst <= 1e-6, (what, "cameras read back", worst))
+
+    def run_cli(what, module, argv):
+        cfg_file = os.path.join(workdir, f"{what}.json")
+        with open(cfg_file, "w") as f:
+            json.dump(pipeline.runner_config(os.path.join(workdir, what)), f)
+        t0 = time.perf_counter()
+        tracks = module.main(argv + ["-c", cfg_file, "--device", "cuda"])
+        q = pipeline.quality_eval(tracks, scene["gt"])
+        q["n_tracks_all"] = len(tracks)
+        log(f"[refine cli] {what}: {len(tracks)} tracks in "
+            f"{time.perf_counter() - t0:.2f} s; {json.dumps(q)}")
+        check(np.isfinite([t.line for t in tracks]).all(), (what, "finite"))
+        hold_to_gates(f"refine cli {what}", q, ref, CLI_GATES)
+
+    # VisualSfM: the GT model converted into the image folder
+    convert_model.main(["-i", scene["model_gt"], "-o", scene["image_dir"],
+                        "--type", "colmap2vsfm"])
+    cols, _ = ReadModelVisualSfM(scene["image_dir"])
+    fill_principal_points(cols)
+    cameras_agree(cols, "visualsfm")
+    run_cli("visualsfm", visualsfm_triangulation,
+            ["-a", scene["image_dir"]])
+    # Bundler
+    refine.write_bundler(scene["image_dir"],
+                         ReadInfos(scene["model_gt"]), scene["points3d"])
+    cols, _ = ReadModelBundler(scene["image_dir"], "bundle.list.txt",
+                               "bundle.out")
+    fill_principal_points(cols)
+    cameras_agree(cols, "bundler")
+    run_cli("bundler", bundler_triangulation,
+            ["-a", scene["image_dir"], "-l", "bundle.list.txt", "-m",
+             "bundle.out"])
+
+
+# the CLIs read the same cameras (within 1e-6) and points as the direct
+# call: the phase-7 gates against the direct call's quality
+CLI_GATES = FROM_PIXELS_GATES[2:]
+
+
+def localization_cli(scene, tracks, direct, workdir, card):
+    """Phase 14's localization CLI in process on phase 8's map and
+    queries, written as the CLI's files (COLMAP models of the database
+    and the queries with their priors, the map's folder, the point
+    correspondences, the retrieval): each pose against phase 8's direct
+    call within the phase-8 tolerances."""
+    from limap_tpu_torch.pointsfm import write_model_txt
+    from limap_tpu_torch.runners import localization
+    from limap_tpu_torch.util import io as limapio
+    q, cfg, poses = direct["q"], direct["cfg"], direct["poses"]
+    folder = os.path.join(workdir, "loc_cli")
+    write_model_txt(os.path.join(folder, "db"), scene[0])
+    write_model_txt(os.path.join(folder, "query"), q["imagecols"])
+    limapio.save_folder_linetracks_with_info(os.path.join(folder, "map"),
+                                             tracks)
+    np.savez(os.path.join(folder, "corresp.npz"),
+             **{f"{k}_{qid}": v for qid, (p3, p2) in q["points"].items()
+                for k, v in (("p3ds", p3), ("p2ds", p2))})
+    with open(os.path.join(folder, "retrieval.txt"), "w") as f:
+        for qid, ids in q["retrieval"].items():
+            f.write(" ".join(map(str, [qid] + list(ids))) + "\n")
+    cfg_file = os.path.join(folder, "cfg.json")
+    with open(cfg_file, "w") as f:
+        json.dump(dict(cfg, output_dir=os.path.join(folder, "out")), f)
+    t0 = time.perf_counter()
+    cli = localization.main([
+        "--db_model", os.path.join(folder, "db"),
+        "--query_model", os.path.join(folder, "query"),
+        "--linemap", os.path.join(folder, "map"),
+        "--point_corresp", os.path.join(folder, "corresp.npz"),
+        "--retrieval", os.path.join(folder, "retrieval.txt"),
+        "--results_path", os.path.join(folder, "results.txt"),
+        "-c", cfg_file, "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    diffs = {qid: pose_difference(cli[qid], poses[qid]) for qid in poses}
+    worst = (max(d[0] for d in diffs.values()),
+             max(d[1] for d in diffs.values()))
+    log(f"[refine cli] localization: {len(cli)} queries in {secs:.2f} s on "
+        f"{card}; poses from phase 8's direct call within {worst[0]:.2e} m, "
+        f"{worst[1]:.2e} deg")
+    check(sorted(cli) == sorted(poses), ("localization CLI queries",
+                                         sorted(cli), sorted(poses)))
+    check(worst[0] <= LOC_POSE_TOL_M and worst[1] <= LOC_POSE_TOL_DEG,
+          ("localization CLI poses against the direct call", worst))
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
@@ -2372,7 +2961,7 @@ def main():
         for m in ("yaml", "cv2", "PIL")))
 
     # ---- 1. build: one nvcc a source, all started together ----
-    from limap_tpu_torch.ops import (epipolar_iou, line_ransac,
+    from limap_tpu_torch.ops import (epipolar_iou, hybrid_ba, line_ransac,
                                      linker_edges, lm_assoc, lm_jointloc,
                                      lm_line_ba, lm_line_refine,
                                      mesh_distance, pose_score, trace_roots,
@@ -2382,7 +2971,7 @@ def main():
     t0 = time.perf_counter()
     libs = (nnd, trace_roots, pose_score, epipolar_iou, line_ransac,
             linker_edges, tri_propose, tri_score, lm_line_ba, lm_jointloc,
-            vp_detect, lm_line_refine, lm_assoc, mesh_distance)
+            vp_detect, lm_line_refine, lm_assoc, mesh_distance, hybrid_ba)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda m: m.build(), libs))
     log(f"[build] {len(libs)} kernel libraries built in "
@@ -2468,6 +3057,7 @@ def main():
     log(f"[kernel] lm_line_refine, lm_assoc_lines, lm_assoc_points seeded "
         f"cases took {time.perf_counter() - t0:.1f} s")
     mesh_seeded_cases()
+    hybrid_seeded_cases()
 
     # ---- 3. card against CPU on a reduced scene ----
     # Endpoint noise (0.3 px) keeps the proposals' scores off the
@@ -2615,11 +3205,16 @@ def main():
 
         # ---- 8. localization at full width on phase 7's map ----
         t0 = time.perf_counter()
-        loc_launches, recorded = localization_full_width(
+        loc_launches, recorded, loc_direct = localization_full_width(
             scene, runner_tracks, workdir, card)
         log(f"[localize] phase 8 took {time.perf_counter() - t0:.1f} s")
         entries += measure_localization_kernels(recorded, loc_launches)
         del recorded
+        # phase 14's localization CLI, on phase 8's map and queries
+        t0 = time.perf_counter()
+        localization_cli(scene, runner_tracks, loc_direct, workdir, card)
+        log(f"[refine cli] the localization CLI took "
+            f"{time.perf_counter() - t0:.1f} s")
 
         # ---- 9a. fit and merge, card against CPU ----
         t0 = time.perf_counter()
@@ -2699,6 +3294,25 @@ def main():
     t0 = time.perf_counter()
     entries.append(evaluation_full_width(pixel_lines, scene[3], card))
     log(f"[evaluation] phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14a. the joint SfM refinement, card against CPU ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as small:
+        refine_card_vs_cpu(small)
+    log(f"[refine card-vs-cpu] phase 14a took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 14. the joint SfM refinement and the CLIs at full width ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        recorded, hba_launches, refine_scene, refine_out = \
+            refine_full_width(workdir, card)
+        direct, gt_line_call, gt_launches = refine_gt_map(refine_scene, card)
+        entries += measure_hybrid(recorded, hba_launches, gt_line_call,
+                                  gt_launches)
+        del recorded, gt_line_call
+        refine_clis(refine_scene, direct, workdir, card)
+    log(f"[refine] phase 14 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

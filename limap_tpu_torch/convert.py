@@ -52,3 +52,17 @@ def track_batch(obj, device=None) -> TrackBatch:
 def host_track_batch(obj) -> HostTrackBatch:
     return HostTrackBatch(*(np.array(getattr(obj, f))
                             for f in HostTrackBatch._fields))
+
+
+def hybrid_ba_state(obj, device=None):
+    """The hybrid BA's state (``line_params``, ``point_params``,
+    ``pose_params``, ``cam_fxfy``) as the port's ``HybridBAState``."""
+    from limap_tpu_torch.parallel.sharded_ba import HybridBAState
+    return _fields(HybridBAState, obj, device)
+
+
+def hybrid_ba_data(data, device=None) -> tuple:
+    """A ``line_data`` or ``point_data`` tuple of the hybrid BA as tensors
+    (floats stay float32, indices stay integers)."""
+    device = resolve_device(device)
+    return tuple(_tensor(x, device) for x in data)

@@ -105,3 +105,26 @@ def ReadModelVisualSfM(vsfm_path: str, nvm_file: str = "reconstruction.nvm"):
         image_ids = [int(tok[7 + 4 * k]) for k in range(n_meas)]
         points3d[p] = {"xyz": xyz, "image_ids": image_ids}
     return ImageCollection(cameras, images), points3d
+
+
+def fill_principal_points(imagecols) -> None:
+    """Bundler and NVM files hold no principal point (the readers leave
+    cx = cy = 0): put each such camera's at the centre of its first
+    image, and its size, read from that image (``.npy`` by its header)."""
+    first = {}
+    for img_id in imagecols.get_img_ids():
+        first.setdefault(imagecols.images[img_id].cam_id, img_id)
+    for cam_id, img_id in first.items():
+        cam = imagecols.cameras[cam_id]
+        if cam.params[1] != 0.0 or cam.params[2] != 0.0:
+            continue
+        name = imagecols.image_name(img_id)
+        if name.endswith(".npy"):
+            h, w = np.load(name, mmap_mode="r").shape[:2]
+        else:
+            h, w = imagecols.read_image(img_id).shape[:2]
+        params = list(cam.params)
+        params[1], params[2] = w / 2.0, h / 2.0
+        imagecols.cameras[cam_id] = Camera(model=cam.model_name,
+                                           params=params, cam_id=cam_id,
+                                           hw=(h, w))

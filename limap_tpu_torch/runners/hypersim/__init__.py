@@ -1,1 +1,3 @@
-"""The Hypersim dataset: its loader (the runners come with the CLIs)."""
+"""The Hypersim dataset: its loader and the triangulation, fit-and-merge
+and joint SfM refinement commands, each run as
+``python -m limap_tpu_torch.runners.hypersim.<name>``."""

@@ -106,6 +106,27 @@ def update_config(cfg: dict, unknown: List[str],
     return cfg
 
 
+def load_cli_config(config_file: str, default=None) -> dict:
+    """A CLI's config: a ``.json`` file with the json module, any other
+    file with PyYAML; where PyYAML is missing, ``default()`` (the same
+    contents as the config file, held to it by a test).  A relative path
+    that does not exist from the working directory is taken from the
+    repository's root."""
+    import importlib.util
+    import json
+    import os
+    if not os.path.exists(config_file) and not os.path.isabs(config_file):
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        config_file = os.path.join(root, config_file)
+    if config_file.endswith(".json"):
+        with open(config_file) as f:
+            return json.load(f)
+    if importlib.util.find_spec("yaml") is None and default is not None:
+        return default()
+    return load_config(config_file)
+
+
 def default_triangulation_config() -> dict:
     """The contents of ``cfgs/triangulation/default.yaml`` as a fresh
     dict, for a machine without PyYAML (a test holds it to the file)."""

@@ -490,3 +490,92 @@ def test_mesh_evaluator_on_the_card_never_takes_the_plain_scan(
     assert md.mesh_min_dist(q[:0], mesh.tris).shape == (0,)
     assert torch.isinf(md.mesh_min_dist(q, mesh.tris[:0])).all()
     assert md.mesh_min_dist.launches == n1
+
+
+def _hybrid_cases():
+    from limap_tpu_torch.testing import hybrid_checks
+    return [case for case, _, _ in hybrid_checks.cases()]
+
+
+@pytest.mark.parametrize("case", _hybrid_cases())
+def test_hybrid_ba_kernels_vs_plain(cuda, case):
+    """Kernels O, P and Q against their plain versions on the seeded
+    cases of testing/hybrid_checks.py (each kind, each option)."""
+    from limap_tpu_torch.parallel.sharded_ba import HybridBAOptions
+    from limap_tpu_torch.testing import hybrid_checks as HC
+    i, (name, prob, okw) = next((i, c) for i, c in enumerate(HC.cases())
+                                if c[0] == case)
+    state, ld, pd, I, C = HC.seeded_problem(seed=10 + i, device="cuda",
+                                            **prob)
+    opts = HybridBAOptions(**okw)
+    for kind, data in (("line", ld), ("point", pd)):
+        res, _ = HC.check_terms(kind, state, data, opts, opts.damping, I, C,
+                                opts.solver != "cg")
+        assert res["ok"], (kind, res)
+    assert HC.check_cost(state, ld, pd, opts)["ok"]
+
+
+def test_hybrid_ba_step_runs_on_the_kernels(cuda):
+    """One BA step on the card goes through O, P and Q, and never through
+    their plain versions."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    from limap_tpu_torch.parallel import (HybridBAOptions,
+                                          make_hybrid_ba_cost,
+                                          make_hybrid_ba_step)
+    from limap_tpu_torch.testing import hybrid_checks as HC
+    state, ld, pd, I, C = HC.seeded_problem(seed=3, device="cuda")
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for solver in ("dense", "cg"):
+        opts = HybridBAOptions(solver=solver, optimize_focal=True)
+        n0 = (O.hybrid_terms.launches, O.hybrid_apply.launches,
+              O.hybrid_cost.launches)
+        c0 = dict(O.hybrid_terms.counts, **O.hybrid_apply.counts)
+        saved = (O.hybrid_terms_plain, O.hybrid_apply_plain,
+                 O.hybrid_cost_plain)
+        O.hybrid_terms_plain = O.hybrid_apply_plain = \
+            O.hybrid_cost_plain = refuse
+        try:
+            new, cost = make_hybrid_ba_step(None, I, C, opts)(state, ld, pd)
+            c1 = make_hybrid_ba_cost(None, opts)(new, ld, pd)
+            c2 = make_hybrid_ba_cost(None, opts)(new, ld, pd)
+        finally:
+            (O.hybrid_terms_plain, O.hybrid_apply_plain,
+             O.hybrid_cost_plain) = saved
+        assert torch.equal(c1, c2) and torch.isfinite(c1)
+        assert O.hybrid_terms.launches == n0[0] + 2
+        assert O.hybrid_apply.launches > n0[1]
+        assert O.hybrid_cost.launches == n0[2] + 2
+        assert all(torch.isfinite(x).all() for x in new)
+        c1 = dict(O.hybrid_terms.counts, **O.hybrid_apply.counts)
+        moved = {k: c1[k] - c0.get(k, 0) for k in c1}
+        for kind in ("line", "point"):
+            assert moved[kind] == 1
+            assert moved[f"{kind}, backsub"] == 1
+            if solver == "dense":
+                assert moved.get(f"{kind}, apply", 0) == 0
+            else:
+                assert moved[f"{kind}, apply"] > 0
+        assert O.hybrid_apply.launches - n0[1] == sum(
+            v for k, v in moved.items() if "," in k)
+
+
+def test_hybrid_ba_kernels_count_only_launches(cuda):
+    """O and P on a kind with no tracks launch nothing and count
+    nothing."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    from limap_tpu_torch.parallel import HybridBAOptions
+    from limap_tpu_torch.testing import hybrid_checks as HC
+    state, ld, pd, I, C = HC.seeded_problem(seed=4, device="cuda")
+    opts = HybridBAOptions()
+    cut = tuple(x[:0] for x in pd)
+    n0 = (O.hybrid_terms.launches, O.hybrid_apply.launches)
+    t = O.hybrid_terms("point", state.point_params[:0], state.pose_params,
+                       state.cam_fxfy, *cut[:3], (cut[3],), cut[4], opts,
+                       torch.tensor(1e-3, device="cuda"), I, C, True)
+    v = torch.ones(t.g.shape[0], device="cuda")
+    assert torch.equal(O.hybrid_apply(t, v), torch.zeros_like(v))
+    assert O.hybrid_apply(t, v, backsub=True).shape == (0, 3)
+    assert (O.hybrid_terms.launches, O.hybrid_apply.launches) == n0

@@ -67,7 +67,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "visualize/vis_bipartite.py", "visualize/vis_lines.py",
                 "visualize/vis_matches.py", "visualize/vis_utils.py",
                 "scripts/eval_tnt.py", "scripts/eval_hypersim.py",
-                "runners/hypersim/loader.py"):
+                "runners/hypersim/loader.py", "parallel/sharded_ba.py",
+                "parallel/hybrid_ba_driver.py", "ops/hybrid_ba.py",
+                "testing/hybrid_checks.py", "runners/hypersim/refine_sfm.py",
+                "runners/localization.py"):
         assert "limap_tpu_torch/" + new in covered, new
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -266,11 +269,13 @@ def test_localization_entry_points_run_on_cpu_when_asked(no_gpu, entry):
 QUEUED_NAMES = {
     "point2d": {"SuperPoint": "14", "log_sinkhorn": "14",
                 "sinkhorn_match": "14"},
+    "parallel": {"TRACK_AXIS": "13", "make_mesh": "13", "replicated": "13",
+                 "track_sharding": "13", "distributed": "13"},
 }
 SUBPACKAGES = ("base", "merging", "optimize", "evaluation", "ops", "util",
                "runners", "fitting", "estimators", "line2d", "pointsfm",
                "undistortion", "vplib", "point2d", "structures", "features",
-               "visualize")
+               "visualize", "parallel")
 
 
 @pytest.mark.parametrize("name", SUBPACKAGES)
@@ -460,3 +465,13 @@ def test_association_entry_points_run_on_cpu_when_asked(no_gpu, entry,
                                                         tmp_path):
     out = _association_calls(tmp_path)[entry]("cpu")
     assert np.isfinite(np.asarray(out)).all()
+
+
+@pytest.mark.parametrize("mesh", [2, 8, [0, 1]])
+def test_hybrid_ba_refuses_a_mesh_of_several_devices(mesh):
+    from limap_tpu_torch.parallel import (make_hybrid_ba_cost,
+                                          make_hybrid_ba_step)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        make_hybrid_ba_step(mesh, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        make_hybrid_ba_cost(mesh, device="cpu")

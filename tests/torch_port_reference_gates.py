@@ -17,6 +17,10 @@ root:
         --colmap-vp [N_VIEWS]
     JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
         --pointline [N_VIEWS]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --refine-sfm [N_VIEWS]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --refine-sfm-lines [N_VIEWS]
 
 Without arguments: the slice from given segments and matches
 (triangulate -> tracks -> filters + remerge -> line BA) on the protocol
@@ -88,6 +92,11 @@ Beside it, the JAX package's line_refinement and pointline_association
 on the same map with the port's VP results replayed (patching the JAX
 runner's get_vp_detector at run time: the J-Linkage hypotheses come from
 another generator).
+
+With ``--refine-sfm-lines``: both packages' line_triangulation on
+chip_smoke phase 14's façade (limap_tpu_torch/testing/refine.py) at
+N_VIEWS (default 16), on refine_sfm's noisy poses and on the GT poses:
+the track counts a package keeps on each.
 """
 
 import json
@@ -441,6 +450,57 @@ def _exhaustive_summary(tracks, cfg, gt, total):
             "exhaustive": metrics.get("exhaustive"), "quality": quality}
 
 
+def refine_sfm(n_views=100):
+    """chip_smoke phase 14's path on the CPU, by the PORT
+    (limap_tpu_torch/testing/refine.py: the façade with 4,000 wall points
+    and their 2D observations, the poses perturbed by refine_sfm's rule,
+    run_refine_sfm through the COLMAP branch).  JAX's dense S_red
+    ([T, S, S, Dc, Dc], about 9 GB here) makes its full-width run
+    impractical; JAX parity is held in tests/test_torch_hybrid_ba*.py."""
+    from limap_tpu_torch.testing import refine
+    with tempfile.TemporaryDirectory() as workdir:
+        scene = refine.write_refine_scene(workdir, n_views)
+        _, secs, summ = refine.run(scene, os.path.join(workdir, "out"),
+                                   "cpu")
+    print(json.dumps(dict(summ, n_views=n_views, seconds=secs)))
+
+
+def refine_sfm_lines(n_views=16):
+    """Both packages' line_triangulation on the refine_sfm façade
+    (testing/refine.py) at ``n_views``, on the noisy poses (as
+    run_refine_sfm calls it) and on the GT poses: the track counts.  The
+    images are written as PNG for the JAX package's reader."""
+    import cv2
+    from limap_tpu.runners import line_triangulation as jax_triangulation
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.runners.hypersim.refine_sfm import \
+        read_colmap_inputs
+    from limap_tpu_torch.testing import refine
+    out = {"n_views": n_views}
+    with tempfile.TemporaryDirectory() as workdir:
+        scene = refine.write_refine_scene(workdir, n_views)
+        n_nbrs = min(refine.pipeline.N_NEIGHBORS, n_views - 1)
+        for poses, model in (("noisy", "model"), ("gt", "model_gt")):
+            cols, _ = read_colmap_inputs(scene[model], scene["image_dir"])
+            jcols = cols.as_dict()
+            for i, rec in jcols["images"].items():
+                png = os.path.join(workdir, f"{poses}_{i}.png")
+                cv2.imwrite(png, np.load(rec["image_name"]))
+                rec["image_name"] = png
+            counts = {}
+            for name, fn, arg in (
+                    ("jax", jax_triangulation,
+                     ImageCollection.from_dict(jcols)),
+                    ("port", lambda c, x: line_triangulation(c, x,
+                                                             device="cpu"),
+                     cols)):
+                cfg = refine.refine_config(
+                    os.path.join(workdir, f"{poses}_{name}"), n_nbrs)
+                counts[name] = len(fn(cfg, arg))
+            out[poses] = counts
+    print(json.dumps(out))
+
+
 def main(n_views=100, n_lines=1500, n_neighbors=20):
     t0 = time.perf_counter()
     imagecols, segs, nbrs = bench.build_scene(n_views, n_lines, n_neighbors)
@@ -484,5 +544,9 @@ if __name__ == "__main__":
         colmap_vp(*map(int, sys.argv[2:3]))
     elif sys.argv[1:2] == ["--pointline"]:
         pointline(*map(int, sys.argv[2:3]))
+    elif sys.argv[1:2] == ["--refine-sfm"]:
+        refine_sfm(*map(int, sys.argv[2:3]))
+    elif sys.argv[1:2] == ["--refine-sfm-lines"]:
+        refine_sfm_lines(*map(int, sys.argv[2:3]))
     else:
         main()
