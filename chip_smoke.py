@@ -114,6 +114,28 @@ Phases, in order; any failure exits non-zero:
      on a reduced façade (8 views) on the CPU and then on the card (the
      CPU's segments and matches) and holds the line map, the costs, the
      poses, the points and the lines card to CPU.
+ 15. the learned front end at full width, from random weights that the
+     script writes in the published layouts (superpoint_v1.pth,
+     superglue_outdoor.pth, sold2_wireframe.tar) and loads through
+     weight_path: SuperPoint and SuperGlue on two of phase 7's views
+     (2,048 keypoints each, 18 GNN layers, 100 Sinkhorn iterations on
+     kernel R, descriptors on kernel S), card against CPU; the
+     from-pixels runner with the weight-free sinkhorn_endpoints matcher
+     (one launch of R a pair) on the first 16 views of phase 7's scene,
+     with quality gates from the JAX package's run; right after phase 8,
+     the localization runner with superglue_endpoints on phase 8's map
+     and queries (pose errors logged; descriptors and matches card
+     against CPU); SOLD2 detect, describe and Wunsch match on two views
+     at 600 x 800 (300 junctions: kernels T and U at full size, line
+     descriptors on S), then SOLD2's detector on heatmaps rendered from
+     the GT lines' projections into 4 views, its recall gated against
+     the JAX package's; then R, S, T and U held to their plain versions
+     on those inputs and timed in turns.  Phase 15a, after phase 6, holds
+     R, S, T and U to their plain versions on seeded inputs (ragged
+     Sinkhorn problems, points at the border, ties at detect_thresh,
+     integer junctions) and SuperPoint (120 x 160), SuperGlue (64 x 80
+     keypoints) and SOLD2 (128 x 128: forward, junctions, T and U on the
+     CPU's junctions, line descriptors, Wunsch matches) card to CPU.
 Phase 2 also holds kernels O, P and Q to their plain versions on seeded
 inputs (lines and points, optimize_focal on and off, each constancy flag,
 ragged slots of weight 0, one track, one support).
@@ -2946,6 +2968,801 @@ def localization_cli(scene, tracks, direct, workdir, card):
           ("localization CLI poses against the direct call", worst))
 
 
+# ---------------------------------------------------------------- phase 15
+R_SOURCE = "log_sinkhorn.cu"
+R_REPLACES = "limap_tpu/point2d/matching.py:19"
+S_SOURCE = "sample_descriptors.cu"
+S_REPLACES = ("limap_tpu/point2d/superpoint.py:90; "
+              "limap_tpu/line2d/sold2/sold2.py:182")
+TU_SOURCE = "sold2_lines.cu"
+T_REPLACES = "limap_tpu/line2d/sold2/detection.py:155 (with :278, :241)"
+U_REPLACES = "limap_tpu/line2d/sold2/detection.py:301"
+# The JAX package's CPU run of the Sinkhorn runner on the first 16 views of
+# phase 7's scene (tests/torch_port_reference_gates.py --sinkhorn 16), and
+# of SOLD2's detector on the GT heatmaps of its first 4 views (--sold2-gt
+# 4): chip_smoke phase 15's quality floors.
+SINKHORN_VIEWS = 16
+REFERENCE_SINKHORN = {
+    "n_tracks_all": 234, "n_matches": 27554, "n_tracks": 199,
+    "recall_0.05": 134.72836224550758, "precision_0.05": 98.99497487437185,
+    "gt_coverage_0.05": 50.26047503722941}
+# the from-pixels gates (the port's CPU run of this path lands within
+# them: 236 tracks, 27,559 matches, 200 of >= 4 images, recall 134.19,
+# precision 99.0, coverage 50.06)
+SINKHORN_GATES = tuple(g for g in FROM_PIXELS_GATES if g[0] != "avg_segs")
+SOLD2_GT_VIEWS = 4
+REFERENCE_SOLD2_GT_RECALL = [0.6881720430107527, 0.6923076923076923,
+                             0.6956521739130435, 0.6923076923076923]
+# The port's detector repeats the reference's float64 arithmetic, so its
+# recall on a view may fall below the reference's only by a segment or
+# two whose suppression test sits within rounding of its tolerance.
+SOLD2_GT_SLACK = 0.02
+# Card against CPU on the learned front end.  The networks' fp32
+# convolutions and products round differently on the two devices (TF32
+# off): maps within LEARNED_MAP_RTOL of their largest value; a keypoint on
+# one device only must be a near tie (its score within KP_TIE_EPS of a
+# neighbour's in the NMS window, of the threshold or of the top-k cut); a
+# match on one device only must be a near tie of the optimal transport
+# (its row's two best entries within OT_TIE_EPS in the log domain, or its
+# probability within OT_TIE_EPS of the threshold).
+LEARNED_MAP_RTOL = 1e-4
+KP_TIE_EPS = 1e-6
+OT_TIE_EPS = 1e-3
+LEARNED_DESC_TOL = 1e-4
+
+
+def learned_kernels():
+    from limap_tpu_torch.ops import log_sinkhorn, sample_descriptors
+    from limap_tpu_torch.ops import sold2_lines
+    return {"log_sinkhorn": log_sinkhorn.log_sinkhorn,
+            "sample_descriptors": sample_descriptors.sample_descriptors,
+            "sold2_candidates": sold2_lines.sold2_candidates,
+            "sold2_refine_junctions": sold2_lines.sold2_refine_junctions}
+
+
+def reset_learned_launches():
+    for k in learned_kernels().values():
+        k.launches = 0
+
+
+def learned_launches():
+    return {name: k.launches for name, k in learned_kernels().items()}
+
+
+def keypoint_differences(a, b, heat_a, heat_b, threshold, radius, cut):
+    """(keypoints of ``a`` [N, 2] missing from ``b``, of them not a near
+    tie): a tie where, on either device's score map, the keypoint's score
+    is within KP_TIE_EPS of another in its NMS window, of ``threshold`` or
+    of the top-k ``cut``."""
+    sb = set(map(tuple, np.asarray(b, np.int64).tolist()))
+    missing = [p for p in np.asarray(a, np.int64).tolist()
+               if tuple(p) not in sb]
+    bad = []
+    for x, y in missing:
+        tie = False
+        for heat in (heat_a, heat_b):
+            v = heat[y, x]
+            win = heat[max(y - radius, 0):y + radius + 1,
+                       max(x - radius, 0):x + radius + 1].copy()
+            win[min(y, radius), min(x, radius)] = -np.inf
+            tie |= (win.max() >= v - KP_TIE_EPS
+                    or abs(v - threshold) <= KP_TIE_EPS
+                    or abs(v - cut) <= KP_TIE_EPS)
+        if not tie:
+            bad.append((x, y))
+    return missing, bad
+
+
+def ot_match_differences(Za, Zb, ma, mb, threshold):
+    """Rows whose match differs between two OT results (m0 of
+    superglue.get_matches), and of them those that are not a near tie in
+    either assignment."""
+    rows = np.nonzero(ma != mb)[0]
+    bad = []
+    for i in rows:
+        tie = False
+        for Z in (Za, Zb):
+            r = np.sort(Z[i, :-1])
+            tie |= len(r) > 1 and r[-1] - r[-2] <= OT_TIE_EPS
+            tie |= abs(np.exp(r[-1]) - threshold) <= OT_TIE_EPS
+            col = [m for m in (ma[i], mb[i]) if m >= 0]
+            tie |= any(abs(Z[i, c] - r[-1]) <= OT_TIE_EPS for c in col)
+            tie |= any(np.sort(Z[:-1, c])[-1] - Z[i, c] <= OT_TIE_EPS
+                       for c in col)
+        if not tie:
+            bad.append(int(i))
+    return rows, bad
+
+
+def hold_superglue(what, sg_card, sg_cpu, data, threshold=None):
+    """SuperGlue card against CPU on one pair: raw scores, the OT and the
+    matches at ``threshold`` (the model's by default).  Returns (raw, Z)
+    on the card."""
+    from limap_tpu_torch.point2d.superglue import get_matches
+    if threshold is None:
+        threshold = sg_card.match_threshold
+    raw_g = sg_card.scores(data)
+    raw_c = sg_cpu.scores(data)
+    err = float((raw_g.cpu() - raw_c).abs().max())
+    scale = float(raw_c.abs().max())
+    Zg = sg_card.solve_optimal_transport(raw_g)
+    Zc = sg_cpu.solve_optimal_transport(raw_c)
+    mg, mc = get_matches(Zg, threshold)[0], get_matches(Zc, threshold)[0]
+    rows, bad = ot_match_differences(Zg.cpu().numpy(), Zc.cpu().numpy(),
+                                     mg, mc, threshold)
+    log(f"[learned card-vs-cpu] {what}: {raw_g.shape[0]} x {raw_g.shape[1]}"
+        f" keypoints, raw scores max abs err {err:.3e} (of {scale:.3e}); "
+        f"OT max abs err {float((Zg.cpu() - Zc).abs().max()):.3e}; "
+        f"{int((mg >= 0).sum())} and {int((mc >= 0).sum())} matches, "
+        f"{len(rows)} rows differ, {len(bad)} not a near tie")
+    zerr = float((Zg.cpu() - Zc).abs().max())
+    check(err <= LEARNED_MAP_RTOL * scale, (what, "raw scores", err, scale))
+    # the OT moves by no more than its scores and its own rounding
+    check(zerr <= 2 * LEARNED_MAP_RTOL * scale + 1e-4, (what, "OT", zerr))
+    check(not bad, (what, "matches differ", bad[:10]))
+    return raw_g, Zg
+
+
+def superpoint_card_vs_cpu(what, sp_card, sp_cpu, img):
+    """SuperPoint card against CPU on one image: the score map, the
+    descriptor grid, the keypoints as sets (near ties excused) and the
+    common keypoints' descriptors."""
+    fg, fc = sp_card(img), sp_cpu(img)
+    hg, dg = (t.cpu().numpy() for t in sp_card._forward(img))
+    hc, dc = (t.cpu().numpy() for t in sp_cpu._forward(img))
+    herr = float(np.abs(hg - hc).max())
+    derr = float(np.abs(dg - dc).max())
+    cut = float(fc["scores"][-1]) if len(fc["scores"]) \
+        >= sp_cpu.max_keypoints else -1.0
+    miss_g, bad_g = keypoint_differences(fc["keypoints"], fg["keypoints"],
+                                         hc, hg, sp_cpu.keypoint_threshold,
+                                         sp_cpu.nms_radius, cut)
+    miss_c, bad_c = keypoint_differences(fg["keypoints"], fc["keypoints"],
+                                         hg, hc, sp_cpu.keypoint_threshold,
+                                         sp_cpu.nms_radius, cut)
+    common = {tuple(p): i for i, p in enumerate(
+        np.asarray(fc["keypoints"], np.int64).tolist())}
+    pairs = [(i, common[tuple(p)]) for i, p in enumerate(
+        np.asarray(fg["keypoints"], np.int64).tolist()) if tuple(p) in common]
+    kerr = float(np.abs(fg["descriptors"][[i for i, _ in pairs]]
+                        - fc["descriptors"][[j for _, j in pairs]]).max()) \
+        if pairs else 0.0
+    log(f"[learned card-vs-cpu] {what}: score map max abs err {herr:.3e}, "
+        f"descriptor grid {derr:.3e}; {len(fg['keypoints'])} and "
+        f"{len(fc['keypoints'])} keypoints, {len(miss_g)} missing on the "
+        f"card and {len(miss_c)} on the CPU ({len(bad_g) + len(bad_c)} not "
+        f"a near tie); common keypoints' descriptors {kerr:.3e}")
+    check(herr <= LEARNED_MAP_RTOL * float(np.abs(hc).max()),
+          (what, "score map", herr))
+    check(derr <= LEARNED_DESC_TOL, (what, "descriptor grid", derr))
+    check(not bad_g and not bad_c, (what, "keypoints", bad_g[:5], bad_c[:5]))
+    check(kerr <= LEARNED_DESC_TOL, (what, "keypoint descriptors", kerr))
+    return fg
+
+
+def shuffled_pair(fa, fb, n, n_copy, n_other, seed=0):
+    """Two keypoint sets that SuperGlue can match on random weights:
+    the first ``n`` of ``fa`` with random unit descriptors, against a
+    shuffled copy of ``n_copy`` of them and the first ``n_other`` of
+    ``fb`` with descriptors of their own (random SuperPoint descriptors
+    are all alike, and a pair of them would match nothing).  Returns
+    (f0, f1, expected m0: a row's copy in f1, or -1)."""
+    rng = np.random.default_rng(seed)
+    desc = rng.normal(size=(n + n_other, 256))
+    desc = (desc / np.linalg.norm(desc, axis=1, keepdims=True)).astype(
+        np.float32)
+    perm = rng.permutation(n)[:n_copy]
+    f0 = {k: v[:n] for k, v in fa.items()}
+    f0["descriptors"] = desc[:n]
+    f1 = {k: np.concatenate([v[:n][perm], fb[k][:n_other]])
+          for k, v in fa.items()}
+    f1["descriptors"] = np.concatenate([desc[:n][perm], desc[n:]])
+    expected = np.full(n, -1, np.int64)
+    expected[perm] = np.arange(n_copy)
+    return f0, f1, expected
+
+
+def shuffled_lines(info, seed=0):
+    """An endpoint descinfo with random unit descriptors, and a copy of it
+    with its lines in a shuffled order (each line's two endpoints kept
+    together); returns (descinfo, copy, expected: a line's copy)."""
+    rng = np.random.default_rng(seed)
+    n = len(info["lines_score"])
+    desc = rng.normal(size=(256, 2 * n))
+    desc = (desc / np.linalg.norm(desc, axis=0, keepdims=True)).astype(
+        np.float32)
+    perm = rng.permutation(n)
+    cols = (2 * perm[:, None] + np.arange(2)).reshape(-1)
+    lines = np.asarray(info["lines"], np.float32)
+    a = dict(info, endpoints_desc=desc)
+    b = dict(info, lines=lines[cols], endpoints_desc=desc[:, cols],
+             lines_score=np.asarray(info["lines_score"])[perm])
+    expected = np.empty(n, np.int64)
+    expected[perm] = np.arange(n)
+    return a, b, expected
+
+
+def check_recovered(what, m0, expected, floor):
+    """At least ``floor`` rows matched to their own copy, no row with a
+    copy matched elsewhere and no copy taken by another row (a row
+    without a copy may match one of the other view's keypoints)."""
+    copies = int((expected >= 0).sum())
+    got = m0 >= 0
+    right = int((got & (m0 == expected)).sum())
+    wrong = int((got & (m0 != expected)
+                 & ((expected >= 0) | (m0 < copies))).sum())
+    log(f"[learned card-vs-cpu] {what}: {int(got.sum())} matches, {right} "
+        f"of {copies} copies recovered, {wrong} wrong")
+    check(right >= floor and wrong == 0,
+          (what, "the shuffled copy not recovered", right, wrong))
+
+
+def pair_data(f0, f1, shape):
+    return {"image_shape0": shape, "image_shape1": shape,
+            "keypoints0": f0["keypoints"], "keypoints1": f1["keypoints"],
+            "scores0": f0["scores"], "scores1": f1["scores"],
+            "descriptors0": f0["descriptors"].T,
+            "descriptors1": f1["descriptors"].T}
+
+
+def sold2_card_vs_cpu(imgs):
+    """Phase 15a's SOLD2 part at 128 x 128: the forward pass card against
+    CPU, the junctions, then the detector of both devices on the CPU's
+    junctions and heatmap (T's flags; U on the first REFINE_SUBSET
+    segments, bit for bit), the line descriptors and Wunsch matching."""
+    from limap_tpu_torch.line2d.sold2 import detection as det_mod
+    from limap_tpu_torch.line2d.sold2.sold2 import SOLD2Engine
+    from limap_tpu_torch.ops import sold2_lines as TU
+    from limap_tpu_torch.testing import learned_checks
+    eng_g = SOLD2Engine(seed=0, device="cuda")
+    eng_c = SOLD2Engine(seed=0, device="cpu")
+    descinfos = {}
+    for k, img in imgs.items():
+        og, _ = eng_g.forward(img)
+        oc, _ = eng_c.forward(img)
+        errs = {m: float(np.abs(og[m] - oc[m]).max() / np.abs(oc[m]).max())
+                for m in og}
+        jg = det_mod.junctions_from_predictions(og["junctions"])
+        jc = det_mod.junctions_from_predictions(oc["junctions"])
+        same_j = np.array_equal(jg, jc)
+        check(max(errs.values()) <= LEARNED_MAP_RTOL,
+              ("SOLD2 forward card vs CPU", errs))
+        heat = eng_c.line_detector.refined_heatmap(
+            det_mod.heatmap_from_logits(oc["heatmap"]))
+        si, ei = np.triu_indices(len(jc), 1)
+        prm = eng_c.line_detector.candidate_params()
+        args = (torch.as_tensor(jc), torch.as_tensor(si.astype(np.int32)),
+                torch.as_tensor(ei.astype(np.int32)))
+        tc = TU.sold2_candidates(torch.as_tensor(heat), *args, 64, prm)
+        tg = TU.sold2_candidates(torch.as_tensor(heat, device="cuda"),
+                                 *(a.cuda() for a in args), 64, prm)
+        res = learned_checks.compare_candidates(tg, tc, prm.detect_thresh)
+        check(res["ok"], ("T card vs CPU", res))
+        keep = tc[0].numpy()
+        segs = np.stack([jc[si[keep]], jc[ei[keep]]], 1)
+        sub = torch.as_tensor(segs[:REFINE_SUBSET])
+        ug = TU.sold2_refine_junctions(sub.cuda(), torch.as_tensor(
+            heat, device="cuda")).cpu()
+        uc = TU.sold2_refine_junctions(sub, torch.as_tensor(heat))
+        check(torch.equal(ug, uc), ("U card vs CPU", float(
+            (ug - uc).abs().max())))
+        full = eng_g.line_detector.detect(jc, det_mod.heatmap_from_logits(
+            oc["heatmap"]))
+        dg = eng_g.matcher.compute_descriptors(full, og["descriptors"])
+        dc = eng_c.matcher.compute_descriptors(full, oc["descriptors"])
+        derr = float(np.abs(dg[0] - dc[0]).max()) if len(full) else 0.0
+        check(derr <= LEARNED_DESC_TOL, ("SOLD2 line descriptors", derr))
+        descinfos[k] = (dc, full)
+        log(f"[learned card-vs-cpu] SOLD2 view {k} at {img.shape}: forward "
+            f"relative errors {json.dumps(errs)}; junctions {len(jg)} and "
+            f"{len(jc)} (equal {same_j}); T on the CPU's {len(si)} "
+            f"candidates {json.dumps(res)}; U on {len(sub)} of "
+            f"{len(segs)} segments bit-equal; the card's detector on the "
+            f"CPU's junctions: {len(full)} segments; line descriptors "
+            f"{derr:.3e}")
+    (d0, s0), (d1, s1) = descinfos[0], descinfos[1]
+    if len(s0) and len(s1):
+        mg = eng_g.matcher.compute_matches(d0, d1)
+        mc = eng_c.matcher.compute_matches(d0, d1)
+        agree = float((mg == mc).mean())
+        log(f"[learned card-vs-cpu] Wunsch matching {len(s0)} x {len(s1)} "
+            f"lines: {int((mg >= 0).sum())} and {int((mc >= 0).sum())} "
+            f"matches, equal on a share {agree:.4f}")
+        check(agree >= 1.0 - MATCH_DIFF_SHARE - 1e-9,
+              ("Wunsch matches card vs CPU", agree))
+
+
+REFINE_SUBSET = 32
+# Phase 15's shuffled copy: 1,792 of view 0's 2,048 keypoints.  On the
+# random checkpoint the OT spreads a row's mass over the 2,048 columns, so
+# that hardly a row's best probability reaches the published 0.2:
+# get_matches decides at SHUFFLED_THRESHOLD, which keeps about two thirds
+# of the copies (hold_superglue logs both devices' counts), and the check
+# asks for SHUFFLED_FLOOR of them, each its own copy.
+SHUFFLED_COPIES = 1792
+SHUFFLED_THRESHOLD = 0.01
+SHUFFLED_FLOOR = 1000
+
+
+def learned_card_vs_cpu():
+    """Phase 15a: R, S, T and U against their plain versions on seeded
+    inputs; SuperPoint at 120 x 160, SuperGlue on 64 x 80 keypoints and
+    SOLD2 at 128 x 128 on the card against the CPU."""
+    from limap_tpu_torch.point2d.superglue import SuperGlue, get_matches
+    from limap_tpu_torch.point2d.superpoint import SuperPoint
+    from limap_tpu_torch.testing import learned, learned_checks, pipeline
+    t0 = time.perf_counter()
+    n0 = learned_launches()
+    for name, case, res in learned_checks.check_all():
+        log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
+        check(res["ok"], (name, "vs plain", case, res))
+    n1 = learned_launches()
+    check(all(n1[k] > n0[k] for k in n0), ("R, S, T, U launches counted",
+                                          n0, n1))
+    scene = pipeline.build_scene(n_views=2, hw=(120, 160))
+    sp_g, sp_c = SuperPoint(device="cuda"), SuperPoint(device="cpu")
+    feats = [superpoint_card_vs_cpu(f"SuperPoint view {k} at 120 x 160",
+                                    sp_g, sp_c, scene[1][k])
+             for k in (0, 1)]
+    sd = learned.superglue_random_state_dict(0)
+    sg_g, sg_c = SuperGlue(device="cuda"), SuperGlue(device="cpu")
+    from limap_tpu_torch.point2d.superglue import params_from_state_dict
+    sg_g.params = params_from_state_dict(sd, "cuda")
+    sg_c.params = params_from_state_dict(sd, "cpu")
+    # the first view's 64 strongest keypoints against a shuffled copy of
+    # them and 16 of the second view's
+    f0, f1, expected = shuffled_pair(feats[0], feats[1], 64, 64, 16)
+    check(len(f0["keypoints"]) == 64 and len(f1["keypoints"]) == 80,
+          ("SuperGlue keypoints", len(f0["keypoints"]),
+           len(f1["keypoints"])))
+    _, Z = hold_superglue("SuperGlue 64 x 80", sg_g, sg_c,
+                          pair_data(f0, f1, (120, 160)))
+    check_recovered("SuperGlue 64 x 80", get_matches(Z)[0], expected, 10)
+    scene = pipeline.build_scene(n_views=2, hw=(128, 128))
+    sold2_card_vs_cpu({k: scene[1][k] for k in (0, 1)})
+    log(f"[learned card-vs-cpu] phase 15a took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def learned_points_full_width(scene, ckpt, card):
+    """Phase 15's first path: SuperPoint and SuperGlue from the random
+    checkpoints on two of phase 7's views at 600 x 800 (at most 2,048
+    keypoints, 18 GNN layers, 100 Sinkhorn iterations), card against CPU.
+    Returns the launches and the recorded inputs of R and S."""
+    from limap_tpu_torch.point2d import superglue as sgm
+    from limap_tpu_torch.point2d import superpoint as spm
+    from limap_tpu_torch.point2d.superpoint import SuperPoint
+    imgs = scene[1]
+    sp_g = SuperPoint(weight_path=ckpt["superpoint"], device="cuda")
+    sg_g = sgm.SuperGlue(weight_path=ckpt["superglue"], device="cuda")
+    rec_s = Recorder(spm, "_sample_descriptors", lambda g, p, *a, **k:
+                     p.shape[0])
+    sp_g(imgs[0])                       # warm-up of the libraries
+    reset_learned_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        f0, f1 = sp_g(imgs[0]), sp_g(imgs[1])
+        torch.cuda.synchronize()
+        t_sp = time.perf_counter() - t0
+        data = pair_data(f0, f1, imgs[0].shape)
+        out = sg_g(data)
+        torch.cuda.synchronize()
+    finally:
+        rec_s.restore()
+    wall = time.perf_counter() - t0
+    launches = learned_launches()
+    log(f"[learned] SuperPoint + SuperGlue on views 0 and 1 at "
+        f"{imgs[0].shape}: {len(f0['keypoints'])} and "
+        f"{len(f1['keypoints'])} keypoints, "
+        f"{int((out['matches0'] >= 0).sum())} matches; {wall:.3f} s "
+        f"({t_sp:.3f} s the two SuperPoint passes) on {card}; launches "
+        f"{json.dumps(launches)}")
+    check(len(f0["keypoints"]) == len(f1["keypoints"]) == 2048,
+          ("SuperPoint keypoints at full width", len(f0["keypoints"])))
+    check(launches["log_sinkhorn"] > 0 and
+          launches["sample_descriptors"] > 0,
+          ("the SuperPoint + SuperGlue path did not launch R and S",
+           launches))
+    sp_c = SuperPoint(weight_path=ckpt["superpoint"], device="cpu")
+    superpoint_card_vs_cpu("SuperPoint view 0 at 600 x 800", sp_g, sp_c,
+                           imgs[0])
+    sg_c = sgm.SuperGlue(weight_path=ckpt["superglue"], device="cpu")
+    raw, _ = hold_superglue("SuperGlue 2048 x 2048", sg_g, sg_c, data)
+    # the random weights match nothing on the two views, so 15a's shuffled
+    # copy at full width: view 0's 2,048 keypoints against 1,792 of them
+    # shuffled and 256 of view 1's, where get_matches decides matches
+    s0, s1, expected = shuffled_pair(f0, f1, 2048, SHUFFLED_COPIES,
+                                     2048 - SHUFFLED_COPIES)
+    _, Zs = hold_superglue("SuperGlue 2048 x 2048 on a shuffled copy", sg_g,
+                           sg_c, pair_data(s0, s1, imgs[0].shape),
+                           SHUFFLED_THRESHOLD)
+    check_recovered("SuperGlue 2048 x 2048 on a shuffled copy",
+                    sgm.get_matches(Zs, SHUFFLED_THRESHOLD)[0], expected,
+                    SHUFFLED_FLOOR)
+    bin_score = float(sg_g.params["bin_score"])
+    return [("log_sinkhorn", "superglue", (raw, bin_score,
+                                           sg_g.sinkhorn_iterations),
+             launches["log_sinkhorn"]),
+            ("sample_descriptors", "superpoint", rec_s.args,
+             launches["sample_descriptors"])]
+
+
+def sinkhorn_runner_full_width(workdir, card):
+    """Phase 15's second path: the from-pixels runner with tpu_lsd,
+    patch_endpoints and the weight-free sinkhorn_endpoints matcher (every
+    pair through kernel R) on the first SINKHORN_VIEWS views of phase 7's
+    scene, gated on quality against the JAX package's run."""
+    from limap_tpu_torch.point2d import matching
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import learned, pipeline
+    from limap_tpu_torch.util import io as limapio
+    imagecols, _, nbrs, gt = pipeline.build_scene(
+        SINKHORN_VIEWS, image_dir=os.path.join(workdir, "images"))
+    cfg = learned.sinkhorn_runner_config(os.path.join(workdir, "out"),
+                                         n_neighbors=len(nbrs[0]))
+    rec = Recorder(matching, "_log_sinkhorn",
+                   lambda s, *a, **k: s.numel())
+    reset_learned_launches()
+    t0 = time.perf_counter()
+    try:
+        tracks = line_triangulation(cfg, imagecols, nbrs, device="cuda")
+    finally:
+        rec.restore()
+    wall = time.perf_counter() - t0
+    launches = learned_launches()
+    out = cfg["dir_save"]
+    with open(os.path.join(out, "metrics.json")) as f:
+        stages = json.load(f)["stages_s"]
+    segs = limapio.read_all_segments_from_folder(os.path.join(
+        out, "line_detections", "tpu_lsd", "segments"))
+    matches_dir = os.path.join(out, "line_matchings", "tpu_lsd",
+                               "feats_patch_endpoints",
+                               "matches_sinkhorn_endpoints")
+    n_matches = sum(len(m) for i in nbrs for m in np.load(
+        os.path.join(matches_dir, f"matches_{i}.npy"),
+        allow_pickle=True).item().values())
+    quality = pipeline.quality_eval(tracks, gt)
+    measured = dict(quality, n_tracks_all=len(tracks), n_matches=n_matches,
+                    avg_segs=float(np.mean([len(v) for v in segs.values()])))
+    log(f"[sinkhorn runner] {SINKHORN_VIEWS} views, {wall:.3f} s; stage "
+        f"seconds {json.dumps(stages)} on {card}; launches "
+        f"{json.dumps(launches)}; {n_matches} matches, {len(tracks)} "
+        f"tracks; quality_eval {json.dumps(quality)}")
+    n_pairs = sum(len(v) for v in nbrs.values())
+    check(launches["log_sinkhorn"] == n_pairs,
+          ("one Sinkhorn launch a pair", launches, n_pairs))
+    check(np.isfinite([x.line for x in tracks]).all(),
+          "non-finite lines from the Sinkhorn runner")
+    hold_to_gates("sinkhorn runner", measured, REFERENCE_SINKHORN,
+                  SINKHORN_GATES)
+    return [("log_sinkhorn", "sinkhorn_runner", rec.args,
+             launches["log_sinkhorn"])]
+
+
+def learned_localization(scene, tracks, q, ckpt, workdir, card):
+    """Phase 15's third path: the localization runner with the
+    superglue_endpoints matcher (SuperPoint endpoints, SuperGlue, OT on
+    the line scores) on phase 8's map and queries; the pose errors
+    logged; descinfos, line scores, OT and matches of the first queries'
+    pairs and of a query against a shuffled copy of its lines card
+    against CPU."""
+    from limap_tpu_torch.line2d import get_extractor, get_matcher
+    from limap_tpu_torch.line2d.endpoints import _endpoint_line_scores
+    from limap_tpu_torch.point2d.superglue import get_matches
+    from limap_tpu_torch.testing import localization
+    from limap_tpu_torch.util.config import default_localization_config
+    from limap_tpu_torch.util.profiler import StageProfiler
+    runner = importlib.import_module(
+        "limap_tpu_torch.runners.hybrid_localization")
+    cfg = default_localization_config()
+    cfg["output_dir"] = os.path.join(workdir, "localization_superglue")
+    cfg["weight_path"] = ckpt["superpoint"]
+    cfg.setdefault("localization", {}).update({
+        "2d_matcher": "superglue_endpoints",
+        "matcher_options": {"superglue_weight_path": ckpt["superglue"],
+                            "topk": 0}})
+    reset_learned_launches()
+    prof, stats = StageProfiler(device="cuda"), {}
+    t0 = time.perf_counter()
+    poses = runner.hybrid_localization(
+        cfg, scene[0], q["imagecols"], q["points"], tracks, q["retrieval"],
+        device="cuda", prof=prof, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = learned_launches()
+    errors = localization.pose_errors(poses, q["gt"])
+    log(f"[learned localize] superglue_endpoints: {len(poses)} queries in "
+        f"{wall:.3f} s; stage seconds {json.dumps(prof.times)} on {card}; "
+        f"launches {json.dumps(launches)}; line matches "
+        f"{[stats[i]['n_line_matches'] for i in sorted(stats)]}; "
+        f"{json.dumps(localization.summarize(errors))}")
+    check(launches["log_sinkhorn"] > 0 and launches["sample_descriptors"] > 0,
+          ("the superglue_endpoints localization did not launch R and S",
+           launches))
+    check(len(poses) == len(q["gt"]), ("queries localized", len(poses)))
+    # card against CPU on the first queries' first retrieved views
+    ex = {d: get_extractor({"method": "superpoint_endpoints"},
+                           weight_path=ckpt["superpoint"], device=d)
+          for d in ("cuda", "cpu")}
+    mt = {d: get_matcher({"method": "superglue_endpoints", "topk": 0,
+                          "superglue_weight_path": ckpt["superglue"]},
+                         ex[d], device=d) for d in ("cuda", "cpu")}
+    seg_cfg = runner.runners.setup(dict(cfg, output_dir=os.path.join(
+        workdir, "localization_superglue_check")))
+    views = {}
+    for q_id in sorted(q["retrieval"])[:2]:
+        for db_id in [q_id] + list(q["retrieval"][q_id][:2]):
+            views[db_id] = q["imagecols"] if db_id == q_id else scene[0]
+    segs = {}
+    for ic in (scene[0], q["imagecols"]):
+        sub_ids = [i for i in views if i in ic.get_img_ids()]
+        got, _ = runner.runners.compute_2d_segs(
+            seg_cfg, ic.subset_by_image_ids(sub_ids), compute_descinfo=False,
+            device="cuda")
+        segs.update(got)
+    desc = {d: {i: ex[d].extract(views[i].camview(i), segs[i])
+                for i in views} for d in ("cuda", "cpu")}
+    derr = max(float(np.abs(desc["cuda"][i]["endpoints_desc"]
+                            - desc["cpu"][i]["endpoints_desc"]).max())
+               for i in views)
+    check(derr <= LEARNED_DESC_TOL, ("endpoint descriptors card vs CPU",
+                                     derr))
+
+    def line_ot(d1, d2, d):
+        data = {"image_shape0": d1["image_shape"],
+                "image_shape1": d2["image_shape"],
+                "keypoints0": np.asarray(d1["lines"], np.float32),
+                "keypoints1": np.asarray(d2["lines"], np.float32),
+                "scores0": np.repeat(d1["lines_score"], 2),
+                "scores1": np.repeat(d2["lines_score"], 2),
+                "descriptors0": d1["endpoints_desc"],
+                "descriptors1": d2["endpoints_desc"]}
+        n1 = d1["endpoints_desc"].shape[1] // 2
+        n2 = d2["endpoints_desc"].shape[1] // 2
+        ls = _endpoint_line_scores(mt[d].sg.scores(data), n1, n2)
+        return ls.cpu().numpy(), \
+            mt[d].sg.solve_optimal_transport(ls).cpu().numpy()
+
+    # the same (card) descinfos through both devices' matcher: four
+    # query-database pairs, on which the random weights match nothing,
+    # and the first query against a shuffled copy of its lines with
+    # random unit descriptors, where the OT decides matches
+    first = sorted(q["retrieval"])[0]
+    shuf0, shuf1, expected = shuffled_lines(desc["cuda"][first])
+    pairs = [(f"{q_id}-{db_id}", desc["cuda"][q_id], desc["cuda"][db_id])
+             for q_id in sorted(q["retrieval"])[:2]
+             for db_id in q["retrieval"][q_id][:2]]
+    pairs.append((f"{first} and its shuffled copy", shuf0, shuf1))
+    thr = mt["cpu"].sg.match_threshold
+    n_rows = n_bad = 0
+    for what, d1, d2 in pairs:
+        (ls_g, Z_g), (ls_c, Z_c) = (line_ot(d1, d2, d)
+                                    for d in ("cuda", "cpu"))
+        m_g, m_c = get_matches(Z_g, thr)[0], get_matches(Z_c, thr)[0]
+        scale = float(np.abs(ls_c).max())
+        lerr = float(np.abs(ls_g - ls_c).max())
+        zerr = float(np.abs(Z_g - Z_c).max())
+        rows, bad = ot_match_differences(Z_g, Z_c, m_g, m_c, thr)
+        log(f"[learned localize] line OT card vs CPU, pair {what}: "
+            f"{ls_c.shape[0]} x {ls_c.shape[1]} lines, line scores max abs "
+            f"err {lerr:.3e} (of {scale:.3e}), OT {zerr:.3e}; "
+            f"{int((m_g >= 0).sum())} and {int((m_c >= 0).sum())} matches, "
+            f"{len(rows)} rows differ, {len(bad)} not a near tie")
+        check(lerr <= LEARNED_MAP_RTOL * scale, (what, "line scores", lerr))
+        check(zerr <= 2 * LEARNED_MAP_RTOL * scale + 1e-4,
+              (what, "line OT", zerr))
+        n_rows += len(rows)
+        n_bad += len(bad)
+    log(f"[learned localize] card vs CPU on {len(views)} images' endpoint "
+        f"descriptors (max abs err {derr:.3e}) and {len(pairs)} pairs' line "
+        f"matches: {n_rows} rows differ, {n_bad} not a near tie")
+    check(n_bad == 0, ("superglue_endpoints matches card vs CPU", n_bad))
+    # the matcher's own entry point on the card, on the shuffled copy
+    pm = mt["cuda"].match_pair(shuf0, shuf1)
+    m0 = np.full(len(expected), -1, np.int64)
+    m0[pm[:, 0]] = pm[:, 1]
+    check_recovered(f"superglue_endpoints on query {first}'s shuffled "
+                    f"copy", m0, expected, 10)
+    return launches
+
+
+def sold2_full_width(scene, ckpt, card):
+    """Phase 15's fourth path: SOLD2 detect, describe and match on two of
+    phase 7's views at 600 x 800 from the random checkpoint (300
+    junctions: T and U at full size); then the detector on GT heatmaps of
+    SOLD2_GT_VIEWS views, gated on recall against the JAX package's."""
+    from limap_tpu_torch.line2d import get_detector, get_extractor, \
+        get_matcher
+    from limap_tpu_torch.line2d.sold2 import detection as det_mod
+    from limap_tpu_torch.testing import learned
+    imgs = scene[1]
+    det = get_detector({"method": "sold2"}, weight_path=ckpt["sold2"],
+                       device="cuda")
+    ext = get_extractor({"method": "sold2"}, weight_path=ckpt["sold2"],
+                        device="cuda")
+    mat = get_matcher({"method": "sold2", "topk": 0}, ext, device="cuda")
+    rec_t = Recorder(det_mod, "sold2_candidates",
+                     lambda h, j, si, *a, **k: si.shape[0])
+    rec_u = Recorder(det_mod, "sold2_refine_junctions",
+                     lambda s, *a, **k: s.shape[0])
+    eng = importlib.import_module("limap_tpu_torch.line2d.sold2.sold2")
+    rec_s = Recorder(eng, "sample_descriptors",
+                     lambda g, p, *a, **k: p.shape[0])
+    junctions = []
+    jf = det_mod.junctions_from_predictions
+
+    def counted(*a, **k):
+        out = jf(*a, **k)
+        junctions.append(len(out))
+        return out
+
+    eng.junctions_from_predictions = counted
+    reset_learned_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        views = {}
+        for k in (0, 1):
+            t1 = time.perf_counter()
+            segs, descinfo = det.detect_and_extract(
+                _ArrayView(imgs[k]))
+            torch.cuda.synchronize()
+            views[k] = (segs, descinfo, time.perf_counter() - t1)
+        matches = mat.match_pair(views[0][1], views[1][1])
+        torch.cuda.synchronize()
+    finally:
+        for rec in (rec_t, rec_u, rec_s):
+            rec.restore()
+        eng.junctions_from_predictions = jf
+    wall = time.perf_counter() - t0
+    launches = learned_launches()
+    log(f"[sold2] detect + describe on views 0 and 1 at {imgs[0].shape}: "
+        f"{junctions} junctions, {[len(v[0]) for v in views.values()]} "
+        f"segments in {[round(v[2], 3) for v in views.values()]} s; "
+        f"{len(matches)} Wunsch matches; {wall:.3f} s in all on {card}; "
+        f"launches {json.dumps(launches)}")
+    check(min(junctions) == 300, ("SOLD2 junctions at full width",
+                                  junctions))
+    for name in ("sold2_candidates", "sold2_refine_junctions",
+                 "sample_descriptors"):
+        check(launches[name] > 0, f"the SOLD2 path did not launch {name}")
+    check(all(np.isfinite(v[0]).all() and v[0].shape[1] == 5
+              for v in views.values()), "SOLD2 segments")
+    # the detector on the GT heatmaps
+    lsd = det_mod.LineSegmentDetector(device="cuda")
+    recalls = []
+    for i, (heat, junc, segs) in learned.gt_heatmap_views(
+            scene, range(SOLD2_GT_VIEWS)).items():
+        found = lsd.detect(junc, heat)
+        recalls.append(learned.segment_recall(found, segs))
+        log(f"[sold2] GT heatmap of view {i}: {len(segs)} visible GT "
+            f"segments, {len(junc)} junctions, {len(found)} detected, "
+            f"recall {recalls[-1]:.4f} (the JAX package's "
+            f"{REFERENCE_SOLD2_GT_RECALL[i]:.4f})")
+        check(recalls[-1] >= REFERENCE_SOLD2_GT_RECALL[i] - SOLD2_GT_SLACK,
+              ("SOLD2 recall on the GT heatmap", i, recalls[-1]))
+    return [(name, "sold2", rec.args, launches[name]) for name, rec in (
+        ("sold2_candidates", rec_t), ("sold2_refine_junctions", rec_u),
+        ("sample_descriptors", rec_s))]
+
+
+class _ArrayView:
+    """A camview whose image is an array."""
+
+    def __init__(self, img):
+        self.img = img
+
+    def read_image(self, set_gray=True):
+        return self.img
+
+
+def measure_learned(items):
+    """R, S, T and U on their phase-15 inputs, ``items`` [(kernel, path,
+    args, launches on the path)]: each held to its plain version and
+    timed in turns with its bound; S also beside grid_sample (the
+    sampling alone)."""
+    import torch.nn.functional as F
+    from limap_tpu_torch.ops import log_sinkhorn as R
+    from limap_tpu_torch.ops import sample_descriptors as S
+    from limap_tpu_torch.ops import sold2_lines as TU
+    from limap_tpu_torch.testing import learned_checks
+    entries = []
+    for name, path, args, launches in items:
+        if name == "log_sinkhorn":
+            scores, b, iters = args
+            M, N = scores.shape
+            zp = R.log_sinkhorn_plain(scores, b, iters)
+            err = float((R.log_sinkhorn(scores, b, iters) - zp).abs().max())
+            check(err <= learned_checks.SINKHORN_ATOL
+                  + learned_checks.SINKHORN_RTOL * float(zp.abs().max()),
+                  ("R vs plain on the path's input", path, err))
+            ops, nbytes = R.work(M, N, iters)
+            entries.append(timed_entry(
+                name, path, R_SOURCE, R_REPLACES, launches, R.log_sinkhorn,
+                R.log_sinkhorn_plain, args, {}, err, *bound(ops, nbytes),
+                {"M": M, "N": N, "iters": iters, "operations": ops,
+                 "bytes": nbytes, "library": "none"}, (5, 1)))
+        elif name == "sample_descriptors":
+            grid, pts, mode, scale = args
+            plain = (S.sample_clamp_plain if mode == "clamp"
+                     else S.sample_zero_plain)
+            err = float((S.sample_descriptors(*args)
+                         - plain(grid, pts, scale)).abs().max())
+            check(err <= learned_checks.SAMPLE_TOL,
+                  ("S vs plain on the path's input", path, err))
+            P, D = pts.shape[0], grid.shape[2]
+            ops, nbytes = S.work(*args)
+            entry = timed_entry(
+                name, path, S_SOURCE, S_REPLACES, launches,
+                S.sample_descriptors, lambda g, p, m, s: plain(g, p, s),
+                args, {}, err, *bound(ops, nbytes),
+                {"points": P, "channels": D, "mode": mode,
+                 "grid": list(grid.shape), "corner_rows": int(
+                     S.corner_cells(grid.shape, pts, mode, scale).numel()),
+                 "operations": ops, "bytes": nbytes,
+                 "library": "F.grid_sample (the sampling alone, without "
+                            "the normalization)"}, (20, 5))
+            # the same points in grid_sample's [-1, 1] coordinates
+            Hc, Wc = grid.shape[:2]
+            g = grid.permute(2, 0, 1)[None].contiguous()
+            p = pts.to(torch.float32)
+            if mode == "clamp":
+                xy = torch.stack([p[:, 0] / (scale * Wc) * 2 - 1,
+                                  p[:, 1] / (scale * Hc) * 2 - 1], -1)
+            else:
+                xy = torch.stack([p[:, 1] / (scale * Wc) * 2 - 1,
+                                  p[:, 0] / (scale * Hc) * 2 - 1], -1)
+            xy = xy[None, None].contiguous()
+            entry["library_ms"] = cuda_ms(lambda: F.grid_sample(
+                g, xy, mode="bilinear", align_corners=False), 20)
+            entries.append(entry)
+        elif name == "sold2_candidates":
+            hm, junc, si, ei, n_s, prm = args
+            out_k = TU.sold2_candidates(*args)
+            out_p = TU.candidates_plain(*args)
+            res = learned_checks.compare_candidates(out_k, out_p,
+                                                    prm.detect_thresh)
+            check(res["ok"], ("T vs plain on the path's input", res))
+            live_mask = ~out_p[1].isnan()
+            live = int(live_mask.sum())
+            texels = int(TU.candidate_texels(hm, junc, si, ei, live_mask,
+                                             n_s, prm).sum())
+            ops, nbytes = TU.candidates_work(
+                len(si), live, junc.shape[0], n_s,
+                TU.patch_offsets(prm.patch_radius).shape[0], prm.bilinear,
+                prm.use_candidate_suppression, texels)
+            mean_err = float(torch.nan_to_num(
+                (out_k[1] - out_p[1]).abs()).max())
+            entries.append(timed_entry(
+                name, path, TU_SOURCE, T_REPLACES, launches,
+                TU.sold2_candidates, TU.candidates_plain, args, {},
+                mean_err, *bound(ops, nbytes),
+                dict(res, junctions=junc.shape[0], live=live,
+                     texels=texels, operations=ops, bytes=nbytes,
+                     library="none"),
+                (10, 1)))
+        else:
+            segs, hm, n_s, K, interval = args
+            vec = torch.as_tensor(TU.perturbation_values(K, interval),
+                                  device=segs.device)
+            out = TU.sold2_refine_junctions(*args)
+            plain = TU.refine_plain(segs, hm, n_s, vec)
+            err = float((out - plain).abs().max())
+            check(torch.equal(out, plain),
+                  ("U vs plain on the path's input", err))
+            ops, nbytes = TU.refine_work(segs.shape[0], K, n_s, *hm.shape)
+            entries.append(timed_entry(
+                name, path, TU_SOURCE, U_REPLACES, launches,
+                TU.sold2_refine_junctions,
+                lambda s, h, n, k, i: TU.refine_plain(s, h, n, vec), args,
+                {}, err, *bound(ops, nbytes),
+                {"segments": segs.shape[0], "perturbations": K ** 4,
+                 "samples": n_s, "bit_equal_to_plain": True,
+                 "operations": ops, "bytes": nbytes, "library": "none"},
+                (5, 1)))
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
@@ -2963,15 +3780,18 @@ def main():
     # ---- 1. build: one nvcc a source, all started together ----
     from limap_tpu_torch.ops import (epipolar_iou, hybrid_ba, line_ransac,
                                      linker_edges, lm_assoc, lm_jointloc,
-                                     lm_line_ba, lm_line_refine,
-                                     mesh_distance, pose_score, trace_roots,
-                                     tri_propose, tri_score, vp_detect)
+                                     lm_line_ba, lm_line_refine, log_sinkhorn,
+                                     mesh_distance, pose_score,
+                                     sample_descriptors, sold2_lines,
+                                     trace_roots, tri_propose, tri_score,
+                                     vp_detect)
     from limap_tpu_torch.testing import (fitnmerge_checks, kernel_checks,
                                          lm_checks, tri_checks, vp_checks)
     t0 = time.perf_counter()
     libs = (nnd, trace_roots, pose_score, epipolar_iou, line_ransac,
             linker_edges, tri_propose, tri_score, lm_line_ba, lm_jointloc,
-            vp_detect, lm_line_refine, lm_assoc, mesh_distance, hybrid_ba)
+            vp_detect, lm_line_refine, lm_assoc, mesh_distance, hybrid_ba,
+            log_sinkhorn, sample_descriptors, sold2_lines)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda m: m.build(), libs))
     log(f"[build] {len(libs)} kernel libraries built in "
@@ -3174,6 +3994,14 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         front_end_card_vs_cpu(workdir)
 
+    # ---- 15a. the learned front end, card against CPU ----
+    learned_card_vs_cpu()
+    from limap_tpu_torch.testing import learned
+    ckpt_dir = tempfile.TemporaryDirectory()
+    ckpt = learned.write_random_checkpoints(ckpt_dir.name)
+    log(f"[learned] random checkpoints in the published layouts: "
+        f"{json.dumps({k: os.path.basename(v) for k, v in ckpt.items()})}")
+
     # ---- 7. the pipeline from pixels at full width ----
     with tempfile.TemporaryDirectory() as workdir:
         for kernel in kernels.values():
@@ -3215,6 +4043,12 @@ def main():
         localization_cli(scene, runner_tracks, loc_direct, workdir, card)
         log(f"[refine cli] the localization CLI took "
             f"{time.perf_counter() - t0:.1f} s")
+        # phase 15's localization with superglue_endpoints, on phase 8's
+        # map and queries
+        t0 = time.perf_counter()
+        learned_localization(scene, runner_tracks, loc_direct["q"], ckpt,
+                             workdir, card)
+        log(f"[learned localize] took {time.perf_counter() - t0:.1f} s")
 
         # ---- 9a. fit and merge, card against CPU ----
         t0 = time.perf_counter()
@@ -3313,6 +4147,17 @@ def main():
         del recorded, gt_line_call
         refine_clis(refine_scene, direct, workdir, card)
     log(f"[refine] phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15. the learned front end at full width ----
+    t0 = time.perf_counter()
+    items = learned_points_full_width(scene, ckpt, card)
+    with tempfile.TemporaryDirectory() as workdir:
+        items += sinkhorn_runner_full_width(workdir, card)
+    items += sold2_full_width(scene, ckpt, card)
+    ckpt_dir.cleanup()
+    log(f"[learned] phase 15's paths took {time.perf_counter() - t0:.1f} s")
+    entries += measure_learned(items)
+    log(f"[learned] phase 15 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

@@ -66,3 +66,42 @@ def hybrid_ba_data(data, device=None) -> tuple:
     (floats stay float32, indices stay integers)."""
     device = resolve_device(device)
     return tuple(_tensor(x, device) for x in data)
+
+
+# ------------------------------------------------- learned front-end weights
+def superpoint_state_dict(flax_params) -> dict:
+    """The reference's Flax SuperPoint parameters ({"params": {layer:
+    {"kernel" HWIO, "bias"}}}, as arrays) as the published
+    ``superpoint_v1.pth`` state dict (OIHW kernels)."""
+    tree = flax_params.get("params", flax_params)
+    sd = {}
+    for name, leaf in tree.items():
+        sd[f"{name}.weight"] = torch.as_tensor(np.ascontiguousarray(
+            np.transpose(np.asarray(leaf["kernel"], np.float32),
+                         (3, 2, 0, 1))))
+        sd[f"{name}.bias"] = torch.as_tensor(np.array(leaf["bias"],
+                                                        np.float32))
+    return sd
+
+
+def superglue_state_dict(params) -> dict:
+    """The reference's SuperGlue parameters (Conv1d kernels squeezed to
+    [out, in]) as the published state dict ([out, in, 1])."""
+    return {k: torch.as_tensor(np.array(v, np.float32)[..., None]
+                               if k.endswith("weight")
+                               and np.ndim(v) == 2
+                               else np.array(v, np.float32))
+            for k, v in params.items()}
+
+
+def sold2_state_dict(params) -> dict:
+    """The reference's SOLD2 parameters (HWIO conv kernels) as the
+    published state dict (OIHW): the inverse of its
+    ``nets.convert_torch_value``."""
+    out = {}
+    for k, v in params.items():
+        a = np.asarray(v, np.float32)
+        if k.endswith(".weight") and a.ndim == 4:
+            a = np.transpose(a, (3, 2, 0, 1))
+        out[k] = torch.as_tensor(np.array(a))
+    return out

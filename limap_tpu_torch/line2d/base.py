@@ -212,19 +212,17 @@ class BaseMatcher:
 # (learned detectors, descriptors and matchers; ROADMAP.md queue 1
 # item 14).
 NOT_PORTED = {
-    "detector": ("deeplsd", "hawpv3", "sold2", "tp_lsd",
-                 "superpoint_endpoints"),
-    "extractor": ("dense_naive", "gluestick", "l2d2", "lbd", "linetr",
-                  "sold2", "superpoint_endpoints"),
+    "detector": ("deeplsd", "hawpv3", "tp_lsd"),
+    "extractor": ("dense_naive", "gluestick", "l2d2", "lbd", "linetr"),
     "matcher": ("dense_ncc", "dense_roma", "gluestick", "l2d2", "lbd",
-                "linetr", "sold2", "superglue_endpoints",
-                "sinkhorn_endpoints"),
+                "linetr"),
 }
 
 
 def _lookup(kind: str, registry: Dict[str, type], method: str) -> type:
     import limap_tpu_torch.line2d.endpoints  # noqa: F401  (registers)
     import limap_tpu_torch.line2d.lsd  # noqa: F401
+    import limap_tpu_torch.line2d.sold2  # noqa: F401
     import limap_tpu_torch.line2d.tpu_lsd  # noqa: F401
     if method in registry:
         return registry[method]

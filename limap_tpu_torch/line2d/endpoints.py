@@ -338,14 +338,18 @@ def _batched_line_matches(stack, rows1, rows2, n1, n2, min_score: float,
     return (vals >= min_score) & valid1[:, :, None], idx
 
 
-def _line_scores(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
-    """[D, 2*N1] x [D, 2*N2] endpoint descs -> [N1, N2] line scores."""
-    s = desc1.T @ desc2  # [2N1, 2N2]
-    n1 = s.shape[0] // 2
-    n2 = s.shape[1] // 2
+def _endpoint_line_scores(s: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """[2 N1, 2 N2] endpoint scores -> [N1, N2] line scores: the better
+    of the two endpoint pairings, halved."""
     s = s.reshape(n1, 2, n2, 2)
     return 0.5 * torch.maximum(s[:, 0, :, 0] + s[:, 1, :, 1],
                                s[:, 0, :, 1] + s[:, 1, :, 0])
+
+
+def _line_scores(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
+    """[D, 2*N1] x [D, 2*N2] endpoint descs -> [N1, N2] line scores."""
+    return _endpoint_line_scores(desc1.T @ desc2, desc1.shape[1] // 2,
+                                 desc2.shape[1] // 2)
 
 
 @register_matcher("nn_endpoints")
@@ -463,3 +467,150 @@ def batched_match_pairs(descinfos: dict, pairs, topk: int = 10,
             good = vals[p, :n1].reshape(-1) >= min_score
             result[(a, b)] = np.stack([ii[good], jj[good]], 1)
     return result
+
+
+# ------------------------------------------------ the learned endpoint zoo
+@register_extractor("superpoint_endpoints")
+@register_detector("superpoint_endpoints")
+class SuperPointEndpointsExtractor(BaseDetector):
+    """SuperPoint descriptors at the two endpoints of every segment (the
+    reference's default learned line descriptor): ``lines`` [2N, 2],
+    ``lines_score`` [N] (segment score x sqrt(length), max-normalized)
+    and ``endpoints_desc`` [256, 2N], sampled on kernel S from the dense
+    descriptor grid, which stays on the device."""
+
+    def __init__(self, options=None):
+        super().__init__(options)
+        from limap_tpu_torch.point2d.superpoint import SuperPoint
+        self.device = resolve_device((options or {}).get("device"))
+        self.sp = SuperPoint(weight_path=self.weight_path,
+                             device=self.device)
+
+    def get_module_name(self):
+        return "superpoint_endpoints"
+
+    def extract(self, camview, segs) -> dict:
+        img = camview.read_image(set_gray=True)
+        return self.compute_descinfo(img, np.asarray(segs))
+
+    def compute_descinfo(self, img, segs) -> dict:
+        from limap_tpu_torch.point2d.superpoint import sample_descriptors
+        img = _gray_float(img)
+        if len(segs) == 0:
+            return _empty_descinfo(img.shape, 256)
+        segs = np.asarray(segs)
+        lines = segs[:, :4].reshape(-1, 2)
+        lengths = np.linalg.norm(segs[:, :2] - segs[:, 2:4], axis=1)
+        score = (segs[:, -1] if segs.shape[1] > 4
+                 else np.ones(len(segs))) * np.sqrt(lengths)
+        score = score / (score.max() + 1e-8)
+        _, grid = self.sp._forward(img)
+        desc = sample_descriptors(grid, torch.as_tensor(
+            lines, dtype=torch.float32, device=self.device))
+        return {"image_shape": img.shape, "lines": lines,
+                "lines_score": score, "endpoints_desc": desc.cpu().numpy().T}
+
+
+@register_matcher("superglue_endpoints")
+class SuperGlueEndpointsMatcher(BaseMatcher):
+    """The reference's learned line matcher: the SuperGlue GNN over all
+    endpoints of both images, the line score the better endpoint
+    pairing, then the optimal transport over line scores (kernel R) when
+    ``topk`` is 0, else each line's top ``topk``.  The checkpoint comes
+    from ``superglue_weight_path`` or ``weight_path`` in the options."""
+
+    def __init__(self, extractor, options=None):
+        super().__init__(extractor, options)
+        options = options or {}
+        if extractor.get_module_name() != "superpoint_endpoints":
+            raise ValueError("superglue_endpoints needs 256-d SuperPoint "
+                             "endpoint descriptors (superpoint_endpoints)")
+        from limap_tpu_torch.point2d.superglue import SuperGlue
+        weight_path = (options.get("superglue_weight_path")
+                       or options.get("weight_path"))
+        if weight_path is None:
+            import warnings
+            warnings.warn(
+                "superglue_endpoints constructed WITHOUT a checkpoint "
+                "(no 'weight_path' in the matcher options): SuperGlue "
+                "runs with random weights and produces garbage matches."
+                " Pass line2d.matcher.weight_path, or use the "
+                "weight-free 'sinkhorn_endpoints' matcher instead.",
+                stacklevel=2)
+        self.device = resolve_device(options.get("device"))
+        self.sg = SuperGlue(weight_path=weight_path,
+                            match_threshold=options.get("match_threshold",
+                                                        0.2),
+                            device=self.device)
+
+    def get_module_name(self):
+        return "superglue_endpoints"
+
+    def match_pair(self, descinfo1, descinfo2) -> np.ndarray:
+        from limap_tpu_torch.point2d.superglue import get_matches
+        d1 = np.asarray(descinfo1["endpoints_desc"], np.float32)
+        d2 = np.asarray(descinfo2["endpoints_desc"], np.float32)
+        if d1.shape[1] == 0 or d2.shape[1] == 0:
+            return np.zeros((0, 2), np.int64)
+        data = {
+            "image_shape0": descinfo1["image_shape"],
+            "image_shape1": descinfo2["image_shape"],
+            "keypoints0": np.asarray(descinfo1["lines"], np.float32),
+            "keypoints1": np.asarray(descinfo2["lines"], np.float32),
+            "scores0": np.repeat(np.asarray(
+                descinfo1["lines_score"], np.float32), 2),
+            "scores1": np.repeat(np.asarray(
+                descinfo2["lines_score"], np.float32), 2),
+            "descriptors0": d1,
+            "descriptors1": d2,
+        }
+        n1, n2 = d1.shape[1] // 2, d2.shape[1] // 2
+        line_scores = _endpoint_line_scores(self.sg.scores(data), n1, n2)
+        if self.topk == 0:
+            Z = self.sg.solve_optimal_transport(line_scores)
+            m0 = get_matches(Z, self.sg.match_threshold)[0]
+            ids1 = np.arange(n1)[m0 != -1]
+            return np.stack([ids1, m0[m0 != -1]], 1)
+        scores = line_scores.cpu().numpy()
+        k = min(self.topk, n2)
+        idx = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+        return np.stack([np.repeat(np.arange(n1), k), idx.reshape(-1)], 1)
+
+
+@register_matcher("sinkhorn_endpoints")
+class SinkhornEndpointsMatcher(NNEndpointsMatcher):
+    """OT-based line matching on endpoint scores without the learned
+    GNN (the weight-free fallback): the line scores over 0.1 through 50
+    Sinkhorn iterations with a dustbin (kernel R), then mutual argmax of
+    the assignment above ``match_threshold``.  Every pair takes this path
+    (the reference's batched top-k override of ``nn_endpoints`` is not
+    inherited: there it bypasses the Sinkhorn solve whenever ``topk`` is
+    not 0)."""
+
+    def __init__(self, extractor, options=None):
+        super().__init__(extractor, options)
+        options = options or {}
+        self.bin_score = options.get("bin_score", 0.5)
+        self.match_threshold = options.get("match_threshold", 0.2)
+
+    def get_module_name(self):
+        return "sinkhorn_endpoints"
+
+    def match_pair(self, descinfo1, descinfo2) -> np.ndarray:
+        from limap_tpu_torch.point2d.matching import (log_sinkhorn,
+                                                      mutual_argmax_matches)
+        d1 = np.asarray(descinfo1["endpoints_desc"], np.float32)
+        d2 = np.asarray(descinfo2["endpoints_desc"], np.float32)
+        if d1.shape[1] == 0 or d2.shape[1] == 0:
+            return np.zeros((0, 2), np.int64)
+        line_scores = _line_scores(torch.as_tensor(d1, device=self.device),
+                                   torch.as_tensor(d2, device=self.device))
+        Z = log_sinkhorn(line_scores / 0.1, self.bin_score)
+        P = np.exp(Z[:-1, :-1].cpu().numpy())
+        return mutual_argmax_matches(P, self.match_threshold)
+
+    def match_all_neighbors(self, output_folder, image_ids, neighbors,
+                            descinfo_folder, skip_exists: bool = False):
+        return BaseMatcher.match_all_neighbors(
+            self, output_folder, image_ids, neighbors, descinfo_folder,
+            skip_exists)

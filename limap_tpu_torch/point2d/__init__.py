@@ -1,8 +1,10 @@
-"""2D point features: the classical Harris-patch extractor and mutual
-nearest-neighbour matching (SuperPoint, SuperGlue and the Sinkhorn
-matcher are not ported yet: ROADMAP.md queue 1 item 14)."""
+"""2D point features: SuperPoint, the classical Harris-patch extractor,
+SuperGlue, and matching (mutual nearest neighbours, Sinkhorn optimal
+transport on kernel R)."""
 
-from limap_tpu_torch.point2d.matching import mutual_nn_match
-from limap_tpu_torch.point2d.superpoint import HarrisPatchExtractor
+from limap_tpu_torch.point2d.matching import (log_sinkhorn, mutual_nn_match,
+                                              sinkhorn_match)
+from limap_tpu_torch.point2d.superpoint import HarrisPatchExtractor, SuperPoint
 
-__all__ = ["mutual_nn_match", "HarrisPatchExtractor"]
+__all__ = ["log_sinkhorn", "mutual_nn_match", "sinkhorn_match",
+           "HarrisPatchExtractor", "SuperPoint"]

@@ -91,18 +91,18 @@ def run_sfm_with_known_poses(
     matching (default: each image with its ``n_neighbors`` nearest
     cameras).  ``device=None`` means cuda."""
     device = resolve_device(device)
-    if weight_path is not None:
-        raise NotImplementedError(
-            "SuperPoint features are not ported yet (ROADMAP.md queue 1 "
-            "item 14); leave weight_path None for the Harris extractor")
     ids = imagecols.get_img_ids()
     id2row = imagecols.img_id_to_index()
     views = imagecols.batch(device)
 
     # 1. features
     if features is None:
-        from limap_tpu_torch.point2d.superpoint import HarrisPatchExtractor
-        extractor = HarrisPatchExtractor()
+        from limap_tpu_torch.point2d.superpoint import (HarrisPatchExtractor,
+                                                        SuperPoint)
+        if weight_path is not None:
+            extractor = SuperPoint(weight_path=weight_path, device=device)
+        else:
+            extractor = HarrisPatchExtractor()
         features = {i: extractor(images[i]) for i in ids}
 
     # 2. candidate pairs

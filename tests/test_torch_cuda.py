@@ -579,3 +579,60 @@ def test_hybrid_ba_kernels_count_only_launches(cuda):
     assert torch.equal(O.hybrid_apply(t, v), torch.zeros_like(v))
     assert O.hybrid_apply(t, v, backsub=True).shape == (0, 3)
     assert (O.hybrid_terms.launches, O.hybrid_apply.launches) == n0
+
+
+# ------------------------------------------------- R, S, T, U (item 14)
+def _learned_cases():
+    from limap_tpu_torch.testing import learned_checks as LC
+    return ([("log_sinkhorn", f"{M}x{N}x{it}")
+             for M, N, it, _ in LC.SINKHORN_CASES]
+            + [("sample_descriptors", m) for m in ("clamp", "zero")]
+            + [("sold2_candidates", c[0]) for c in LC.candidate_cases()]
+            + [("sold2_refine_junctions", c[0]) for c in LC.refine_cases()])
+
+
+@pytest.fixture(scope="module")
+def learned_results():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from limap_tpu_torch.testing import learned_checks as LC
+    return {(name, case): res for name, case, res in LC.check_all("cuda")}
+
+
+@pytest.mark.parametrize("name,case", _learned_cases())
+def test_learned_kernels_vs_plain(learned_results, name, case):
+    res = learned_results[(name, case)]
+    assert res["ok"], res
+
+
+def test_learned_kernels_count_launches_and_refuse_bad_inputs(cuda):
+    from limap_tpu_torch.ops import log_sinkhorn as R
+    from limap_tpu_torch.ops import sample_descriptors as S
+    from limap_tpu_torch.ops import sold2_lines as TU
+    n0 = (R.log_sinkhorn.launches, S.sample_descriptors.launches,
+          TU.sold2_candidates.launches, TU.sold2_refine_junctions.launches)
+    R.log_sinkhorn(torch.zeros(3, 4, device="cuda"), 0.5, 2)
+    g = torch.zeros(4, 5, 8, device="cuda")
+    S.sample_descriptors(g, torch.zeros(0, 2, device="cuda"), "clamp", 8)
+    TU.sold2_refine_junctions(torch.zeros(0, 2, 2, dtype=torch.float64,
+                                          device="cuda"),
+                              torch.zeros(8, 8, dtype=torch.float64,
+                                          device="cuda"))
+    n1 = (R.log_sinkhorn.launches, S.sample_descriptors.launches,
+          TU.sold2_candidates.launches, TU.sold2_refine_junctions.launches)
+    assert n1 == (n0[0] + 1, n0[1], n0[2], n0[3])   # empty: no launch
+    with pytest.raises(ValueError):
+        R.log_sinkhorn(torch.zeros(3, 4, dtype=torch.float64,
+                                   device="cuda"), 0.5)
+    with pytest.raises(ValueError):
+        S.sample_descriptors(g, torch.zeros(3, 2, dtype=torch.float64,
+                                            device="cuda"), "clamp", 8)
+    with pytest.raises(ValueError):
+        S.sample_descriptors(torch.zeros(4, 5, 600, device="cuda"),
+                             torch.zeros(3, 2, device="cuda"), "clamp", 8)
+    with pytest.raises(ValueError):
+        TU.sold2_candidates(torch.zeros(8, 8, device="cuda"),
+                            torch.zeros(2, 2, dtype=torch.float64,
+                                        device="cuda"),
+                            torch.zeros(1, dtype=torch.int32, device="cuda"),
+                            torch.ones(1, dtype=torch.int32, device="cuda"))

@@ -238,10 +238,18 @@ def test_hloc_log_reader_matches_jax():
 
 
 def test_superglue_matcher_is_not_ported(scene, tmp_path):
+    """The superglue_endpoints matcher is ported (tests/
+    test_torch_learned_endpoints.py): the runner builds it through the
+    registry, whose strict loader refuses a checkpoint without the
+    published keys."""
+    import torch
     cols, _, _ = scene
     cfg = config(tmp_path)
     cfg["localization"]["2d_matcher"] = "superglue_endpoints"
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+    bad = str(tmp_path / "superglue_outdoor.pth")
+    torch.save({"bin_score": torch.tensor(1.0)}, bad)
+    cfg["localization"]["matcher_options"] = {"superglue_weight_path": bad}
+    with pytest.raises(ValueError, match="key mismatch"):
         t_runner_mod.hybrid_localization(
             cfg, cols.subset_by_image_ids([0]), cols.subset_by_image_ids([1]),
             {}, [], {1: [0]}, device="cpu")

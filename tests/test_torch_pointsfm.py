@@ -283,9 +283,11 @@ def test_sfm_with_known_poses_equals_reference(rng):
             assert sorted(port[pid]["p2ds"]) == sorted(ref[pid]["p2ds"])
     xyz = np.stack([p["xyz"] for p in port.values()])
     assert np.linalg.norm(xyz[:, None] - gt[None], axis=-1).min(1).max() < 0.1
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run_sfm_with_known_poses(port_cols, features=features,
-                                 weight_path="superpoint.pth", device="cpu")
+    # given features, the SuperPoint weights are not read (as in JAX)
+    same = run_sfm_with_known_poses(port_cols, features=features,
+                                    weight_path="superpoint.pth",
+                                    device="cpu", **kw)
+    assert list(same) == list(port)
 
 
 def test_colmap_sfm_import_gating_and_pairs(tmp_path):

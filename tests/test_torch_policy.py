@@ -70,7 +70,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "runners/hypersim/loader.py", "parallel/sharded_ba.py",
                 "parallel/hybrid_ba_driver.py", "ops/hybrid_ba.py",
                 "testing/hybrid_checks.py", "runners/hypersim/refine_sfm.py",
-                "runners/localization.py"):
+                "runners/localization.py", "ops/log_sinkhorn.py",
+                "ops/sample_descriptors.py", "ops/sold2_lines.py",
+                "point2d/superglue.py", "line2d/sold2/nets.py",
+                "line2d/sold2/detection.py", "line2d/sold2/sold2.py",
+                "testing/learned.py", "testing/learned_checks.py"):
         assert "limap_tpu_torch/" + new in covered, new
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -267,8 +271,7 @@ def test_localization_entry_points_run_on_cpu_when_asked(no_gpu, entry):
 # other name of a JAX subpackage's __all__ must be exported by the port's
 # subpackage of the same name.
 QUEUED_NAMES = {
-    "point2d": {"SuperPoint": "14", "log_sinkhorn": "14",
-                "sinkhorn_match": "14"},
+    "point2d": {},
     "parallel": {"TRACK_AXIS": "13", "make_mesh": "13", "replicated": "13",
                  "track_sharding": "13", "distributed": "13"},
 }
@@ -475,3 +478,95 @@ def test_hybrid_ba_refuses_a_mesh_of_several_devices(mesh):
         make_hybrid_ba_step(mesh, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         make_hybrid_ba_cost(mesh, device="cpu")
+
+
+def _learned_calls():
+    from limap_tpu_torch.line2d import get_detector, get_extractor, \
+        get_matcher
+    from limap_tpu_torch.line2d.sold2.detection import LineSegmentDetector
+    from limap_tpu_torch.line2d.sold2.sold2 import (SOLD2Engine,
+                                                    WunschLineMatcher)
+    from limap_tpu_torch.point2d import (SuperPoint, log_sinkhorn,
+                                         sinkhorn_match)
+    from limap_tpu_torch.point2d.superglue import SuperGlue
+    desc = np.random.default_rng(0).normal(size=(5, 8))
+
+    def extractor(d):
+        return get_extractor({"method": "superpoint_endpoints"}, device=d)
+
+    return {
+        "log_sinkhorn": lambda d: log_sinkhorn(np.zeros((3, 4)), 0.5,
+                                               device=d),
+        "sinkhorn_match": lambda d: sinkhorn_match(desc, desc, device=d),
+        "superpoint": lambda d: SuperPoint(device=d),
+        "superglue": lambda d: SuperGlue(device=d),
+        "sold2_engine": lambda d: SOLD2Engine(device=d),
+        "sold2_detector": lambda d: LineSegmentDetector(device=d),
+        "wunsch": lambda d: WunschLineMatcher(device=d),
+        "get_detector_sold2": lambda d: get_detector({"method": "sold2"},
+                                                     device=d),
+        "get_extractor_superpoint_endpoints": extractor,
+        "get_matcher_superglue_endpoints": lambda d: get_matcher(
+            {"method": "superglue_endpoints", "topk": 0}, extractor("cpu"),
+            device=d),
+        "get_matcher_sinkhorn_endpoints": lambda d: get_matcher(
+            {"method": "sinkhorn_endpoints"}, None, device=d),
+        "get_matcher_sold2": lambda d: get_matcher(
+            {"method": "sold2"}, get_extractor({"method": "sold2"},
+                                               device="cpu"), device=d),
+    }
+
+
+LEARNED = ["log_sinkhorn", "sinkhorn_match", "superpoint", "superglue",
+           "sold2_engine", "sold2_detector", "wunsch", "get_detector_sold2",
+           "get_extractor_superpoint_endpoints",
+           "get_matcher_superglue_endpoints",
+           "get_matcher_sinkhorn_endpoints", "get_matcher_sold2"]
+
+
+@pytest.mark.parametrize("entry", LEARNED)
+def test_learned_entry_points_raise_without_gpu(no_gpu, entry):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _learned_calls()[entry](None)
+
+
+@pytest.mark.parametrize("entry", LEARNED)
+def test_learned_entry_points_run_on_cpu_when_asked(no_gpu, entry,
+                                                    recwarn):
+    out = _learned_calls()[entry]("cpu")
+    if entry == "log_sinkhorn":
+        assert out.device.type == "cpu" and out.shape == (4, 5)
+    elif entry == "sinkhorn_match":
+        assert out.shape[1] == 2
+    else:
+        assert out is not None
+
+
+def test_every_reference_method_is_ported_or_waits_for_item_14():
+    """Each method the JAX registries hold is registered in the port or
+    listed in NOT_PORTED, and each listed one raises citing item 14."""
+    from limap_tpu.line2d import base as ref_base
+    from limap_tpu_torch.line2d import base as port_base
+    for f in (ref_base.get_detector, ref_base.get_extractor):
+        with pytest.raises(NotImplementedError):
+            f({"method": "no_such_method"})   # imports every module
+    with pytest.raises(NotImplementedError):
+        port_base.get_detector({"method": "no_such_method"}, device="cpu")
+    for kind, ref_reg, reg, get in (
+            ("detector", ref_base.DETECTOR_REGISTRY,
+             port_base.DETECTOR_REGISTRY, port_base.get_detector),
+            ("extractor", ref_base.EXTRACTOR_REGISTRY,
+             port_base.EXTRACTOR_REGISTRY, port_base.get_extractor),
+            ("matcher", ref_base.MATCHER_REGISTRY,
+             port_base.MATCHER_REGISTRY, None)):
+        waiting = set(port_base.NOT_PORTED[kind])
+        missing = set(ref_reg) - set(reg) - waiting
+        assert not missing, (kind, missing)
+        assert not waiting & set(reg), kind
+        for method in sorted(waiting):
+            with pytest.raises(NotImplementedError, match="item 14"):
+                if get is None:
+                    port_base.get_matcher({"method": method}, None,
+                                          device="cpu")
+                else:
+                    get({"method": method}, device="cpu")

@@ -171,10 +171,11 @@ def test_line_triangulation_matches_reference_from_pixels(rng, tmp_path):
 
 def test_runner_refuses_what_is_not_ported(rng, tmp_path):
     """What the port still refuses: the exhaustive matcher with VP
-    triangulation (ROADMAP.md queue 2), SuperPoint features for the
-    point model and a learned line detector (queue 1 item 14).  VP
-    triangulation, point models and distorted cameras run
-    (tests/test_torch_vp_triangulation.py, test_torch_pointsfm.py,
+    triangulation (ROADMAP.md queue 2) and the learned line detectors
+    other than SOLD2 (queue 1 item 14).  VP triangulation, point models,
+    SuperPoint features (here they ask for their weight file) and
+    distorted cameras run (tests/test_torch_vp_triangulation.py,
+    test_torch_pointsfm.py, test_torch_learned_endpoints.py,
     test_torch_undistortion.py)."""
     imagecols, _ = make_scene(rng, tmp_path, n_views=2, n_lines=2)
     cfg = small_cfg(tmp_path / "exhaustive_vp")
@@ -183,13 +184,13 @@ def test_runner_refuses_what_is_not_ported(rng, tmp_path):
         line_triangulation(cfg, imagecols, device="cpu")
     cfg = runners.setup(small_cfg(tmp_path / "sfm"))
     cfg["weight_path"] = "superpoint_v1.pth"
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(FileNotFoundError, match="superpoint_v1.pth"):
         runners.compute_sfminfos(cfg, imagecols,
                                  images={i: None for i in imagecols.images},
                                  device="cpu")
-    cfg = small_cfg(tmp_path / "sold2")
-    cfg["line2d"]["detector"]["method"] = "sold2"
-    with pytest.raises(NotImplementedError):
+    cfg = small_cfg(tmp_path / "deeplsd")
+    cfg["line2d"]["detector"]["method"] = "deeplsd"
+    with pytest.raises(NotImplementedError, match="item 14"):
         line_triangulation(cfg, imagecols, device="cpu")
     assert runners.undistort_images(imagecols, str(tmp_path)) is imagecols
 

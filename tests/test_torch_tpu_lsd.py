@@ -134,12 +134,18 @@ def test_registry_builds_the_ported_methods_and_names_the_rest(rng):
     ext = get_extractor({"method": "patch_endpoints"}, device="cpu")
     assert get_matcher({"method": "nn_endpoints", "topk": 3}, ext,
                        device="cpu").topk == 3
+    assert get_detector({"method": "sold2"}, device="cpu") \
+        .get_module_name() == "sold2"
+    assert get_extractor({"method": "superpoint_endpoints"}, device="cpu") \
+        .get_module_name() == "superpoint_endpoints"
+    assert get_matcher({"method": "sinkhorn_endpoints"}, ext, device="cpu") \
+        .get_module_name() == "sinkhorn_endpoints"
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        get_detector({"method": "sold2"}, device="cpu")
+        get_detector({"method": "deeplsd"}, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        get_extractor({"method": "superpoint_endpoints"}, device="cpu")
+        get_extractor({"method": "lbd"}, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        get_matcher({"method": "sinkhorn_endpoints"}, ext, device="cpu")
+        get_matcher({"method": "gluestick"}, ext, device="cpu")
     with pytest.raises(NotImplementedError, match="unknown detector"):
         get_detector({"method": "no_such_method"}, device="cpu")
 

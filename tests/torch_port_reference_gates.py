@@ -21,6 +21,10 @@ root:
         --refine-sfm [N_VIEWS]
     JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
         --refine-sfm-lines [N_VIEWS]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --sinkhorn [N_VIEWS]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --sold2-gt [N_VIEWS [SCENE_VIEWS]]
 
 Without arguments: the slice from given segments and matches
 (triangulate -> tracks -> filters + remerge -> line BA) on the protocol
@@ -97,6 +101,23 @@ With ``--refine-sfm-lines``: both packages' line_triangulation on
 chip_smoke phase 14's façade (limap_tpu_torch/testing/refine.py) at
 N_VIEWS (default 16), on refine_sfm's noisy poses and on the GT poses:
 the track counts a package keeps on each.
+
+With ``--sinkhorn``: the JAX package's line_triangulation on the first
+N_VIEWS (default 16) views of the rendered scene (PNG images), with
+limap_tpu_torch/testing/learned.py::sinkhorn_runner_config (tpu_lsd,
+patch_endpoints, the weight-free sinkhorn_endpoints matcher on every
+pair): the track counts, the matches and quality_eval, chip_smoke phase
+15's floors.
+
+With ``--sold2-gt``: the JAX package's SOLD2 LineSegmentDetector (the
+default post-processing: local heatmap refinement, candidate
+suppression, junction refinement) on a heatmap rendered from the GT
+lines' projections into the first N_VIEWS (default 4) of the rendered
+scene's SCENE_VIEWS (default 100, phase 7's) views, with the projections'
+endpoints as junctions (learned.gt_heatmap_views): the recall of the
+visible GT segments.  A view's pose depends on SCENE_VIEWS (the cameras
+sit at k / SCENE_VIEWS of a ring), so only view 0 is shared between two
+scene sizes.
 """
 
 import json
@@ -501,6 +522,54 @@ def refine_sfm_lines(n_views=16):
     print(json.dumps(out))
 
 
+def sinkhorn(n_views=16):
+    import cv2
+    from limap_tpu.runners import line_triangulation
+    from limap_tpu_torch.testing import learned
+    port_cols, imgs, nbrs, gt = pipeline.build_scene(n_views)
+    with tempfile.TemporaryDirectory() as workdir:
+        cols = port_cols.as_dict()
+        for i, img in imgs.items():
+            name = os.path.join(workdir, f"img_{i}.png")
+            cv2.imwrite(name, img)
+            cols["images"][i]["image_name"] = name
+        cfg = learned.sinkhorn_runner_config(os.path.join(workdir, "out"),
+                                             n_neighbors=len(nbrs[0]))
+        t0 = time.perf_counter()
+        tracks = line_triangulation(cfg, ImageCollection.from_dict(cols),
+                                    nbrs)
+        total = time.perf_counter() - t0
+        matches_dir = os.path.join(
+            cfg["dir_save"], "line_matchings", "tpu_lsd",
+            "feats_patch_endpoints", "matches_sinkhorn_endpoints")
+        n_matches = sum(len(m) for i in nbrs for m in np.load(
+            os.path.join(matches_dir, f"matches_{i}.npy"),
+            allow_pickle=True).item().values())
+    print(json.dumps({
+        "n_views": n_views, "n_tracks_all": len(tracks),
+        "n_matches": int(n_matches), "total_s": total,
+        "quality": bench_pipeline.quality_eval(tracks, gt)}))
+
+
+def sold2_gt(n_views=4, scene_views=pipeline.N_VIEWS):
+    from limap_tpu.line2d.sold2.detection import LineSegmentDetector
+    from limap_tpu_torch.testing import learned
+    scene = pipeline.build_scene(scene_views)   # phase 7's 100 views
+    det = LineSegmentDetector()
+    out = {"n_views": n_views, "scene_views": scene_views, "views": {}}
+    t0 = time.perf_counter()
+    for i, (heat, junc, segs) in learned.gt_heatmap_views(
+            scene, range(n_views)).items():
+        found = det.detect(junc, heat)
+        out["views"][i] = {"gt_segments": len(segs),
+                           "junctions": len(junc), "detected": len(found),
+                           "recall": learned.segment_recall(found, segs)}
+    out["recall"] = float(np.mean([v["recall"]
+                                   for v in out["views"].values()]))
+    out["total_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+
+
 def main(n_views=100, n_lines=1500, n_neighbors=20):
     t0 = time.perf_counter()
     imagecols, segs, nbrs = bench.build_scene(n_views, n_lines, n_neighbors)
@@ -548,5 +617,9 @@ if __name__ == "__main__":
         refine_sfm(*map(int, sys.argv[2:3]))
     elif sys.argv[1:2] == ["--refine-sfm-lines"]:
         refine_sfm_lines(*map(int, sys.argv[2:3]))
+    elif sys.argv[1:2] == ["--sinkhorn"]:
+        sinkhorn(*map(int, sys.argv[2:3]))
+    elif sys.argv[1:2] == ["--sold2-gt"]:
+        sold2_gt(*map(int, sys.argv[2:4]))
     else:
         main()
