@@ -83,7 +83,7 @@ Phases, in order; any failure exits non-zero:
      on a reduced façade (8 views, the CPU's map) and holds the tracks,
      points and VPs card to CPU, the pixel refinement a track at a time.
  13. the GT evaluation of phase 7's card tracks (from the second pass,
-     1000 samples a track) at full width: MeshEvaluator against the
+     500 samples a track) at full width: MeshEvaluator against the
      scene's wall tessellated on a 4 cm grid (135,000 triangles, inner
      vertices jittered in the plane; kernel N, mesh_min_dist), held to the
      wall's analytic distance and to PointCloudEvaluator on the GT cloud
@@ -136,6 +136,23 @@ Phases, in order; any failure exits non-zero:
      integer junctions) and SuperPoint (120 x 160), SuperGlue (64 x 80
      keypoints) and SOLD2 (128 x 128: forward, junctions, T and U on the
      CPU's junctions, line descriptors, Wunsch matches) card to CPU.
+ 16. the rest of the learned zoo at full width (random weights written
+     where the loaders of a weights directory look): DeepLSD's, TP-LSD's
+     and HAWPv3's forwards on a view of phase 7's scene, card against
+     CPU, then each decoding (TP-LSD's on kernel X) on fields built from
+     the projected GT segments of 4 views, recall gated against the JAX
+     package's; the from-pixels runner with lbd / lbd (kernel V) and
+     with dense_naive / dense_ncc (kernel W) on the first 16 views,
+     gated on tracks and precision or matches against the JAX package's
+     runs; L2D2 (patches on kernel Y), LineTR and GlueStick (OT on
+     kernel R) against a shuffled copy of a view's lines (every match
+     the copy), then each in the runner on 4 views, CPU and card on the
+     CPU's segments; S2DNet's features at 600 x 800 and phase 12a's
+     façade refined with them, card against CPU; then V, W, X and Y held
+     to their plain versions on those paths' inputs and timed in turns.
+     Phase 16a, before it, holds V, W, X and Y to their plain versions
+     on seeded inputs (ties, clipped samples, crops outside the warped
+     image) and the zoo's networks at 128 x 128 card to CPU.
 Phase 2 also holds kernels O, P and Q to their plain versions on seeded
 inputs (lines and points, optimize_focal on and off, each constancy flag,
 ragged slots of weight 0, one track, one support).
@@ -2250,6 +2267,9 @@ MESH_TOL = 1e-5
 # of the same quantity: a sample within fp32 rounding of tau may fall on
 # the other side, moving the recall by 1e-3 of a line's length at most.
 REFLINE_RTOL = 1e-3
+# Samples a track in phase 13 (500: the plain scan, timed twice, takes
+# ~27 s a turn on an NVIDIA H100 80GB HBM3 at 700 W; 1000 took twice that)
+EVAL_SAMPLES = 500
 
 
 def mesh_seeded_cases():
@@ -2303,22 +2323,24 @@ def evaluation_full_width(lines, gt, card):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mesh = MeshEvaluator(verts, faces, device="cuda")
-    d_mesh = mesh.ComputeDistsLine(seg, 1000)
-    recall = {tau: float(torch.sum(mesh.ComputeInlierRatio(seg, tau, 1000)
-                                   * lengths)) for tau in TAUS}
+    d_mesh = mesh.ComputeDistsLine(seg, EVAL_SAMPLES)
+    recall = {tau: float(torch.sum(mesh.ComputeInlierRatio(
+        seg, tau, EVAL_SAMPLES) * lengths)) for tau in TAUS}
     torch.cuda.synchronize()
     mesh_s = time.perf_counter() - t0
     launches = md.mesh_min_dist.launches
     t0 = time.perf_counter()
     ref = RefLineEvaluator(gt, device="cuda")
     ref_len = ref.SumLength()
-    ref_recall = {tau: ref.ComputeRecallRef(lines, tau, 1000) for tau in TAUS}
+    ref_recall = {tau: ref.ComputeRecallRef(lines, tau, EVAL_SAMPLES)
+                  for tau in TAUS}
     ref_s = time.perf_counter() - t0
     pc = PointCloudEvaluator(cloud, device="cuda")
-    d_cloud = pc.ComputeDistsLine(seg, 1000)
+    d_cloud = pc.ComputeDistsLine(seg, EVAL_SAMPLES)
     cloud_recall = {tau: float(torch.sum(torch.mean(
         (d_cloud <= tau).float(), 1) * lengths)) for tau in TAUS}
-    log(f"[evaluation] {len(lines)} tracks x 1000 samples against the wall "
+    log(f"[evaluation] {len(lines)} tracks x {EVAL_SAMPLES} samples against "
+        f"the wall "
         f"mesh ({faces.shape[0]} triangles, {verts.shape[0]} vertices): "
         f"{mesh_s:.3f} s for ComputeDistsLine and the {len(TAUS)} inlier "
         f"ratios, {launches} launches of mesh_min_dist; length recall "
@@ -2328,7 +2350,7 @@ def evaluation_full_width(lines, gt, card):
     check(launches > 0, "the evaluation path did not launch mesh_min_dist")
 
     # the mesh distance against the wall's analytic distance (float64)
-    queries = sample_points_on_segments(seg, 1000).reshape(-1, 3) \
+    queries = sample_points_on_segments(seg, EVAL_SAMPLES).reshape(-1, 3) \
         .contiguous()
     d = d_mesh.reshape(-1).double().cpu().numpy()
     inside, dz = ev.wall_distance(queries.cpu().numpy())
@@ -2338,7 +2360,7 @@ def evaluation_full_width(lines, gt, card):
         f"{int(inside.sum())} samples over the wall within {err_in:.3e} m, "
         f"{int((~inside).sum())} beside it, none nearer than the plane by "
         f"more than {max(short, 0.0):.3e} m")
-    check(np.isfinite(d).all() and d.shape == (len(lines) * 1000,),
+    check(np.isfinite(d).all() and d.shape == (len(lines) * EVAL_SAMPLES,),
           "mesh distances finite, one a sample")
     check(inside.any() and err_in <= MESH_TOL, ("analytic wall", err_in))
     check(short <= MESH_TOL, ("samples beside the wall", short))
@@ -2355,7 +2377,7 @@ def evaluation_full_width(lines, gt, card):
         f"every sample; mesh recall >= cloud recall at every tau")
 
     # RefLineEvaluator against float64
-    len64, rec64 = ev.refline_f64(gt, lines, TAUS, 1000)
+    len64, rec64 = ev.refline_f64(gt, lines, TAUS, EVAL_SAMPLES)
     rel = {tau: abs(ref_recall[tau] - rec64[tau]) / max(rec64[tau], 1e-12)
            for tau in TAUS}
     log(f"[evaluation] RefLineEvaluator against float64: length "
@@ -3763,6 +3785,561 @@ def measure_learned(items):
     return entries
 
 
+# ---------------------------------------------------------------- phase 16
+V_SOURCE = "lbd_describe.cu"
+V_REPLACES = "limap_tpu/line2d/lbd.py:67"
+W_SOURCE = "ncc_argmax.cu"
+W_REPLACES = "limap_tpu/line2d/dense.py:57"
+X_SOURCE = "tplsd_decode.cu"
+X_REPLACES = "limap_tpu/line2d/tp_lsd.py:129"
+Y_SOURCE = "l2d2_patches.cu"
+Y_REPLACES = "limap_tpu/line2d/l2d2.py:114 (get_patch, called at :183)"
+# The JAX package's decoding of DeepLSD's, TP-LSD's and HAWPv3's fields
+# built from the projected GT segments of phase 7's first views
+# (tests/torch_port_reference_gates.py --zoo-fields 4): recall at 3 px.
+ZOO_FIELD_VIEWS = 4
+REFERENCE_ZOO_RECALL = {
+    "deeplsd": [0.3763440860215054, 0.32967032967032966,
+                0.33695652173913043, 0.3626373626373626],
+    "tplsd": [0.989247311827957, 1.0, 0.967391304347826,
+              0.989010989010989],
+    "hawpv3": [0.967741935483871, 1.0, 0.9782608695652174,
+               0.978021978021978]}
+# A segment or two of a view may fall either way of a threshold (the
+# fields' float32 rounding on the card): 3 % of a view's ~92 GT segments.
+ZOO_RECALL_SLACK = 0.03
+# The JAX package's runner on the first ZOO_RUNNER_VIEWS views of phase 7's
+# scene with tpu_lsd and lbd / lbd, dense_naive / dense_ncc
+# (tests/torch_port_reference_gates.py --lbd 16 --dense 16).
+ZOO_RUNNER_VIEWS = 16
+REFERENCE_ZOO_RUNNER = {
+    "lbd": {"n_tracks_all": 351, "n_matches": 157200,
+            "precision_0.05": 99.31506849315068,
+            "recall_0.05": 226.1654657612942},
+    "dense_ncc": {"n_tracks_all": 0, "n_matches": 94,
+                  "precision_0.05": 0.0, "recall_0.05": 0.0}}
+# LBD: the port's CPU run of the same views gives 345 tracks, 157,180
+# matches and precision 98.97 (JAX's jit fuses the descriptor's float32
+# arithmetic, moving its descriptors by up to 2e-3): 3 % of the tracks,
+# 2.5 points of precision.  The weight-free NCC flow (stride-8 grid
+# patches of an untextured wall) finds no consistent flow on these
+# views; its gate is JAX's own result, 0 tracks and 94 matches (the
+# port's CPU run gives the same), within 10 % of the matches.
+ZOO_RUNNER_GATES = {
+    "lbd": (("n_tracks_all", "relative", 0.03),
+            ("precision_0.05", "points", 2.5)),
+    "dense_ncc": (("n_tracks_all", "relative", 0.0),
+                  ("n_matches", "relative", 0.1))}
+# The learned descriptors' runner, card against CPU, on the first views
+ZOO_MATCH_VIEWS = 4
+# The zoo's maps and descriptors card against CPU (TF32 off): within
+# LEARNED_MAP_RTOL of their largest value, as phase 15a's networks; LBD's
+# descriptors are float32 sums in another order (LBD_CARD_TOL).
+LBD_CARD_TOL = 1e-5
+
+
+def zoo_kernels():
+    from limap_tpu_torch.ops import (l2d2_patches, lbd_describe, ncc_argmax,
+                                     tplsd_decode)
+    return {"lbd_describe": lbd_describe.lbd_describe,
+            "ncc_argmax": ncc_argmax.ncc_argmax,
+            "tplsd_decode": tplsd_decode.tplsd_decode,
+            "l2d2_patches": l2d2_patches.l2d2_patches}
+
+
+def reset_zoo_launches():
+    for k in zoo_kernels().values():
+        k.launches = 0
+
+
+def zoo_launches():
+    return {name: k.launches for name, k in zoo_kernels().items()}
+
+
+def match_set_difference(a, b):
+    sa = set(map(tuple, np.asarray(a).reshape(-1, 2).tolist()))
+    sb = set(map(tuple, np.asarray(b).reshape(-1, 2).tolist()))
+    return len(sa), len(sb), len(sa ^ sb)
+
+
+def zoo_card_vs_cpu(ckpt):
+    """Phase 16a: V, W, X and Y against their plain versions on seeded
+    inputs (ties, clipped samples, lines longer than the image), then the
+    zoo's networks at 128 x 128 from the random checkpoints, card against
+    CPU: the detectors' maps and each decoding on the CPU's maps, the
+    descriptors and each matcher's pairs, S2DNet's features."""
+    from limap_tpu_torch.testing import pipeline, zoo, zoo_checks
+    t0 = time.perf_counter()
+    n0 = zoo_launches()
+    for name, case, res in zoo_checks.check_all("cuda"):
+        log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
+        check(res["ok"], (name, "vs plain", case, res))
+    n1 = zoo_launches()
+    check(all(n1[k] > n0[k] for k in n0), ("V, W, X, Y launches counted",
+                                          n0, n1))
+    scene = pipeline.build_scene(n_views=2, hw=(128, 128))
+    imgs = [scene[1][k] for k in (0, 1)]
+    segs = [zoo.noisy_segments(scene, k) for k in (0, 1)]
+    res = zoo.detectors_card_vs_cpu(imgs[0], ckpt["zoo"])
+    res.update(zoo.descriptors_card_vs_cpu(imgs, segs, ckpt["zoo"],
+                                           ckpt["superpoint"]))
+    res.update(zoo.s2dnet_card_vs_cpu(imgs[0], ckpt["s2dnet"]))
+    log(f"[zoo card-vs-cpu] 128 x 128: {json.dumps(res)}")
+    for k in ("deeplsd_df", "deeplsd_angle", "tplsd_center", "tplsd_disp",
+              "l2d2_desc", "linetr_desc", "gluestick_desc", "s2dnet"):
+        check(res[k] <= LEARNED_MAP_RTOL, (k, res[k]))
+    check(res["hawpv3_scores"] <= zoo.HAWP_SCORE_RTOL,
+          ("hawpv3 scores", res["hawpv3_scores"]))
+    check(res["hawpv3_maps_excess"] <= 1.0,
+          ("hawpv3 maps beyond their scores' error",
+           res["hawpv3_maps_excess"]))
+    check(res["lbd_desc"] <= LBD_CARD_TOL, ("lbd descriptors",
+                                           res["lbd_desc"]))
+    check(res["tplsd_decode_equal"], "X card vs CPU on the CPU's maps")
+    g, c = res["deeplsd_segments"]
+    check(abs(g - c) <= 0.1 * c + 1, ("DeepLSD segments", g, c))
+    check(res["hawpv3_segments"][0] == res["hawpv3_segments"][1],
+          ("HAWPv3 segments", res["hawpv3_segments"]))
+    for m in ("lbd", "l2d2", "linetr", "gluestick", "dense_naive"):
+        ng, nc, diff = res[f"{m}_matches"]
+        check(diff <= MATCH_DIFF_SHARE * nc + 1, (m, "matches", ng, nc,
+                                                  diff))
+    log(f"[zoo card-vs-cpu] phase 16a took {time.perf_counter() - t0:.1f} s")
+
+
+def zoo_detectors_full_width(scene, ckpt, card, dev="cuda"):
+    """Phase 16's detectors at 600 x 800: each network forward on view 0,
+    card against CPU and timed on the card; then each decoding on the card
+    on fields built from the projected GT segments of ZOO_FIELD_VIEWS
+    views, gated on recall against the JAX package's.  Returns X's
+    largest input on the path."""
+    from limap_tpu_torch.line2d import deeplsd, hawpv3, tp_lsd
+    from limap_tpu_torch.ops import tplsd_decode as X
+    from limap_tpu_torch.testing import zoo
+    img = scene[1][0]
+    H, W = img.shape[:2]
+    opts = {"weight_path": ckpt["zoo"]}
+    dets = {"deeplsd": deeplsd.DeepLSDDetector,
+            "tplsd": tp_lsd.TPLSDDetector, "hawpv3": hawpv3.HAWPv3Detector}
+    def hawp_scores(d):
+        with torch.no_grad():
+            return (d.net.scores(d.image_tensor(img)),)
+
+    # HAWPv3's scores are held to zoo.HAWP_SCORE_RTOL and its maps texel
+    # by texel to what the scores' difference allows
+    maps = {"deeplsd": lambda d: d.fields(img), "tplsd": lambda d: d.maps(img),
+            "hawpv3": hawp_scores}
+    rtol = {"deeplsd": LEARNED_MAP_RTOL, "tplsd": LEARNED_MAP_RTOL,
+            "hawpv3": zoo.HAWP_SCORE_RTOL}
+    rec_x = Recorder(X, "tplsd_decode", lambda c, *a, **k: c.numel())
+    try:
+        for name, cls in dets.items():
+            dg, dc = cls(dict(opts, device=dev)), cls(dict(opts,
+                                                           device="cpu"))
+            mg, mc = maps[name](dg), maps[name](dc)
+            err = max(zoo.rel_err(a, b) for a, b in zip(mg, mc))
+            secs = cuda_ms(lambda: maps[name](dg), 3) if dev == "cuda" \
+                else float("nan")
+            t1 = time.perf_counter()
+            found = dg.detect_array(img)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            log(f"[zoo] {name} forward at {H} x {W} on {card}: "
+                f"{secs:.3f} ms; maps card vs CPU relative {err:.3e}; "
+                f"detect a view {time.perf_counter() - t1:.3f} s, "
+                f"{len(found)} segments (random weights)")
+            check(err <= rtol[name], (name, "maps card vs CPU", err))
+            if name == "hawpv3":
+                excess = zoo.hawp_maps_excess(mg[0], mc[0])
+                log(f"[zoo] hawpv3 maps card vs CPU: at most {excess:.3f} "
+                    f"of what the scores' difference allows")
+                check(excess <= 1.0, ("hawpv3 maps beyond their scores' "
+                                      "error", excess))
+        views = zoo.gt_field_views(scene, range(ZOO_FIELD_VIEWS))
+        got = {k: [] for k in REFERENCE_ZOO_RECALL}
+        for i, segs in views.items():
+            hw = scene[1][i].shape[:2]
+            df, ang = (torch.as_tensor(a, device=dev)
+                       for a in zoo.deeplsd_fields(segs, hw))
+            d = deeplsd.segments_from_fields(df, ang)
+            c, disp = (torch.as_tensor(a, device=dev)
+                       for a in zoo.tplsd_fields(segs, hw))
+            t, n = tp_lsd.tplsd_decode(c, disp, 512)
+            t = t.cpu().numpy()[:int(n)]
+            m = {k: torch.as_tensor(v, device=dev)
+                 for k, v in zoo.hawp_fields(segs, hw).items()}
+            h = hawpv3.decode(m, *hw)
+            for name, det in (("deeplsd", d), ("tplsd", t), ("hawpv3", h)):
+                got[name].append(zoo.recall_xy(det, segs))
+        log(f"[zoo] decoding on the GT fields of {ZOO_FIELD_VIEWS} views: "
+            f"recall {json.dumps(got)}; the JAX package's "
+            f"{json.dumps(REFERENCE_ZOO_RECALL)}")
+        for name, ref in REFERENCE_ZOO_RECALL.items():
+            for r, g in zip(ref, got[name]):
+                check(g >= r - ZOO_RECALL_SLACK, (name, "GT-field recall",
+                                                  got[name], ref))
+    finally:
+        rec_x.restore()
+    return rec_x.args
+
+
+def zoo_runner_full_width(workdir, method, card, dev="cuda",
+                          n_views=ZOO_RUNNER_VIEWS):
+    """Phase 16's weight-free descriptors: the from-pixels runner with
+    tpu_lsd and lbd / lbd or dense_naive / dense_ncc on the first views of
+    phase 7's scene, gated on tracks and precision against the JAX
+    package's run.  Returns the largest V or W input of the path."""
+    from limap_tpu_torch.line2d import dense as dense_mod
+    from limap_tpu_torch.line2d import lbd as lbd_mod
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline
+    ext, mat = ("lbd", "lbd") if method == "lbd" else ("dense_naive",
+                                                       "dense_ncc")
+    imagecols, _, nbrs, gt = pipeline.build_scene(
+        n_views, image_dir=os.path.join(workdir, "images"))
+    cfg = pipeline.runner_config(os.path.join(workdir, "out"),
+                                 n_neighbors=len(nbrs[0]))
+    cfg["line2d"]["extractor"] = {"method": ext}
+    cfg["line2d"]["matcher"]["method"] = mat
+    if method == "lbd":
+        rec = Recorder(lbd_mod, "lbd_describe", lambda i, s, v: s.shape[0])
+    else:
+        rec = Recorder(dense_mod, "ncc_argmax",
+                       lambda a, b: a.shape[0] * b.shape[0])
+    t0 = time.perf_counter()
+    try:
+        tracks = line_triangulation(cfg, imagecols, nbrs, device=dev)
+    finally:
+        rec.restore()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(cfg["dir_save"], "metrics.json")) as f:
+        stages = json.load(f)["stages_s"]
+    matches_dir = os.path.join(cfg["dir_save"], "line_matchings", "tpu_lsd",
+                               f"feats_{ext}", f"matches_{mat}")
+    n_matches = sum(len(m) for i in nbrs for m in np.load(
+        os.path.join(matches_dir, f"matches_{i}.npy"),
+        allow_pickle=True).item().values())
+    quality = pipeline.quality_eval(tracks, gt)
+    measured = dict(quality, n_tracks_all=len(tracks), n_matches=n_matches)
+    log(f"[zoo runner] {ext} / {mat}, {n_views} views, {wall:.3f} s; stage "
+        f"seconds {json.dumps(stages)} on {card}; {n_matches} matches, "
+        f"{len(tracks)} tracks; quality_eval {json.dumps(quality)}")
+    check(np.isfinite([x.line for x in tracks]).all(),
+          (mat, "non-finite lines"))
+    hold_to_gates(f"{mat} runner", measured, REFERENCE_ZOO_RUNNER[mat],
+                  ZOO_RUNNER_GATES[mat])
+    return rec.args
+
+
+def shuffled_copy(method, info, seed=0):
+    """A descinfo of ``method`` and a copy of it with its lines in a
+    shuffled order; returns (copy, expected: a line's copy)."""
+    if method == "gluestick":
+        n = len(info["lines"])
+    elif method == "linetr":
+        n = info["mat_klines2sublines"].shape[0]
+    else:
+        n = len(info["line_descriptors"])
+    perm = np.random.default_rng(seed).permutation(n)
+    if method == "gluestick":
+        rows = (2 * perm[:, None] + np.arange(2)).reshape(-1)
+        copy = dict(info, lines=info["lines"][perm],
+                    junctions=info["junctions"][rows],
+                    junc_desc=info["junc_desc"][rows],
+                    junc_score=info["junc_score"][rows])
+    elif method == "linetr":
+        copy = dict(info, mat_klines2sublines=info[
+            "mat_klines2sublines"][perm])
+    else:
+        copy = dict(info, line_descriptors=info["line_descriptors"][perm])
+    expected = np.empty(n, np.int64)
+    expected[perm] = np.arange(n)
+    return copy, expected
+
+
+def zoo_descriptors_full_width(scene, ckpt, workdir, card, dev="cuda",
+                               n_views=ZOO_MATCH_VIEWS):
+    """Phase 16's learned descriptors (random weights): L2D2, LineTR and
+    GlueStick on view 0 at 600 x 800 against a shuffled copy of its lines
+    on the card (every match must be the copy); then each in the runner
+    on the first views, on the CPU and on the card with the CPU's
+    segments (matches equal up to a near tie).  Returns Y's largest
+    input on the path."""
+    from limap_tpu_torch.line2d import get_extractor, get_matcher
+    from limap_tpu_torch.line2d import l2d2 as l2d2_mod
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline, zoo
+    img = scene[1][0]
+    segs = zoo.noisy_segments(scene, 0)
+    rec_y = Recorder(l2d2_mod, "l2d2_patches", lambda i, m, b: m.shape[0])
+    try:
+        for method in ("l2d2", "linetr", "gluestick"):
+            ext = get_extractor({"method": method,
+                                 "sp_weight_path": ckpt["superpoint"]},
+                                weight_path=ckpt["zoo"], device=dev)
+            mat = get_matcher({"method": method, "topk": 0,
+                               "match_threshold": 0.01}, ext,
+                              weight_path=ckpt["zoo"], device=dev)
+            t1 = time.perf_counter()
+            info = (ext.compute_descinfo(img, segs) if method == "linetr"
+                    else ext.extract_array(img, segs))
+            t_ext = time.perf_counter() - t1
+            copy, expected = shuffled_copy(method, info)
+            t1 = time.perf_counter()
+            m = mat.match_pair(info, copy)
+            t_mat = time.perf_counter() - t1
+            right = int((expected[m[:, 0]] == m[:, 1]).sum()) if len(m) \
+                else 0
+            log(f"[zoo] {method} at 600 x 800, {len(expected)} lines on "
+                f"{card}: describe {t_ext:.3f} s, match {t_mat:.3f} s; "
+                f"{len(m)} matches against the shuffled copy, {right} "
+                f"the copy")
+            # random weights make the descriptors of different lines
+            # alike: LineTR's mutual test drops a row whose near-zero
+            # distances tie, GlueStick's OT spreads a row over every
+            # column; a floor of matches, each its copy
+            floor = {"l2d2": 0.9 * len(expected),
+                     "linetr": 0.5 * len(expected)}.get(method, 10)
+            check(len(m) >= floor and right == len(m),
+                  (method, "the shuffled copy not recovered", len(m), right))
+    finally:
+        rec_y.restore()
+    imagecols, imgs, nbrs, _ = pipeline.build_scene(
+        n_views, image_dir=os.path.join(workdir, "images"))
+    for method in ("l2d2", "linetr", "gluestick"):
+        matches = {}
+        for d in ("cpu", dev):
+            out = os.path.join(workdir, f"{method}_{d}")
+            cfg = pipeline.runner_config(out, n_neighbors=len(nbrs[0]))
+            cfg["weight_path"] = ckpt["zoo"]
+            cfg["line2d"]["extractor"] = {
+                "method": method, "sp_weight_path": ckpt["superpoint"]}
+            cfg["line2d"]["matcher"]["method"] = method
+            # the random GNN's OT leaves few rows above the published 0.2
+            cfg["line2d"]["matcher"]["match_threshold"] = 0.01
+            if d != "cpu":
+                cfg.update(load_det=True, load_dir=os.path.join(
+                    workdir, f"{method}_cpu"))
+            line_triangulation(cfg, imagecols, nbrs, device=d)
+            mdir = os.path.join(cfg["dir_save"], "line_matchings",
+                                "tpu_lsd", f"feats_{method}",
+                                f"matches_{method}")
+            matches[d] = {i: np.load(os.path.join(
+                mdir, f"matches_{i}.npy"), allow_pickle=True).item()
+                for i in nbrs}
+        diffs = [match_set_difference(matches[dev][i][j],
+                                      matches["cpu"][i][j])
+                 for i in nbrs for j in nbrs[i]]
+        n_c = sum(x[1] for x in diffs)
+        n_d = sum(x[2] for x in diffs)
+        log(f"[zoo runner card-vs-cpu] {method}, {n_views} views: "
+            f"{sum(x[0] for x in diffs)} and {n_c} matches, {n_d} in one "
+            f"only")
+        check(n_d <= MATCH_DIFF_SHARE * n_c + 2, (method, "runner matches",
+                                                   n_d, n_c))
+    gluestick_pair_card_vs_cpu(ckpt, imgs, nbrs, os.path.join(
+        workdir, "gluestick_cpu"), dev)
+    return rec_y.args
+
+
+GLUESTICK_PAIR_THRESHOLD = 1e-3
+
+
+def gluestick_pair_card_vs_cpu(ckpt, imgs, nbrs, cpu_out, dev="cuda"):
+    """The random GNN's OT leaves no pair of the runner above its
+    threshold, so GlueStick's line scores and OT are held card against
+    CPU on one pair of the CPU run's views and segments, and the mutual
+    best entries above GLUESTICK_PAIR_THRESHOLD may differ only on a near
+    tie of the OT."""
+    from limap_tpu_torch.line2d import get_extractor, get_matcher
+    from limap_tpu_torch.line2d.gluestick import matches_from_assignment
+    from limap_tpu_torch.util import io as limapio
+    segs = limapio.read_all_segments_from_folder(os.path.join(
+        cpu_out, "line_detections", "tpu_lsd", "segments"))
+    opts = {"method": "gluestick", "sp_weight_path": ckpt["superpoint"]}
+    ext = get_extractor(opts, device="cpu")
+    i, j = 0, nbrs[0][0]
+    info = [ext.extract_array(imgs[k], segs[k]) for k in (i, j)]
+    out = {}
+    for d in ("cpu", dev):
+        mat = get_matcher({"method": "gluestick", "topk": 0}, ext,
+                          weight_path=ckpt["zoo"], device=d)
+        sc = mat.scores(*info)
+        z = mat.assignment(sc)
+        m = matches_from_assignment(z, GLUESTICK_PAIR_THRESHOLD)
+        m0 = np.full(len(info[0]["lines"]), -1, np.int64)
+        m0[m[:, 0]] = m[:, 1]
+        out[d] = (sc.cpu(), z.cpu(), m0)
+    (sc, zc, mc), (sg, zg, mg) = out["cpu"], out[dev]
+    s_err = float((sg - sc).abs().max())
+    z_err = float((zg - zc).abs().max())
+    rows, bad = ot_match_differences(zg.numpy(), zc.numpy(), mg, mc,
+                                     GLUESTICK_PAIR_THRESHOLD)
+    log(f"[zoo] GlueStick on views {i} and {j} ({len(mc)} x "
+        f"{len(info[1]['lines'])} lines), card against CPU: line scores "
+        f"{s_err:.3e}, OT {z_err:.3e}; {int((mg >= 0).sum())} and "
+        f"{int((mc >= 0).sum())} matches at {GLUESTICK_PAIR_THRESHOLD}, "
+        f"{len(rows)} rows differ, {len(bad)} not a near tie")
+    check(s_err <= LEARNED_MAP_RTOL, ("GlueStick line scores", s_err))
+    # the OT's input is 10 x the scores
+    check(z_err <= 20 * LEARNED_MAP_RTOL + 1e-4, ("GlueStick OT", z_err))
+    check(not bad, ("GlueStick matches differ", bad[:10]))
+
+
+def s2dnet_full_width(scene, ckpt, workdir, dev="cuda"):
+    """Phase 16's S2DNet: features at 600 x 800 card against CPU, then
+    phase 12a's reduced façade refined with S2DNet features in the
+    consistency term, on the CPU and on the card."""
+    from limap_tpu_torch.features.extractors import S2DNetExtractor
+    from limap_tpu_torch.pointsfm import ReadInfos, ReadPointTracks
+    from limap_tpu_torch.runners import line_triangulation
+    from limap_tpu_torch.testing import pipeline, pointline
+    from limap_tpu_torch.util import io as limapio
+    img = scene[1][0]
+    fg = S2DNetExtractor(ckpt["s2dnet"], device=dev).extract(img)
+    fc = S2DNetExtractor(ckpt["s2dnet"], device="cpu").extract(img)
+    err = float((fg.cpu() - fc).abs().max())
+    log(f"[zoo] S2DNet at 600 x 800: {tuple(fg.shape)}, card vs CPU "
+        f"{err:.3e}")
+    check(err <= LEARNED_MAP_RTOL, ("S2DNet card vs CPU", err))
+    small = dict(n_views=8, hw=(240, 320), n_points=400)
+    model, image_dir, gt = pipeline.write_colmap_scene(workdir, **small)
+    cfg = pipeline.colmap_vp_config(os.path.join(workdir, "map"))
+    cols = ReadInfos(model, image_dir)
+    tracks = line_triangulation(cfg, cols, points3d=ReadPointTracks(model),
+                                device="cpu")
+    segs = limapio.read_all_segments_from_folder(os.path.join(
+        workdir, "map", "line_detections", "tpu_lsd", "segments"))
+    model2, _, _ = pipeline.write_colmap_scene(
+        os.path.join(workdir, "points"), n_line_points=800, **small)
+    out = {}
+    for d in ("cpu", dev):
+        out[d] = pointline.run(tracks, cols, segs, model2, gt,
+                               os.path.join(workdir, d), d,
+                               n_wall_points=400, features="s2dnet",
+                               weight_path=ckpt["s2dnet"], associate=False)
+    (c, sc), (g, sg) = out["cpu"], out[dev]
+    log(f"[zoo] line refinement with S2DNet features on phase 12a's "
+        f"{len(tracks)} tracks: CPU summary {json.dumps(sc['refined_px'])}, "
+        f"card {json.dumps(sg['refined_px'])}")
+    pixel_card_vs_cpu(c, g, sc["refined_px"], sg["refined_px"])
+
+
+def measure_zoo(items):
+    """V, W, X and Y on their phase-16 inputs, ``items`` [(kernel, path,
+    args, launches on the path)]: each held to its plain version and
+    timed in turns with its bound; W also beside torch.matmul + max."""
+    from limap_tpu_torch.ops import l2d2_patches as Y
+    from limap_tpu_torch.ops import lbd_describe as V
+    from limap_tpu_torch.ops import ncc_argmax as W
+    from limap_tpu_torch.ops import tplsd_decode as X
+    from limap_tpu_torch.testing import zoo_checks
+    entries = []
+    for name, path, args, launches in items:
+        if name == "lbd_describe":
+            img, segs, valid = args
+            err = float((V.lbd_describe(*args)
+                         - V.lbd_describe_plain(*args)).abs().max())
+            check(err <= zoo_checks.LBD_TOL, ("V vs plain", path, err))
+            ops, nbytes = V.work(*img.shape, segs.shape[0])
+            entries.append(timed_entry(
+                name, path, V_SOURCE, V_REPLACES, launches, V.lbd_describe,
+                V.lbd_describe_plain, args, {}, err, *bound(ops, nbytes),
+                {"lines": segs.shape[0], "image": list(img.shape),
+                 "operations": ops, "bytes": nbytes, "library": "none"},
+                (5, 1)))
+        elif name == "ncc_argmax":
+            f1, f2 = args
+            ik, sk = W.ncc_argmax(*args)
+            ip, sp = W.ncc_argmax_plain(*args)
+            rows, bad, serr = zoo_checks.ncc_witness(
+                f1.cpu().numpy(), f2.cpu().numpy(), ik, sk, ip, sp)
+            check(not bad and serr <= zoo_checks.NCC_TIE,
+                  ("W vs plain", path, len(rows), bad[:5], serr))
+            ops, nbytes = W.work(f1.shape[0], f2.shape[0], f1.shape[1])
+            entry = timed_entry(
+                name, path, W_SOURCE, W_REPLACES, launches, W.ncc_argmax,
+                W.ncc_argmax_plain, args, {}, serr, *bound(ops, nbytes),
+                {"N1": f1.shape[0], "N2": f2.shape[0], "D": f1.shape[1],
+                 "rows_differ": len(rows), "operations": ops,
+                 "bytes": nbytes,
+                 "library": "torch.max(f1 @ f2.T, dim=1)"}, (5, 1))
+            entry["library_ms"] = cuda_ms(
+                lambda: torch.max(f1 @ f2.T, dim=1), 5)
+            entries.append(entry)
+        elif name == "tplsd_decode":
+            c, d, max_segs, thresh, r = args
+            sk, nk = X.tplsd_decode(*args)
+            sp, np_ = X.tplsd_decode_plain(*args)
+            check(torch.equal(sk, sp) and int(nk) == int(np_),
+                  ("X vs plain", path))
+            n_peaks = int((X.peak_scores(c, thresh, r) > 0).sum())
+            ops, nbytes = X.work(*c.shape, max_segs, r, n_peaks)
+            entries.append(timed_entry(
+                name, path, X_SOURCE, X_REPLACES, launches, X.tplsd_decode,
+                X.tplsd_decode_plain, args, {}, 0.0, *bound(ops, nbytes),
+                {"map": list(c.shape), "max_segs": max_segs,
+                 "peaks": n_peaks, "bit_equal_to_plain": True,
+                 "operations": ops, "bytes": nbytes, "library": "none"},
+                (10, 2)))
+        else:
+            img, minv, boxes = args
+            k = Y.l2d2_patches(*args)
+            p = Y.l2d2_patches_plain(*args)
+            check(torch.equal(k, p), ("Y vs plain", path,
+                                      float((k - p).abs().max())))
+            ops, nbytes = Y.work(img.shape, minv, boxes)
+            entries.append(timed_entry(
+                name, path, Y_SOURCE, Y_REPLACES, launches, Y.l2d2_patches,
+                Y.l2d2_patches_plain, args, {}, 0.0, *bound(ops, nbytes),
+                {"lines": minv.shape[0], "image": list(img.shape),
+                 "outside_canvas": int(((boxes[:, 0] < 0)
+                                        | (boxes[:, 1] < 0)).sum()),
+                 "bit_equal_to_plain": True, "operations": ops,
+                 "bytes": nbytes, "library": "none"}, (10, 2)))
+    return entries
+
+
+def zoo_full_width(scene, ckpt, card):
+    """Phase 16: the zoo's paths at full width with V, W, X, Y and R's
+    launches counted over them, then the kernels on their inputs."""
+    from limap_tpu_torch.ops import log_sinkhorn as R
+    reset_zoo_launches()
+    R.log_sinkhorn.launches = 0
+    t0 = time.perf_counter()
+    x_args = zoo_detectors_full_width(scene, ckpt, card)
+    log(f"[zoo] the detectors took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        t1 = time.perf_counter()
+        v_args = zoo_runner_full_width(os.path.join(workdir, "lbd"), "lbd",
+                                       card)
+        w_args = zoo_runner_full_width(os.path.join(workdir, "dense"),
+                                       "dense_ncc", card)
+        log(f"[zoo] the LBD and dense runners took "
+            f"{time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        y_args = zoo_descriptors_full_width(scene, ckpt,
+                                            os.path.join(workdir, "desc"),
+                                            card)
+        log(f"[zoo] the learned descriptors took "
+            f"{time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        s2dnet_full_width(scene, ckpt, os.path.join(workdir, "s2dnet"))
+        log(f"[zoo] S2DNet took {time.perf_counter() - t1:.1f} s")
+    launches = zoo_launches()
+    r_launches = R.log_sinkhorn.launches
+    log(f"[zoo] phase 16's paths took {time.perf_counter() - t0:.1f} s; "
+        f"launches {json.dumps(launches)}, log_sinkhorn {r_launches}")
+    for name, n in launches.items():
+        check(n > 0, f"phase 16's paths did not launch {name}")
+    check(r_launches > 0, "GlueStick's OT did not launch log_sinkhorn")
+    return measure_zoo([
+        ("lbd_describe", "lbd_runner", v_args, launches["lbd_describe"]),
+        ("ncc_argmax", "dense_runner", w_args, launches["ncc_argmax"]),
+        ("tplsd_decode", "tplsd_detect", x_args, launches["tplsd_decode"]),
+        ("l2d2_patches", "l2d2_describe", y_args, launches["l2d2_patches"])])
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
@@ -3785,13 +4362,16 @@ def main():
                                      sample_descriptors, sold2_lines,
                                      trace_roots, tri_propose, tri_score,
                                      vp_detect)
+    from limap_tpu_torch.ops import (l2d2_patches, lbd_describe, ncc_argmax,
+                                     tplsd_decode)
     from limap_tpu_torch.testing import (fitnmerge_checks, kernel_checks,
                                          lm_checks, tri_checks, vp_checks)
     t0 = time.perf_counter()
     libs = (nnd, trace_roots, pose_score, epipolar_iou, line_ransac,
             linker_edges, tri_propose, tri_score, lm_line_ba, lm_jointloc,
             vp_detect, lm_line_refine, lm_assoc, mesh_distance, hybrid_ba,
-            log_sinkhorn, sample_descriptors, sold2_lines)
+            log_sinkhorn, sample_descriptors, sold2_lines, lbd_describe,
+            ncc_argmax, tplsd_decode, l2d2_patches)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda m: m.build(), libs))
     log(f"[build] {len(libs)} kernel libraries built in "
@@ -4154,10 +4734,18 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         items += sinkhorn_runner_full_width(workdir, card)
     items += sold2_full_width(scene, ckpt, card)
-    ckpt_dir.cleanup()
     log(f"[learned] phase 15's paths took {time.perf_counter() - t0:.1f} s")
     entries += measure_learned(items)
     log(f"[learned] phase 15 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 16a. the rest of the learned zoo, card against CPU ----
+    zoo_card_vs_cpu(ckpt)
+
+    # ---- 16. the rest of the learned zoo at full width ----
+    t0 = time.perf_counter()
+    entries += zoo_full_width(scene, ckpt, card)
+    ckpt_dir.cleanup()
+    log(f"[zoo] phase 16 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

@@ -105,3 +105,48 @@ def sold2_state_dict(params) -> dict:
             a = np.transpose(a, (3, 2, 0, 1))
         out[k] = torch.as_tensor(np.array(a))
     return out
+
+
+def _hwio_state_dict(params) -> dict:
+    """Parameters with HWIO conv kernels (the reference's convolutional
+    detectors and L2D2) as a state dict with OIHW kernels."""
+    out = {}
+    for k, v in params.items():
+        a = np.asarray(v, np.float32)
+        if a.ndim == 4:
+            a = np.transpose(a, (3, 2, 0, 1))
+        out[k] = torch.as_tensor(np.array(a))
+    return out
+
+
+def deeplsd_state_dict(params) -> dict:
+    return _hwio_state_dict(params)
+
+
+def hawpv3_state_dict(params) -> dict:
+    return _hwio_state_dict(params)
+
+
+def tplsd_state_dict(params) -> dict:
+    return _hwio_state_dict(params)
+
+
+def l2d2_state_dict(params) -> dict:
+    return _hwio_state_dict(params)
+
+
+def linetr_state_dict(params) -> dict:
+    """LineTR's parameters are kept in the torch layout already."""
+    return {k: torch.as_tensor(np.array(v, np.float32))
+            for k, v in params.items()}
+
+
+def gluestick_state_dict(params) -> dict:
+    """GlueStick's parameters are kept in the torch layout already."""
+    return linetr_state_dict(params)
+
+
+def s2dnet_state_dict(flax_params) -> dict:
+    """The reference's Flax S2DNet parameters ({"params": {layer:
+    {"kernel" HWIO, "bias"}}}) as the port's state dict (OIHW)."""
+    return superpoint_state_dict(flax_params)

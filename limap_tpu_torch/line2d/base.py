@@ -209,20 +209,22 @@ class BaseMatcher:
 
 # ----------------------------------------------------------- factories
 # Methods the reference package registers and this one does not have yet
-# (learned detectors, descriptors and matchers; ROADMAP.md queue 1
-# item 14).
-NOT_PORTED = {
-    "detector": ("deeplsd", "hawpv3", "tp_lsd"),
-    "extractor": ("dense_naive", "gluestick", "l2d2", "lbd", "linetr"),
-    "matcher": ("dense_ncc", "dense_roma", "gluestick", "l2d2", "lbd",
-                "linetr"),
-}
+# (none: every method is ported).
+NOT_PORTED = {"detector": (), "extractor": (), "matcher": ()}
 
 
 def _lookup(kind: str, registry: Dict[str, type], method: str) -> type:
-    import limap_tpu_torch.line2d.endpoints  # noqa: F401  (registers)
+    import limap_tpu_torch.line2d.deeplsd  # noqa: F401  (registers)
+    import limap_tpu_torch.line2d.dense  # noqa: F401
+    import limap_tpu_torch.line2d.endpoints  # noqa: F401
+    import limap_tpu_torch.line2d.gluestick  # noqa: F401
+    import limap_tpu_torch.line2d.hawpv3  # noqa: F401
+    import limap_tpu_torch.line2d.l2d2  # noqa: F401
+    import limap_tpu_torch.line2d.lbd  # noqa: F401
+    import limap_tpu_torch.line2d.linetr  # noqa: F401
     import limap_tpu_torch.line2d.lsd  # noqa: F401
     import limap_tpu_torch.line2d.sold2  # noqa: F401
+    import limap_tpu_torch.line2d.tp_lsd  # noqa: F401
     import limap_tpu_torch.line2d.tpu_lsd  # noqa: F401
     if method in registry:
         return registry[method]

@@ -48,18 +48,53 @@ def superglue_random_state_dict(seed: int = 0) -> dict:
     return sd
 
 
+# the zoo's checkpoints under a weights directory, where both packages'
+# loaders look for them: (name, path under the directory, wrapped in
+# {"model": ...})
+ZOO_FILES = (
+    ("deeplsd", "line2d/DeepLSD/deeplsd_md.tar", True),
+    ("tp_lsd", "line2d/TP_LSD/tp_lsd.pth", True),
+    ("hawpv3", "line2d/HAWPv3/weights/hawpv3_wireframe.pth", True),
+    ("l2d2", "line2d/L2D2/checkpoint_line_descriptor.th", False),
+    ("linetr", "line2d/LineTR/weights/LineTR_weight.pth", False),
+    ("gluestick", "line2d/GlueStick/checkpoint_GlueStick_MD.tar", True),
+)
+
+
+def zoo_random_state_dicts(seed: int = 0) -> dict:
+    """The zoo's seeded random weights (the reference's own draws)."""
+    from limap_tpu_torch.line2d import (deeplsd, gluestick, hawpv3, l2d2,
+                                        linetr, tp_lsd)
+    return {"deeplsd": deeplsd.init_params(seed),
+            "tp_lsd": tp_lsd.init_params(seed),
+            "hawpv3": hawpv3.init_params(seed),
+            "l2d2": l2d2.init_params(seed),
+            "linetr": linetr.init_params(seed),
+            "gluestick": gluestick.init_params(seed)}
+
+
 def write_random_checkpoints(folder: str, seed: int = 0) -> dict:
     """Random weights of SuperPoint, SuperGlue and SOLD2 written under
-    ``folder`` in the published files' layouts; {name: path}."""
+    ``folder`` in the published files' layouts, the zoo's under
+    ``folder/zoo`` where the loaders of a weights directory look, and
+    S2DNet's; {name: path} ("zoo" the weights directory)."""
+    from limap_tpu_torch.features.extractors import s2dnet_random_state_dict
     from limap_tpu_torch.line2d.sold2.nets import init_params
     from limap_tpu_torch.point2d.superpoint import random_state_dict
     os.makedirs(folder, exist_ok=True)
     paths = {k: os.path.join(folder, f) for k, f in (
         ("superpoint", SUPERPOINT_FILE), ("superglue", SUPERGLUE_FILE),
-        ("sold2", SOLD2_FILE))}
+        ("sold2", SOLD2_FILE), ("s2dnet", "s2dnet.pth"))}
     torch.save(random_state_dict(seed), paths["superpoint"])
     torch.save(superglue_random_state_dict(seed), paths["superglue"])
     torch.save({"model_state_dict": init_params(seed)}, paths["sold2"])
+    torch.save(s2dnet_random_state_dict(seed), paths["s2dnet"])
+    paths["zoo"] = os.path.join(folder, "zoo")
+    sds = zoo_random_state_dicts(seed)
+    for name, rel, wrapped in ZOO_FILES:
+        path = os.path.join(paths["zoo"], rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({"model": sds[name]} if wrapped else sds[name], path)
     return paths
 
 

@@ -48,16 +48,21 @@ def configs():
     return dict(r["refinement"], use_vp=True), g
 
 
-def feature_maps(imagecols, device):
-    """Per image the gradient features [H, W, 6] and the heatmap, their
-    gradient magnitude over its largest value."""
+def feature_maps(imagecols, device, features="gradient", weight_path=None):
+    """Per image the dense features of ``features`` ("gradient": [H, W,
+    6]; "s2dnet": [H4, W4, 128]) and the heatmap, the gradient magnitude
+    over its largest value."""
     from limap_tpu_torch.features import GradientFeatureExtractor
-    ext = GradientFeatureExtractor(device=device)
+    from limap_tpu_torch.features.extractors import get_extractor
+    grad = GradientFeatureExtractor(device=device)
+    ext = grad if features == "gradient" else get_extractor(
+        features, weight_path=weight_path, device=device)
     feats, heat = {}, {}
     for img_id in imagecols.get_img_ids():
-        f = ext.extract(imagecols.camview(img_id).read_image(set_gray=True))
-        feats[img_id] = f
-        heat[img_id] = f[..., 1] / torch.clamp(f[..., 1].max(), min=1e-12)
+        img = imagecols.camview(img_id).read_image(set_gray=True)
+        g = grad.extract(img)
+        feats[img_id] = g if ext is grad else ext.extract(img)
+        heat[img_id] = g[..., 1] / torch.clamp(g[..., 1].max(), min=1e-12)
     return feats, heat
 
 
@@ -146,9 +151,13 @@ def vp_summary(vps, th_orth=87.0):
 
 
 def run(tracks, imagecols, all_2d_segs, model_path, gt, out_dir, device,
-        n_wall_points=pipeline.N_POINTS, prof=None):
+        n_wall_points=pipeline.N_POINTS, prof=None, features="gradient",
+        weight_path=None, associate=True):
     """The three steps on ``device``; returns (outputs, summary).
-    ``prof`` a StageProfiler (stage seconds), made here if None."""
+    ``prof`` a StageProfiler (stage seconds), made here if None;
+    ``features`` the dense features of the pixel refinement's
+    consistency term (``weight_path`` their network's weights);
+    ``associate`` False stops after the refinements."""
     from limap_tpu_torch.base.linetrack import (batch_to_tracks,
                                                 tracks_to_batch)
     from limap_tpu_torch.optimize.line_ba import get_output_tracks
@@ -169,7 +178,8 @@ def run(tracks, imagecols, all_2d_segs, model_path, gt, out_dir, device,
         out["refined"] = line_refinement(ref_cfg, tracks, imagecols,
                                          vpresults=vpres, device=device)
     with prof.stage("features"):
-        feats, heat = feature_maps(imagecols, device)
+        feats, heat = feature_maps(imagecols, device, features,
+                                   weight_path)
         id2idx = imagecols.img_id_to_index()
         batch = tracks_to_batch(tracks, id2idx, device=device)
         views = imagecols.batch(device)
@@ -194,6 +204,20 @@ def run(tracks, imagecols, all_2d_segs, model_path, gt, out_dir, device,
     left_rows = np.nonzero(left)[0]
     left64 = float64_ends(batch, views, cfg_px, out["pixel_solve"],
                           result.params, left_rows) if len(left_rows) else []
+    px_summary = dict(
+        track_summary(out["refined_px"], gt),
+        pixel_cost0=float(result.cost0.sum()),
+        pixel_cost=float(result.cost.sum()),
+        n_accepted=int(result.n_accepted.sum()),
+        n_left_patches=int(left.sum()),
+        left_patches_dist_m=line_distances(
+            [out["refined_px"][r] for r in left_rows], gt).tolist(),
+        left_patches_dist_f64_m=line_distances(left64, gt).tolist())
+    if not associate:
+        return out, {"refined": track_summary(out["refined"], gt),
+                     "refined_px": px_summary,
+                     "feature_terms": int((fc[7] > 0).sum()),
+                     "stages_s": dict(prof.times)}
     with prof.stage("association"):
         _, _, p2d, p3d = read_model(model_path)
         cfg = dict(pl_cfg, output_dir=out_dir)
@@ -214,16 +238,7 @@ def run(tracks, imagecols, all_2d_segs, model_path, gt, out_dir, device,
             for l in bpt.neighbor_lines(p)]
     summary = {
         "refined": track_summary(out["refined"], gt),
-        "refined_px": dict(track_summary(out["refined_px"], gt),
-                           pixel_cost0=float(result.cost0.sum()),
-                           pixel_cost=float(result.cost.sum()),
-                           n_accepted=int(result.n_accepted.sum()),
-                           n_left_patches=int(left.sum()),
-                           left_patches_dist_m=line_distances(
-                               [out["refined_px"][r] for r in left_rows],
-                               gt).tolist(),
-                           left_patches_dist_f64_m=line_distances(
-                               left64, gt).tolist()),
+        "refined_px": px_summary,
         "associated": track_summary(new_tracks, gt),
         "input": track_summary(tracks, gt),
         "points": {"n": len(points), "n_on_lines": int(on_line.sum()),

@@ -25,6 +25,7 @@ from limap_tpu_torch.base.infinite_line import (
     segment_from_infinite_line_2d_supports as ptrim)
 from limap_tpu_torch.base.lines import Segments as PSeg
 from limap_tpu_torch.triangulation import functions as ptri
+from torch_threads import two_torch_threads  # noqa: F401
 
 N = 257
 

@@ -636,3 +636,51 @@ def test_learned_kernels_count_launches_and_refuse_bad_inputs(cuda):
                                         device="cuda"),
                             torch.zeros(1, dtype=torch.int32, device="cuda"),
                             torch.ones(1, dtype=torch.int32, device="cuda"))
+
+
+# ------------------------------------------------- V, W, X, Y (item 14)
+def _zoo_cases():
+    from limap_tpu_torch.testing import zoo_checks as ZC
+    return ([("lbd_describe", c[0]) for c in ZC.lbd_cases()]
+            + [("ncc_argmax", c[0]) for c in ZC.ncc_cases()]
+            + [("tplsd_decode", c[0]) for c in ZC.decode_cases()]
+            + [("l2d2_patches", c[0]) for c in ZC.patch_cases()])
+
+
+@pytest.fixture(scope="module")
+def zoo_results():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from limap_tpu_torch.testing import zoo_checks as ZC
+    return {(name, case): res for name, case, res in ZC.check_all("cuda")}
+
+
+@pytest.mark.parametrize("name,case", _zoo_cases())
+def test_zoo_kernels_vs_plain(zoo_results, name, case):
+    res = zoo_results[(name, case)]
+    assert res["ok"], res
+
+
+def test_zoo_kernels_count_launches_and_refuse_bad_inputs(cuda):
+    from limap_tpu_torch.ops import l2d2_patches as Y
+    from limap_tpu_torch.ops import lbd_describe as V
+    from limap_tpu_torch.ops import ncc_argmax as W
+    from limap_tpu_torch.ops import tplsd_decode as X
+    kernels = (V.lbd_describe, W.ncc_argmax, X.tplsd_decode, Y.l2d2_patches)
+    n0 = tuple(k.launches for k in kernels)
+    img = torch.rand(20, 30, device="cuda")
+    V.lbd_describe(img, torch.zeros(0, 4, device="cuda"),
+                   torch.zeros(0, dtype=torch.bool, device="cuda"))
+    W.ncc_argmax(torch.zeros(0, 8, device="cuda"),
+                 torch.ones(3, 8, device="cuda"))
+    X.tplsd_decode(img, torch.zeros(20, 30, 4, device="cuda"), 5)
+    Y.l2d2_patches(img, torch.zeros(0, 6, device="cuda"),
+                   torch.zeros(0, 4, dtype=torch.int32, device="cuda"))
+    n1 = tuple(k.launches for k in kernels)
+    assert n1 == (n0[0], n0[1], n0[2] + 1, n0[3])   # empty: no launch
+    with pytest.raises(ValueError):
+        W.ncc_argmax(torch.zeros(3, 65, device="cuda"),
+                     torch.zeros(3, 65, device="cuda"))
+    with pytest.raises(ValueError):
+        V.lbd_describe(img.double(), torch.zeros(1, 4, device="cuda"),
+                       torch.ones(1, dtype=torch.bool, device="cuda"))

@@ -28,6 +28,7 @@ from limap_tpu_torch.ops.connected_components import (compact_labels,
 from limap_tpu_torch.testing.synthetic import build_scene
 from limap_tpu_torch.triangulation.triangulator import (GlobalLineTriangulator,
                                                         TriangulatorConfig)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def jax_collection(imagecols):

@@ -16,6 +16,7 @@ from limap_tpu_torch.line2d import endpoints as port
 from limap_tpu_torch.line2d import get_matcher
 from limap_tpu_torch.line2d.base import BaseMatcher
 from limap_tpu_torch.line2d.line_utils import merge_lines
+from torch_threads import two_torch_threads  # noqa: F401
 
 DESC_TOL = 1e-5
 

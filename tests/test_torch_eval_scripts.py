@@ -28,6 +28,7 @@ from limap_tpu_torch.runners.hypersim import loader as ploader
 from limap_tpu_torch.scripts import eval_hypersim as peh
 from limap_tpu_torch.scripts import eval_tnt as pet
 from limap_tpu_torch.util import io as pio
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

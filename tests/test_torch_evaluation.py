@@ -18,6 +18,7 @@ from limap_tpu_torch.evaluation import (PointCloudEvaluator,
                                         point_segment_distance)
 from limap_tpu_torch.evaluation import evaluator as pev
 from limap_tpu_torch.testing.evaluation import refline_f64
+from torch_threads import two_torch_threads  # noqa: F401
 
 TOL = 1e-5
 

@@ -28,6 +28,7 @@ from limap_tpu_torch.ops import tri_propose, tri_score
 from limap_tpu_torch.triangulation.triangulator import (GlobalLineTriangulator,
                                                         TriangulatorConfig,
                                                         bucket_program)
+from torch_threads import two_torch_threads  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_oracle_parity import (make_gt_lines, make_views,  # noqa: E402

@@ -10,6 +10,7 @@ from limap_tpu.testing import reference_oracle as oracle
 from test_torch_exhaustive import (ORACLE_CFG, TIE_EPS, TIE_LINE_TOL,
                                    _best_gaps, _jax_exhaustive, _line_err,
                                    _port_exhaustive, _scene, _supports)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

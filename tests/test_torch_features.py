@@ -19,6 +19,7 @@ import limap_tpu_torch.features as T
 from limap_tpu_torch.features.featuremap import LinePatchExtractor as TLPE
 from limap_tpu_torch.features.featuremap import \
     LinePatchExtractorOptions as TLPEO
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _pts(rng, n, H, W, margin=0.0):
@@ -90,7 +91,7 @@ def test_line_patches_match_jax():
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj), atol=5e-5)
 
 
-def test_gradient_extractor_and_featuremap_match_jax():
+def test_gradient_extractor_and_featuremap_match_jax(tmp_path):
     rng = np.random.default_rng(3)
     img = (rng.uniform(size=(32, 48)) * 255).astype(np.uint8)
     fj = J.GradientFeatureExtractor().extract(img)
@@ -101,8 +102,16 @@ def test_gradient_extractor_and_featuremap_match_jax():
     np.testing.assert_allclose(
         T.FeatureMap(ft.numpy(), device="cpu").interpolate(pts).numpy(),
         np.asarray(J.FeatureMap(fj).interpolate(pts)), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.get_extractor("s2dnet")
+    # the learned S2DNet extractor, JAX's Flax weights carried across by
+    # convert.s2dnet_state_dict through a checkpoint file
+    from limap_tpu_torch import convert
+    sj = J.get_extractor("s2dnet")
+    ckpt = tmp_path / "s2dnet.pth"
+    torch.save(convert.s2dnet_state_dict(jax.device_get(sj.params)), ckpt)
+    st = T.get_extractor("s2dnet", weight_path=str(ckpt), device="cpu")
+    # fp32 convolutions in another order: 1e-5 of unit hypercolumns
+    np.testing.assert_allclose(st.extract(img).numpy(),
+                               np.asarray(sj.extract(img)), atol=1e-5)
 
 
 def test_line_patch_extractor_matches_jax():

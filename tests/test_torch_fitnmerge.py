@@ -42,6 +42,7 @@ from limap_tpu_torch.util.config import default_fitnmerge_config
 from test_merging import make_scene as merging_scene
 from test_pipeline_e2e import track_to_gt_error
 from test_torch_runner import make_scene as runner_scene
+from torch_threads import two_torch_threads  # noqa: F401
 
 CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "cfgs", "fitnmerge", "default.yaml")

@@ -11,6 +11,7 @@ from limap_tpu_torch.ops.line_ransac import line_ransac_plain
 from limap_tpu_torch.ops.linker_edges import (linker_edges_plain, pack_bits,
                                               unpack_bits)
 from limap_tpu_torch.testing import fitnmerge_checks as fc
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("case", fc.RANSAC_CASES)

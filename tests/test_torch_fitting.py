@@ -21,6 +21,7 @@ from limap_tpu_torch.base.camera import CameraViewsBatch
 from limap_tpu_torch.base.lines import Segments
 from limap_tpu_torch.fitting import fitting
 from limap_tpu_torch.ops.line_ransac import line_ransac
+from torch_threads import two_torch_threads  # noqa: F401
 
 t = lambda x, dtype=None: torch.as_tensor(np.array(x), dtype=dtype)
 

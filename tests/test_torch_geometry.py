@@ -22,6 +22,7 @@ from limap_tpu_torch.base import lines as plines
 from limap_tpu_torch.base.camera import CameraViewsBatch as PViews
 from limap_tpu_torch.base.lines import Segments as PSeg
 from limap_tpu_torch.triangulation import functions as ptri
+from torch_threads import two_torch_threads  # noqa: F401
 
 N = 97
 

@@ -25,6 +25,7 @@ from limap_tpu_torch.testing import lm_checks
 
 from tests.test_torch_line_refinement import _project, both, scene
 from tests.test_torch_normal_equations import jax_terms
+from torch_threads import two_torch_threads  # noqa: F401
 
 jga = importlib.import_module("limap_tpu.optimize.global_pl_association")
 tga = importlib.import_module(

@@ -34,6 +34,7 @@ from limap_tpu_torch.base.lines import Segments
 from limap_tpu_torch.ops import count_component_sizes
 from limap_tpu_torch.util import geometry as pgeo
 from limap_tpu_torch.util import io as pio
+from torch_threads import two_torch_threads  # noqa: F401
 
 F32, F64 = 1e-5, 1e-9
 

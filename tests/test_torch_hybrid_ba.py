@@ -25,6 +25,7 @@ from limap_tpu_torch import convert
 from limap_tpu_torch.parallel import (HybridBAOptions, make_hybrid_ba_cost,
                                       make_hybrid_ba_step)
 from tests.test_sharded_ba import build_problem
+from torch_threads import two_torch_threads  # noqa: F401
 
 OPTIONS = {
     "dense": {},

@@ -17,6 +17,7 @@ from limap_tpu_torch.parallel import (HybridBAOptions,
 from limap_tpu_torch.structures.pl_bipartite import PointTrack
 from limap_tpu_torch.util.evaluation import eval_imagecols
 from tests.test_hybrid_ba_driver import _scene
+from torch_threads import two_torch_threads  # noqa: F401
 
 N_ITER = 5
 # a cost below this share of the first is at float32's resolution of the

@@ -11,6 +11,7 @@ import torch
 from limap_tpu_torch.ops import hybrid_ba as O
 from limap_tpu_torch.parallel.sharded_ba import HybridBAOptions
 from limap_tpu_torch.testing import hybrid_checks as HC
+from torch_threads import two_torch_threads  # noqa: F401
 
 CASES = [c[0] for c in HC.cases()]
 

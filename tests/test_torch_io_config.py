@@ -24,6 +24,7 @@ from limap_tpu_torch.optimize.line_ba import LineBAConfig
 from limap_tpu_torch.triangulation.triangulator import TriangulatorConfig
 from limap_tpu_torch.util import config, io
 from limap_tpu_torch.util.profiler import StageProfiler
+from torch_threads import two_torch_threads  # noqa: F401
 
 CFGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "cfgs")

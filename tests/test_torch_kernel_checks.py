@@ -12,6 +12,7 @@ from limap_tpu_torch.ops.epipolar_iou import epipolar_iou_grid_plain
 from limap_tpu_torch.ops.pose_score import ScoreParams, pose_score_plain
 from limap_tpu_torch.ops.trace_roots import alpha_grid, trace_roots_plain
 from limap_tpu_torch.testing import kernel_checks as kc
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -29,6 +29,7 @@ from limap_tpu_torch.point2d.superpoint import random_state_dict
 from limap_tpu_torch.pointsfm import run_sfm_with_known_poses
 from limap_tpu_torch.testing import pipeline
 from limap_tpu_torch.testing.learned import superglue_random_state_dict
+from torch_threads import two_torch_threads  # noqa: F401
 
 DESC_TOL = 1e-5
 

@@ -10,6 +10,7 @@ import torch
 from limap_tpu_torch.ops import sample_descriptors as S
 from limap_tpu_torch.ops import sold2_lines as TU
 from limap_tpu_torch.testing import learned_checks as LC
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("mode", ["clamp", "zero"])

@@ -30,6 +30,7 @@ from limap_tpu_torch.ops import lm_line_refine
 from limap_tpu_torch.testing import lm_checks
 
 from tests.test_torch_normal_equations import as64, jax_terms
+from torch_threads import two_torch_threads  # noqa: F401
 
 # the JAX package's optimize/__init__ exports a function of the module's
 # name, so the module itself comes from importlib

@@ -17,6 +17,7 @@ from limap_tpu_torch.optimize.line_ba import get_output_tracks
 from tests.test_torch_line_refinement import (both, build_case,
                                               featuremaps_of, jax_fconsis,
                                               jlr, scene, tlr)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["geometric+vp", "geometric+heatmap",

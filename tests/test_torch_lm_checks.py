@@ -13,6 +13,7 @@ from limap_tpu_torch.ops import lm_jointloc, lm_line_ba
 from limap_tpu_torch.optimize import lm
 from limap_tpu_torch.optimize.line_ba import LineBAConfig, ba_residual
 from limap_tpu_torch.testing import lm_checks as C
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

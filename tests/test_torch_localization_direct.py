@@ -14,6 +14,7 @@ from limap_tpu_torch.base.image_collection import ImageCollection as TCols
 from limap_tpu_torch.estimators import pl_estimate_absolute_pose
 from limap_tpu_torch.util.evaluation import compute_pose_err
 from tests.test_localization import make_problem
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def test_direct_mode_matches_jax():

@@ -17,6 +17,7 @@ from limap_tpu_torch.estimators import pl_estimate_absolute_pose
 from limap_tpu_torch.util.evaluation import compute_pose_err
 from limap_tpu_torch.util.profiler import StageProfiler
 from tests.test_localization import make_problem
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture()

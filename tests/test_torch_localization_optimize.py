@@ -26,6 +26,7 @@ from limap_tpu_torch.ops.pose_score import (ScoreParams, pose_score,
 from limap_tpu_torch.optimize import hybrid_localization as thl
 from limap_tpu_torch.testing import lm_checks
 from tests.test_localization import make_problem
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def t(x):

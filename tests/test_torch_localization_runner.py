@@ -27,6 +27,7 @@ from limap_tpu_torch.ops.epipolar_iou import (epipolar_iou_grid,
 from limap_tpu_torch.testing import pipeline
 from limap_tpu_torch.util.config import default_localization_config
 from limap_tpu_torch.util.evaluation import compute_pose_err
+from torch_threads import two_torch_threads  # noqa: F401
 
 # the runner modules (their packages export the function of that name)
 j_runner_mod = importlib.import_module("limap_tpu.runners.hybrid_localization")

@@ -16,6 +16,7 @@ from limap_tpu_torch.estimators.p3p import kabsch as tkabsch, p3p as tp3p
 from limap_tpu_torch.ops import polynomial as tpoly
 from limap_tpu_torch.ops.trace_roots import alpha_grid
 from tests.test_pnl_solvers import _make_scene, _random_pose
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def t(x):

@@ -21,6 +21,7 @@ from limap_tpu_torch.evaluation import MeshEvaluator, point_triangle_distance
 from limap_tpu_torch.ops import cuda_build
 from limap_tpu_torch.ops import mesh_distance as md
 from limap_tpu_torch.testing import evaluation as ev
+from torch_threads import two_torch_threads  # noqa: F401
 
 TOL = 1e-5
 CASES = ev.mesh_cases()

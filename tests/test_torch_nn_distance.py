@@ -12,6 +12,7 @@ from limap_tpu.evaluation.evaluator import _min_dist_to_points
 from limap_tpu.ops.pallas.nn_distance import min_dist_pallas
 from limap_tpu_torch.ops import cuda_build
 from limap_tpu_torch.ops.nn_distance import nn_min_dist, nn_min_dist_plain
+from torch_threads import two_torch_threads  # noqa: F401
 
 # (S, M): ragged sizes, none a multiple of the TPU tiles (256 x 1024) or
 # of the CUDA kernel's 256 threads / 2048-point tiles; M below one tile;

@@ -16,6 +16,7 @@ from hypothesis import given, settings, strategies as st
 from limap_tpu.evaluation.evaluator import _min_dist_to_points
 from limap_tpu.ops.pallas.nn_distance import min_dist_pallas
 from limap_tpu_torch.ops import nn_distance as nnd
+from torch_threads import two_torch_threads  # noqa: F401
 
 SCENES = ["1m", "10m", "100m", "1000m", "offcentre"]
 SIZES = [(1, 5), (70, 300), (257, 1025), (513, 2049), (33, 4097)]

@@ -17,6 +17,7 @@ from limap_tpu.optimize.line_ba import _build_ba_residual
 from limap_tpu_torch.ops import lm_jointloc, lm_line_ba
 from limap_tpu_torch.optimize.line_ba import LineBAConfig
 from limap_tpu_torch.testing import lm_checks
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def jax_terms(residual_one, retract_fn, D, params, aux):

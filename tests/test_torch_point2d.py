@@ -24,6 +24,7 @@ from limap_tpu.point2d import superpoint as ref_sp
 from limap_tpu_torch import convert
 from limap_tpu_torch.point2d import matching, superpoint
 from limap_tpu_torch.testing import pipeline
+from torch_threads import two_torch_threads  # noqa: F401
 
 FWD_TOL = 1e-5
 SAMPLE_TOL = 1e-6

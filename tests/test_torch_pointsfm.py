@@ -30,6 +30,7 @@ from limap_tpu_torch.pointsfm import (ReadInfos, ReadModelBundler,
                                       run_sfm_with_known_poses,
                                       write_model_txt)
 from limap_tpu_torch.pointsfm.colmap_sfm import write_pairs_from_neighbors
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def ref_collection(rng, n_views=5):

@@ -16,6 +16,7 @@ from limap_tpu_torch.merging.merging import compact_track_batch
 from limap_tpu_torch.testing.synthetic import build_scene
 from limap_tpu_torch.triangulation.triangulator import (GlobalLineTriangulator,
                                                         TriangulatorConfig)
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
@@ -543,8 +544,9 @@ def test_learned_entry_points_run_on_cpu_when_asked(no_gpu, entry,
 
 
 def test_every_reference_method_is_ported_or_waits_for_item_14():
-    """Each method the JAX registries hold is registered in the port or
-    listed in NOT_PORTED, and each listed one raises citing item 14."""
+    """The port's registries hold every method of the JAX registries and
+    NOT_PORTED is empty; each method builds on the CPU, and dense_roma
+    raises as the JAX package raises without romatch."""
     from limap_tpu.line2d import base as ref_base
     from limap_tpu_torch.line2d import base as port_base
     for f in (ref_base.get_detector, ref_base.get_extractor):
@@ -552,21 +554,22 @@ def test_every_reference_method_is_ported_or_waits_for_item_14():
             f({"method": "no_such_method"})   # imports every module
     with pytest.raises(NotImplementedError):
         port_base.get_detector({"method": "no_such_method"}, device="cpu")
-    for kind, ref_reg, reg, get in (
+    for kind, ref_reg, reg in (
             ("detector", ref_base.DETECTOR_REGISTRY,
-             port_base.DETECTOR_REGISTRY, port_base.get_detector),
+             port_base.DETECTOR_REGISTRY),
             ("extractor", ref_base.EXTRACTOR_REGISTRY,
-             port_base.EXTRACTOR_REGISTRY, port_base.get_extractor),
+             port_base.EXTRACTOR_REGISTRY),
             ("matcher", ref_base.MATCHER_REGISTRY,
-             port_base.MATCHER_REGISTRY, None)):
-        waiting = set(port_base.NOT_PORTED[kind])
-        missing = set(ref_reg) - set(reg) - waiting
-        assert not missing, (kind, missing)
-        assert not waiting & set(reg), kind
-        for method in sorted(waiting):
-            with pytest.raises(NotImplementedError, match="item 14"):
-                if get is None:
-                    port_base.get_matcher({"method": method}, None,
-                                          device="cpu")
-                else:
-                    get({"method": method}, device="cpu")
+             port_base.MATCHER_REGISTRY)):
+        assert not port_base.NOT_PORTED[kind], kind
+        assert set(ref_reg) == set(reg), kind
+    for method in ("lbd", "l2d2", "dense_naive"):
+        ext = port_base.get_extractor({"method": method}, device="cpu")
+        assert ext.get_module_name() == method
+    dense = port_base.get_extractor({"method": "dense_naive"}, device="cpu")
+    with pytest.raises(ImportError, match="romatch") as ours:
+        port_base.get_matcher({"method": "dense_roma"}, dense, device="cpu")
+    with pytest.raises(ImportError, match="romatch") as theirs:
+        ref_base.get_matcher({"method": "dense_roma"},
+                             ref_base.get_extractor({"method": "dense_naive"}))
+    assert str(ours.value) == str(theirs.value)

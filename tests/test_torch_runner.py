@@ -25,6 +25,7 @@ from limap_tpu_torch.util.config import load_config
 from limap_tpu_torch.util.profiler import StageProfiler
 
 from test_pipeline_e2e import track_to_gt_line_error
+from torch_threads import two_torch_threads  # noqa: F401
 
 H, W = 240, 320
 WALL_Z = 10.0
@@ -188,10 +189,17 @@ def test_runner_refuses_what_is_not_ported(rng, tmp_path):
         runners.compute_sfminfos(cfg, imagecols,
                                  images={i: None for i in imagecols.images},
                                  device="cpu")
+    # the learned DeepLSD detector runs on the CPU (random weights), here
+    # on two small views
+    os.makedirs(tmp_path / "small")
+    small, _ = make_scene(rng, tmp_path / "small", n_views=2, n_lines=2,
+                          hw=(96, 128))
     cfg = small_cfg(tmp_path / "deeplsd")
     cfg["line2d"]["detector"]["method"] = "deeplsd"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        line_triangulation(cfg, imagecols, device="cpu")
+    assert isinstance(line_triangulation(cfg, small, device="cpu"), list)
+    found = [r for r, _, _ in os.walk(tmp_path / "deeplsd")
+             if r.endswith(os.path.join("deeplsd", "segments"))]
+    assert len(found) == 1 and len(os.listdir(found[0])) == 2
     assert runners.undistort_images(imagecols, str(tmp_path)) is imagecols
 
 

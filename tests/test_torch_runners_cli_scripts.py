@@ -16,6 +16,7 @@ import pytest
 import tests.conftest  # noqa: F401
 from tests.test_torch_runner import (make_scene, nearest_line_distance,
                                      small_cfg)
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

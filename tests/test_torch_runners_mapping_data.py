@@ -15,6 +15,7 @@ import pytest
 
 import tests.conftest  # noqa: F401
 from tests.test_torch_runners_localization_data import same_collection
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -39,6 +39,7 @@ from limap_tpu_torch.triangulation.triangulator import (GlobalLineTriangulator,
 
 from test_torch_edge_cases import jax_collection
 from test_torch_stages import F2D, noisy_scene, unordered_endpoint_error
+from torch_threads import two_torch_threads  # noqa: F401
 
 TAUS = (0.01, 0.05, 0.1)
 N_SAMPLES = 200

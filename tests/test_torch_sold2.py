@@ -19,6 +19,7 @@ from limap_tpu.line2d.sold2 import nets as ref_nets
 from limap_tpu.line2d.sold2 import sold2 as ref_sold2
 from limap_tpu_torch import convert
 from limap_tpu_torch.line2d.sold2 import nets, sold2
+from torch_threads import two_torch_threads  # noqa: F401
 
 MAP_RTOL = 1e-4
 

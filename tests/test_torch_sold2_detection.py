@@ -26,6 +26,7 @@ from limap_tpu_torch.line2d.sold2 import sold2
 from limap_tpu_torch.ops import sold2_lines as TU
 from limap_tpu_torch.testing import learned, pipeline
 from limap_tpu_torch.testing.learned_checks import line_heatmap
+from torch_threads import two_torch_threads  # noqa: F401
 
 DESC_TOL = 1e-6
 

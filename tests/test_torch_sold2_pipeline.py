@@ -16,6 +16,7 @@ from limap_tpu.line2d.sold2 import nets as ref_nets
 from limap_tpu.line2d.sold2 import sold2 as ref_sold2
 from limap_tpu_torch.line2d.sold2 import sold2
 from limap_tpu_torch.testing import pipeline
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -37,6 +37,7 @@ from limap_tpu_torch.triangulation.triangulator import (GlobalLineTriangulator,
                                                         TriangulatorConfig)
 
 from test_torch_edge_cases import jax_collection
+from torch_threads import two_torch_threads  # noqa: F401
 
 F2D = {"th_angular_2d": 10.0, "th_perp_2d": 10.0, "th_sv_angular_3d": 70.0,
        "th_sv_num_supports": 3, "th_overlap": 0.05,

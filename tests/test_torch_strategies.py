@@ -19,6 +19,7 @@ from limap_tpu_torch.triangulation.triangulator import (GlobalLineTriangulator,
 from test_torch_edge_cases import jax_collection
 from test_torch_exhaustive import _line_err, _supports
 from test_torch_stages import noisy_scene
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _strategy_inputs(seed):

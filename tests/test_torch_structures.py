@@ -16,6 +16,7 @@ from limap_tpu_torch.structures.vpline_bipartite import (
     VPLine_Bipartite3d as TVP3d, get_all_bipartites_vpline2d as t_vp2d)
 from limap_tpu_torch.vplib.jlinkage import VPResult as TVPResult
 from limap_tpu_torch.vplib.vptrack import VPTrack as TVPTrack
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def both(cfg=None, **kw):

@@ -20,6 +20,7 @@ from limap_tpu.point2d import superglue as ref_sg
 from limap_tpu_torch import convert
 from limap_tpu_torch.point2d import superglue as sg
 from limap_tpu_torch.testing.learned import superglue_random_state_dict
+from torch_threads import two_torch_threads  # noqa: F401
 
 SCORE_RTOL = 1e-4
 OT_TOL = 1e-5

@@ -13,6 +13,7 @@ from limap_tpu_torch.line2d import tpu_lsd as port
 from limap_tpu_torch.testing.pipeline import draw_line
 
 from test_line2d import gt_coverage
+from torch_threads import two_torch_threads  # noqa: F401
 
 # Both packages add the moments in pixel order on the CPU, so matched
 # endpoints differ by rounding only (measured: 4e-3 px at 240x320)
@@ -140,19 +141,23 @@ def test_registry_builds_the_ported_methods_and_names_the_rest(rng):
         .get_module_name() == "superpoint_endpoints"
     assert get_matcher({"method": "sinkhorn_endpoints"}, ext, device="cpu") \
         .get_module_name() == "sinkhorn_endpoints"
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        get_detector({"method": "deeplsd"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        get_extractor({"method": "lbd"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        get_matcher({"method": "gluestick"}, ext, device="cpu")
+    # the learned zoo builds too (random weights, on the CPU)
+    assert get_detector({"method": "tp_lsd"}, device="cpu") \
+        .get_module_name() == "tp_lsd"
+    lbd = get_extractor({"method": "lbd"}, device="cpu")
+    assert lbd.get_module_name() == "lbd"
+    assert get_matcher({"method": "lbd"}, lbd, device="cpu") \
+        .get_module_name() == "lbd"
+    dense = get_extractor({"method": "dense_naive"}, device="cpu")
+    assert get_matcher({"method": "dense_ncc"}, dense, device="cpu") \
+        .get_module_name() == "dense_ncc"
     with pytest.raises(NotImplementedError, match="unknown detector"):
         get_detector({"method": "no_such_method"}, device="cpu")
 
 
 def test_not_ported_lists_cover_the_reference_registries():
-    """Every method the JAX package registers is either ported or named
-    as waiting."""
+    """Every method the JAX package registers is ported: none is named
+    as waiting any more."""
     from limap_tpu.line2d import base as ref_base
     from limap_tpu_torch.line2d import base as port_base
     for f in (ref_base.get_detector, ref_base.get_extractor):
@@ -170,8 +175,8 @@ def test_not_ported_lists_cover_the_reference_registries():
             ("matcher", ref_base.MATCHER_REGISTRY,
              port_base.MATCHER_REGISTRY)):
         waiting = set(port_base.NOT_PORTED[kind])
-        assert not waiting & set(ours)
-        assert set(theirs) == set(ours) | waiting, kind
+        assert not waiting
+        assert set(theirs) == set(ours), kind
 
 
 def test_lsd_wrapper_detects_like_the_reference(rng):

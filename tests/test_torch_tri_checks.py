@@ -11,6 +11,7 @@ import torch
 
 from limap_tpu_torch.ops import tri_propose, tri_score
 from limap_tpu_torch.testing import tri_checks as tc
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

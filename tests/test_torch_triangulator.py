@@ -18,6 +18,7 @@ from limap_tpu_torch.triangulation.triangulator import (GlobalLineTriangulator,
 
 from test_torch_edge_cases import jax_collection
 from test_torch_stages import noisy_scene
+from torch_threads import two_torch_threads  # noqa: F401
 
 RANGES = (np.array([-6.0, -6.0, 4.0]), np.array([6.0, 6.0, 15.0]))
 OPTIONS = {

@@ -19,6 +19,7 @@ from limap_tpu_torch.runners import functions as runners
 from limap_tpu_torch.undistortion import (undistort_camera,
                                           undistort_image_camera,
                                           undistort_points)
+from torch_threads import two_torch_threads  # noqa: F401
 
 MODELS = {
     "PINHOLE": [300.0, 310.0, 160.0, 120.0],

@@ -6,6 +6,7 @@ the bipartite OBJ export the same file, and the matplotlib plots draw.
 open3d and pyvista are imported only inside the viewers."""
 
 import matplotlib
+from torch_threads import two_torch_threads  # noqa: F401
 
 matplotlib.use("Agg")
 

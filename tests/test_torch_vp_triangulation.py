@@ -46,6 +46,7 @@ from limap_tpu_torch.vplib import VPResult
 
 from test_torch_edge_cases import jax_collection
 from test_torch_runner import nearest_line_distance, small_cfg
+from torch_threads import two_torch_threads  # noqa: F401
 
 K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
 KVEC = np.array([500.0, 500.0, 320.0, 240.0])

@@ -32,6 +32,7 @@ from limap_tpu_torch.vplib import (GlobalVPTrackConstructor, JLinkage,
 from limap_tpu_torch.vplib.jlinkage import segment_tensors
 
 from test_vplib import segments_toward_vp
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def jax_hypotheses(key, n, n_hyp):

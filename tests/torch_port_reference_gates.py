@@ -25,6 +25,8 @@ root:
         --sinkhorn [N_VIEWS]
     JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
         --sold2-gt [N_VIEWS [SCENE_VIEWS]]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference_gates.py \
+        --zoo-fields [N_VIEWS] [--lbd [N_VIEWS]] [--dense [N_VIEWS]]
 
 Without arguments: the slice from given segments and matches
 (triangulate -> tracks -> filters + remerge -> line BA) on the protocol
@@ -570,6 +572,86 @@ def sold2_gt(n_views=4, scene_views=pipeline.N_VIEWS):
     print(json.dumps(out))
 
 
+def zoo_fields(n_views=4):
+    """DeepLSD's, TP-LSD's and HAWPv3's decoding on fields built from the
+    projected GT segments of the first views of phase 7's scene
+    (limap_tpu_torch/testing/zoo.py): detections and recall at 3 px."""
+    import jax.numpy as jnp
+    from limap_tpu.line2d import deeplsd, hawpv3, tp_lsd
+    from limap_tpu_torch.testing import zoo
+    scene = pipeline.build_scene(pipeline.N_VIEWS)
+    out = {"n_views": n_views, "views": {}}
+    t0 = time.perf_counter()
+    for i, segs in zoo.gt_field_views(scene, range(n_views)).items():
+        hw = scene[1][i].shape[:2]
+        df, ang = zoo.deeplsd_fields(segs, hw)
+        d, n = deeplsd.extract_from_fields(jnp.asarray(df), jnp.asarray(ang))
+        d = np.asarray(d)[:int(n)]
+        c, disp = zoo.tplsd_fields(segs, hw)
+        t, n = tp_lsd.tplsd_decode(jnp.asarray(c), jnp.asarray(disp), 512)
+        t = np.asarray(t)[:int(n)]
+        m = zoo.hawp_fields(segs, hw)
+        cand = hawpv3.hafm_decoding(m["md"], m["dis"], m["res"]) \
+            .reshape(-1, 4)
+        j, js = hawpv3.decode_junctions(m["jloc"], m["joff"])
+        h = hawpv3.match_lines_to_junctions(cand, j, js)
+        h[:, :4] *= 4.0
+        out["views"][i] = {"gt_segments": len(segs), **{
+            f"{name}_{k}": v for name, det in (("deeplsd", d),
+                                               ("tplsd", t), ("hawpv3", h))
+            for k, v in (("detected", len(det)),
+                         ("recall", zoo.recall_xy(det, segs)))}}
+    out["total_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+
+
+def zoo_runner(extractor, matcher, n_views=16):
+    """The JAX package's runner on the first views of phase 7's scene
+    with tpu_lsd and the given descriptor and matcher (the from-pixels
+    config otherwise): tracks, matches and quality."""
+    import cv2
+    from limap_tpu.line2d import lbd as ref_lbd
+    from limap_tpu.runners import line_triangulation
+    # the JAX package's LBDExtractor.extract reshapes the segments to 5
+    # columns and so refuses the runner's 4-column ones (ROADMAP.md
+    # section 3): give it a zero score column
+    extract = ref_lbd.LBDExtractor.extract
+
+    def extract5(self, camview, segs):
+        segs = np.asarray(segs)
+        if segs.ndim == 2 and segs.shape[1] == 4:
+            segs = np.concatenate([segs, np.zeros((len(segs), 1))], 1)
+        return extract(self, camview, segs)
+
+    ref_lbd.LBDExtractor.extract = extract5
+    port_cols, imgs, nbrs, gt = pipeline.build_scene(n_views)
+    with tempfile.TemporaryDirectory() as workdir:
+        cols = port_cols.as_dict()
+        for i, img in imgs.items():
+            name = os.path.join(workdir, f"img_{i}.png")
+            cv2.imwrite(name, img)
+            cols["images"][i]["image_name"] = name
+        cfg = pipeline.runner_config(os.path.join(workdir, "out"),
+                                     n_neighbors=len(nbrs[0]))
+        cfg["line2d"]["extractor"] = {"method": extractor}
+        cfg["line2d"]["matcher"]["method"] = matcher
+        t0 = time.perf_counter()
+        tracks = line_triangulation(cfg, ImageCollection.from_dict(cols),
+                                    nbrs)
+        total = time.perf_counter() - t0
+        matches_dir = os.path.join(
+            cfg["dir_save"], "line_matchings", "tpu_lsd",
+            f"feats_{extractor}", f"matches_{matcher}")
+        n_matches = sum(len(m) for i in nbrs for m in np.load(
+            os.path.join(matches_dir, f"matches_{i}.npy"),
+            allow_pickle=True).item().values())
+    print(json.dumps({
+        "extractor": extractor, "matcher": matcher, "n_views": n_views,
+        "n_tracks_all": len(tracks), "n_matches": int(n_matches),
+        "total_s": total, "quality": bench_pipeline.quality_eval(tracks,
+                                                                 gt)}))
+
+
 def main(n_views=100, n_lines=1500, n_neighbors=20):
     t0 = time.perf_counter()
     imagecols, segs, nbrs = bench.build_scene(n_views, n_lines, n_neighbors)
@@ -621,5 +703,20 @@ if __name__ == "__main__":
         sinkhorn(*map(int, sys.argv[2:3]))
     elif sys.argv[1:2] == ["--sold2-gt"]:
         sold2_gt(*map(int, sys.argv[2:4]))
+    elif sys.argv[1:2] and sys.argv[1] in ("--zoo-fields", "--lbd",
+                                           "--dense"):
+        # any of the three, each with its optional view count
+        args = sys.argv[1:]
+        for k, a in enumerate(args):
+            if not a.startswith("--"):
+                continue
+            n = [int(args[k + 1])] if k + 1 < len(args) \
+                and not args[k + 1].startswith("--") else []
+            if a == "--zoo-fields":
+                zoo_fields(*n)
+            elif a == "--lbd":
+                zoo_runner("lbd", "lbd", *n)
+            elif a == "--dense":
+                zoo_runner("dense_naive", "dense_ncc", *n)
     else:
         main()
