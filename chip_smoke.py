@@ -153,6 +153,22 @@ Phases, in order; any failure exits non-zero:
      Phase 16a, before it, holds V, W, X and Y to their plain versions
      on seeded inputs (ties, clipped samples, crops outside the warped
      image) and the zoo's networks at 128 x 128 card to CPU.
+ 17. the multi-card form (parallel/mesh.py, parallel/distributed.py) on
+     the one card: (a) phase 14's hybrid BA, 20 steps, over make_mesh()
+     of one NCCL rank in this process, bit-equal to the one-card call;
+     (b) two gloo ranks sharing the card (testing/multirank.py, spawned),
+     each launching F and G, and O, P and Q, on its block:
+     triangulate_all_mesh on phase 4's protocol scene against
+     triangulate_all here (node tables, tracks and supports),
+     run_distributed_mapping with shard_image_ids and
+     all_gather_host_dicts against the one-rank tracks, and phase 14's BA
+     with the dense solver and with CG, 20 steps each, against the
+     one-card runs (costs rtol 5e-3 with atol 1e-5 of the first, poses
+     1e-4 (CG's: or the one-card CG run's own distance from the dense
+     solve, where larger), lines 1e-3, the median pose errors inside
+     phase 14's gates), both ranks' results identical; each sub-step's
+     seconds, a BA step's collectives, their bytes and the share of the
+     step spent in them.
 Phase 2 also holds kernels O, P and Q to their plain versions on seeded
 inputs (lines and points, optimize_focal on and off, each constancy flag,
 ragged slots of weight 0, one track, one support).
@@ -2870,6 +2886,18 @@ def measure_hybrid(recorded, launches, gt_line_call=None, gt_launches=None):
     return entries
 
 
+def refine_ba_inputs(scene, out):
+    """Phase 14's BA inputs, kept for phase 17: the noisy collection, the
+    point tracks, the line map and the GT collection."""
+    from limap_tpu_torch.runners.hypersim.refine_sfm import \
+        read_colmap_inputs
+    from limap_tpu_torch.testing import refine
+    imagecols, pointtracks = read_colmap_inputs(scene["model"],
+                                                scene["image_dir"])
+    return (imagecols, pointtracks, out["linetracks_in"],
+            refine.imagecols_gt_read(scene))
+
+
 def refine_clis(scene, direct, workdir, card):
     """Phase 14's CLIs in process on the façade: visualsfm_triangulation
     on the GT model converted by scripts/convert_model.py and
@@ -4340,6 +4368,221 @@ def zoo_full_width(scene, ckpt, card):
         ("l2d2_patches", "l2d2_describe", y_args, launches["l2d2_patches"])])
 
 
+# Phase 17: the ranks, the BA's steps, the multi-chip tolerances of
+# tests/test_multichip_parity.py (d partial sums are added in another
+# order than one card's), the seconds a join may take.  CG's poses are
+# weakly determined along a near-gauge direction (phase 14's CG and dense
+# runs part there by millimetres at a cost 4e-6 apart), and CG's 64
+# float32 iterations carry the order of the sums along it: the d-rank CG
+# run's poses are held within MULTI_POSE_TOL or, where larger, the
+# one-card CG run's own distance from the one-card dense solve.
+RANKS_17 = 2
+BA_STEPS_17 = 20
+MULTI_COST_RTOL, MULTI_COST_ATOL_SHARE = 5e-3, 1e-5
+MULTI_POSE_TOL, MULTI_LINE_TOL = 1e-4, 1e-3
+RANKS_TIMEOUT_S = 300
+PROTOCOL_17 = (100, 1500, 20)   # phase 4's scene
+MULTI_TRI_CFG = {"triangulation": {"max_tris_per_node": 32}}
+
+
+def pose_arrays(imagecols):
+    """[I, 4] qvec and [I, 3] tvec of a collection, by image id."""
+    ids = imagecols.get_img_ids()
+    return (np.stack([imagecols.campose(i).qvec for i in ids]),
+            np.stack([imagecols.campose(i).tvec for i in ids]))
+
+
+def same_ba_output(a, b):
+    """Two BA outputs identical bit for bit."""
+    return (a[3] == b[3] and np.array_equal(a[1], b[1])
+            and all(np.array_equal(x, y) for x, y in zip(pose_arrays(a[0]),
+                                                         pose_arrays(b[0])))
+            and len(a[2]) == len(b[2])
+            and all(np.array_equal(x.line, y.line)
+                    for x, y in zip(a[2], b[2])))
+
+
+def collectives_line(what, res, steps, card):
+    """A BA run's collectives over the mesh: calls and bytes a step (the
+    step's, the cost's and the first cost's), and the share of the run
+    spent in them."""
+    c = res["collectives"]
+    share = c["seconds"] / res["seconds"] if res["seconds"] else 0.0
+    log(f"[multi-card] {what}: {res['seconds']:.3f} s for {steps} steps; "
+        f"collectives {json.dumps(c['calls'])} ("
+        f"{json.dumps({k: n / steps for k, n in c['calls'].items()})} a "
+        f"step), bytes {json.dumps(c['bytes'])} ("
+        f"{json.dumps({k: n / steps for k, n in c['bytes'].items()})} a "
+        f"step), {c['seconds']:.4f} s in them, {100 * share:.2f} % of the "
+        f"run; on {card}")
+    return share
+
+
+def hold_ba_to_one_card(what, got, ref, gt, pose_tol=MULTI_POSE_TOL):
+    """A d-rank BA output against the one-card run's: the multi-chip
+    tolerances (the poses' ``pose_tol``) and phase 14's gates on the
+    median pose errors."""
+    from limap_tpu_torch.testing import refine
+    costs, ref_costs = np.asarray(got[3]), np.asarray(ref[3])
+    dq, dt = (np.abs(x - y).max() for x, y in zip(pose_arrays(got[0]),
+                                                   pose_arrays(ref[0])))
+    dl = track_line_distance(got[2], ref[2])
+    dp = float(np.abs(got[1] - ref[1]).max())
+    te, re = refine.pose_errors64(got[0], gt)
+    log(f"[multi-card] {what} against the one-card run: costs "
+        f"{costs[0]:.6f} -> {costs[-1]:.6f} (one card {ref_costs[0]:.6f} "
+        f"-> {ref_costs[-1]:.6f}), largest cost difference "
+        f"{np.abs(costs - ref_costs).max():.3e}; poses within {dq:.2e} "
+        f"(qvec), {dt:.2e} (tvec); points {dp:.2e} m; lines {dl:.2e} m; "
+        f"median errors {np.median(te):.5f} m, {np.median(re):.5f} deg")
+    check(np.allclose(costs, ref_costs, rtol=MULTI_COST_RTOL,
+                      atol=MULTI_COST_ATOL_SHARE * ref_costs[0]),
+          (what, "costs", costs, ref_costs))
+    check(max(dq, dt) <= pose_tol, (what, "poses", dq, dt, pose_tol))
+    check(dl <= MULTI_LINE_TOL, (what, "lines", dl))
+    hold_to_gates(what, {"trans_after": float(np.median(te)),
+                         "rot_after": float(np.median(re))},
+                  REFERENCE_REFINE, [g for g in REFINE_GATES
+                                     if g[0].endswith("_after")])
+
+
+def node_table_difference(a, b):
+    """(tables bit-equal, largest best-score difference, valid-edge
+    counts equal) of two triangulators' node tables."""
+    return (all(np.array_equal(x, y) for x, y in zip(a, b)),
+            float(np.abs(a[2] - b[2]).max()), np.array_equal(a[4], b[4]))
+
+
+def multicard(ba_inputs, card, dev="cuda"):
+    """Phase 17 (see the module docstring); ``dev`` "cpu" rehearses it
+    on gloo with the plain versions."""
+    import torch.distributed as dist
+    from limap_tpu_torch.parallel import (HybridBAOptions, distributed,
+                                          make_mesh,
+                                          solve_hybrid_bundle_adjustment)
+    from limap_tpu_torch.parallel.distributed import run_distributed_mapping
+    from limap_tpu_torch.parallel.mesh import all_reduce_sum
+    from limap_tpu_torch.testing import multirank
+    from limap_tpu_torch.testing.synthetic import build_scene
+    from limap_tpu_torch.triangulation.triangulator import (
+        GlobalLineTriangulator, TriangulatorConfig)
+    imagecols, pointtracks, linetracks, gt = ba_inputs
+    ba_args = (imagecols, pointtracks, linetracks)
+    opts = {"n_fixed_poses": 2}
+
+    # (a) one NCCL rank in this process against the one-card call
+    t0 = time.perf_counter()
+    one = solve_hybrid_bundle_adjustment(
+        *ba_args, HybridBAOptions(**opts), n_iterations=BA_STEPS_17,
+        device=dev)
+    one_s = time.perf_counter() - t0
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as store:
+        t0 = time.perf_counter()
+        distributed.maybe_initialize(f"file://{store}/store", 1, 0,
+                                     timeout_s=120.0)
+        init_s = time.perf_counter() - t0
+        try:
+            backend = "nccl" if dev == "cuda" else "gloo"
+            check(dist.get_backend() == backend,
+                  ("phase 17a backend", dist.get_backend()))
+            # NCCL sets its communicator up at the first collective
+            t0 = time.perf_counter()
+            all_reduce_sum([torch.zeros(1, device=dev)], make_mesh())
+            torch.cuda.synchronize() if dev == "cuda" else None
+            init_s = (init_s, time.perf_counter() - t0)
+            nccl = multirank.hybrid_ba(0, 1, *ba_args, opts, BA_STEPS_17,
+                                       dev, timed=True)
+        finally:
+            dist.destroy_process_group()
+    log(f"[multi-card] (a) one NCCL rank: group in {init_s[0]:.2f} s, "
+        f"the first collective {init_s[1]:.2f} s; "
+        f"{nccl['seconds']:.3f} s for the BA (one card without a group "
+        f"{one_s:.3f} s); kernel launches {json.dumps(nccl['launches'])}")
+    check_hybrid_launches("phase 17a", nccl["launches"], product=False)
+    check(nccl["collectives"]["calls"].get("all_reduce", 0) > 0
+          and nccl["collectives"]["calls"].get("all_gather", 0) > 0,
+          ("phase 17a collectives", nccl["collectives"]))
+    collectives_line("(a) one NCCL rank, dense", nccl, BA_STEPS_17, card)
+    check(same_ba_output(nccl["out"], one),
+          "phase 17a: one NCCL rank differs from the one-card call")
+    log("[multi-card] (a) costs, poses, points and lines bit-equal to the "
+        "one-card call")
+
+    # (b) the one-rank references here, then two gloo ranks
+    imgs, segs, nbrs, _ = build_scene(*PROTOCOL_17, device=dev)
+    t0 = time.perf_counter()
+    tri = GlobalLineTriangulator(TriangulatorConfig.from_dict(
+        MULTI_TRI_CFG["triangulation"]), dev)
+    tri.init(segs, imgs)
+    tri.triangulate_all(nbrs)
+    one_tables = multirank.node_tables(tri)
+    one_tracks = tri.compute_line_tracks()
+    one_tri_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one_mapped = run_distributed_mapping(MULTI_TRI_CFG, imgs, segs, nbrs,
+                                         mesh=None, device=dev)
+    one_map_s = time.perf_counter() - t0
+    one_cg = solve_hybrid_bundle_adjustment(
+        *ba_args, HybridBAOptions(solver="cg", **opts),
+        n_iterations=BA_STEPS_17, device=dev)
+    cg_spread = max(np.abs(x - y).max() for x, y in zip(
+        pose_arrays(one_cg[0]), pose_arrays(one[0])))
+    log(f"[multi-card] one card: CG's poses within {cg_spread:.2e} of the "
+        f"dense solve's (qvec, tvec)")
+    t0 = time.perf_counter()
+    ranks = multirank.start(multirank.jobs, RANKS_17, ([
+        (multirank.mapping, (imgs, segs, nbrs, MULTI_TRI_CFG, dev)),
+        (multirank.hybrid_ba, ba_args + (opts, BA_STEPS_17, dev, True)),
+        (multirank.hybrid_ba, ba_args + (dict(opts, solver="cg"),
+                                         BA_STEPS_17, dev, True))],),
+        backend="gloo", threads=2)
+    ranked = ranks.join(timeout_s=RANKS_TIMEOUT_S)
+    log(f"[multi-card] (b) {RANKS_17} gloo ranks sharing the card ran in "
+        f"{time.perf_counter() - t0:.1f} s (the processes' start "
+        f"included); one rank here: triangulate_all + tracks "
+        f"{one_tri_s:.3f} s, run_distributed_mapping {one_map_s:.3f} s")
+    for r, (mp_, dense, cg) in enumerate(ranked):
+        log(f"[multi-card] (b) rank {r}: seconds {json.dumps(mp_['seconds'])}"
+            f"; F, G launches {json.dumps(mp_['launches'])}; mine "
+            f"{mp_['mine'][0]}..{mp_['mine'][-1]}; BA dense "
+            f"{dense['seconds']:.3f} s, CG {cg['seconds']:.3f} s; O, P, Q "
+            f"launches dense {json.dumps(dense['launches'])}, CG "
+            f"{json.dumps(cg['launches'])}")
+        for name, n in mp_["launches"].items():
+            check(n > 0, f"phase 17b rank {r} did not launch {name}")
+        check_hybrid_launches(f"phase 17b rank {r} dense", dense["launches"],
+                              product=False)
+        check_hybrid_launches(f"phase 17b rank {r} CG", cg["launches"],
+                              product=True)
+        check(mp_["segs_keys"] == imgs.get_img_ids(),
+              ("phase 17b merged segments", r))
+        same, dscore, cnt = node_table_difference(mp_["tables"], one_tables)
+        log(f"[multi-card] (b) rank {r} triangulate_all_mesh: node tables "
+            f"bit-equal {same}, best scores within {dscore:.3e}, edge "
+            f"counts equal {cnt}; {len(mp_['tracks'])} tracks (one rank "
+            f"{len(one_tracks)})")
+        check(dscore <= 1e-4 and cnt, ("phase 17b node tables", r, dscore))
+        for what, got, ref in (("triangulate_all_mesh", mp_["tracks"],
+                                one_tracks),
+                               ("run_distributed_mapping", mp_["mapped"],
+                                one_mapped)):
+            check(sorted(map(key, got)) == sorted(map(key, ref)),
+                  (f"phase 17b {what} supports", r, len(got), len(ref)))
+            check(track_line_distance(got, ref) <= MULTI_LINE_TOL,
+                  (f"phase 17b {what} lines", r))
+        for what, res, ref, tol in (
+                ("dense", dense, one, MULTI_POSE_TOL),
+                ("CG", cg, one_cg, max(MULTI_POSE_TOL, cg_spread))):
+            hold_ba_to_one_card(f"(b) rank {r} {what}", res["out"], ref, gt,
+                                tol)
+            collectives_line(f"(b) rank {r} {what}", res, BA_STEPS_17, card)
+    for j in (1, 2):
+        check(same_ba_output(ranked[0][j]["out"], ranked[1][j]["out"]),
+              ("phase 17b: the ranks' BA outputs differ", j))
+    log("[multi-card] (b) both ranks' BA outputs identical bit for bit")
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
@@ -4726,6 +4969,7 @@ def main():
                                   gt_launches)
         del recorded, gt_line_call
         refine_clis(refine_scene, direct, workdir, card)
+        ba_inputs = refine_ba_inputs(refine_scene, refine_out)
     log(f"[refine] phase 14 took {time.perf_counter() - t0:.1f} s")
 
     # ---- 15. the learned front end at full width ----
@@ -4746,6 +4990,12 @@ def main():
     entries += zoo_full_width(scene, ckpt, card)
     ckpt_dir.cleanup()
     log(f"[zoo] phase 16 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 17. the multi-card form: one NCCL rank, two gloo ranks ----
+    t0 = time.perf_counter()
+    multicard(ba_inputs, card)
+    log(f"[multi-card] phase 17 took {time.perf_counter() - t0:.1f} s "
+        f"on {card}")
 
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

@@ -4,7 +4,10 @@ Counterpart of the reference's ``optimize.solve_hybrid_bundle_adjustment``
 front door (HybridBAEngine): packs an ImageCollection, point tracks and
 line tracks into the BA state (``parallel/sharded_ba.py``), runs LM steps
 with the host's accept/reject loop, and unpacks the updated poses, points
-and the re-trimmed line segments.
+and the re-trimmed line segments.  Over a mesh of d ranks the track rows
+are padded to a multiple of d with weight 0, every rank runs the same
+loop on the same summed costs, and every rank returns what the one-card
+call returns.
 """
 
 from __future__ import annotations
@@ -22,10 +25,19 @@ from limap_tpu_torch.base.linetrack import (LineTrack, batch_to_tracks,
 from limap_tpu_torch.optimize.line_ba import (get_output_tracks,
                                               pack_minimal_lines,
                                               unpack_minimal_lines)
+from limap_tpu_torch.parallel.mesh import (mesh_size, pad_to_multiple,
+                                           rank_mesh)
 from limap_tpu_torch.parallel.sharded_ba import (HybridBAOptions,
-                                                 HybridBAState, check_mesh,
+                                                 HybridBAState,
                                                  make_hybrid_ba_cost,
                                                  make_hybrid_ba_step)
+
+
+def _pad_rows(a: torch.Tensor, n: int) -> torch.Tensor:
+    """``a`` with zero rows appended up to ``n`` rows."""
+    if a.shape[0] == n:
+        return a
+    return torch.cat([a, a.new_zeros((n - a.shape[0],) + a.shape[1:])])
 
 
 def pack_point_tracks(pointtracks: Sequence, id2row):
@@ -59,14 +71,15 @@ def solve_hybrid_bundle_adjustment(
 
     pointtracks: PointTrack-like objects with ``p`` ([3]),
     ``image_id_list`` and ``p2d_list``.  Returns (new_imagecols,
-    new_points [P, 3], new_linetracks, costs list).  ``mesh`` may be None
-    or one device (more is ROADMAP queue 1 item 13).
+    new_points [P, 3], new_linetracks, costs list).  ``mesh``: None (one
+    card) or a ``DeviceMesh`` of ranks (``parallel.make_mesh()``).
     """
     from limap_tpu_torch.base.camera import CameraPose
     from limap_tpu_torch.base.image_collection import (CameraImage,
                                                        ImageCollection)
 
-    check_mesh(mesh)
+    mesh = rank_mesh(mesh)
+    d = mesh_size(mesh)
     device = resolve_device(device)
     t = lambda a: torch.as_tensor(a, device=device)
     id2row = imagecols.img_id_to_index()
@@ -85,22 +98,26 @@ def solve_hybrid_bundle_adjustment(
                            if np.any(img_cam_row == c) else np.ones(2)
                            for c in range(len(cam_ids))]).astype(np.float32))
 
-    # ---- line tracks -> padded [Tl, S] arrays
+    # ---- line tracks -> padded [Tl, S] arrays, rows a multiple of d
     batch = tracks_to_batch(linetracks, id2row, device=device)
     Tl = len(linetracks)
-    img_index_l = batch.img_index.cpu().numpy().astype(np.int32)
+    Tb = batch.mask.shape[0]
+    pad = lambda a: _pad_rows(a, pad_to_multiple(Tb, d))
+    img_index_l = pad(batch.img_index.cpu()).numpy().astype(np.int32)
     line_params = pack_minimal_lines(MinimalInfiniteLines3d.from_segments(
-        Segments(batch.line.start.float(), batch.line.end.float() + 1e-6)))
+        Segments(pad(batch.line.start.float()),
+                 pad(batch.line.end.float()) + 1e-6)))
     line_data = (t(kvec_all[img_index_l]), t(img_cam_row[img_index_l]),
-                 t(img_index_l), batch.line2d.start.float(),
-                 batch.line2d.end.float(), batch.mask.float())
+                 t(img_index_l), pad(batch.line2d.start.float()),
+                 pad(batch.line2d.end.float()), pad(batch.mask.float()))
 
-    # ---- point tracks -> padded [Tp, Sp] arrays
+    # ---- point tracks -> padded [Tp, Sp] arrays, rows a multiple of d
     xyz, ii_p, p2d, w_p = pack_point_tracks(pointtracks, id2row)
-    point_data = (t(kvec_all[ii_p]), t(img_cam_row[ii_p]), t(ii_p), t(p2d),
-                  t(w_p))
+    pad = lambda a: _pad_rows(t(a), pad_to_multiple(len(xyz), d))
+    point_data = (pad(kvec_all[ii_p]), pad(img_cam_row[ii_p]), pad(ii_p),
+                  pad(p2d), pad(w_p))
 
-    state = HybridBAState(line_params, t(xyz), pose_params, cam_fxfy)
+    state = HybridBAState(line_params, pad(xyz), pose_params, cam_fxfy)
     step = make_hybrid_ba_step(mesh, nv, len(cam_ids), opts, device)
     cost_fn = make_hybrid_ba_cost(mesh, opts, device)
     # Levenberg-Marquardt accept/reject with adaptive damping (the
@@ -133,7 +150,7 @@ def solve_hybrid_bundle_adjustment(
 
     # ---- new line segments: re-trim with the UPDATED views
     new_views = new_imagecols.batch(device=device)
-    refined = unpack_minimal_lines(state.line_params)
+    refined = unpack_minimal_lines(state.line_params[:Tb])
     out_batch = get_output_tracks(batch, new_views, refined,
                                   num_outliers_aggregator)
     new_linetracks = batch_to_tracks(out_batch)[:Tl]

@@ -28,9 +28,25 @@ its projection, a point's pixel reprojection error weighted by
 focal lengths move only with ``optimize_focal``.  The gauge is fixed by
 freezing the first ``n_fixed_poses`` poses.
 
-The multi-card form (tracks split over cards, the reduced system summed
-across them) is ROADMAP queue 1 item 13: ``mesh`` may be None or describe
-one device.
+Over a mesh of d ranks (``parallel/mesh.py``: a 1-D ``DeviceMesh``, one
+process a rank) the step takes the global state and track arrays, rows a
+multiple of d (the driver pads them with weight 0), and rank r builds
+the terms of the r-th contiguous block of track rows, as JAX's
+``shard_map`` gives device r its shard.  Per step, on each solver:
+
+  dense: one all_reduce of [g | cost | Hp], D + 1 + D^2 floats
+  CG:    one all_reduce of [g | cost | diag0], 2 D + 1 floats, then one
+         of D floats a product (P's launches stay per rank)
+  both:  one all_gather of the block's new landmark rows (6 a line, 3 a
+         point), so every rank returns the global state
+
+Every rank then solves the same camera step from the same summed numbers
+(an all_reduce adds each element up once and copies the sum out), so the
+ranks end a step with the same state bit for bit and the driver's LM
+takes the same decisions everywhere.  The cost is Q on the block, summed
+in one all_reduce of a scalar.  d partial sums are added in another
+order than one card's, so a d-rank trajectory differs from the one-card
+one by rounding.
 """
 
 from __future__ import annotations
@@ -49,6 +65,8 @@ from limap_tpu_torch.optimize import residuals as res
 from limap_tpu_torch.optimize.line_ba import (robust_weight,
                                               unpack_minimal_lines)
 from limap_tpu_torch.optimize.lm import retract_pose, retract_quat_so2
+from limap_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce_sum,
+                                           block, rank_mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,27 +91,6 @@ class HybridBAState(NamedTuple):
     point_params: torch.Tensor  # [Tp, 3] points
     pose_params: torch.Tensor   # [I, 7] (qvec, tvec)
     cam_fxfy: torch.Tensor      # [C, 2] focal lengths
-
-
-def mesh_size(mesh) -> int:
-    """Devices a ``mesh`` describes: None (one), a count, an object with
-    ``devices`` (an array of devices, as a JAX mesh has) or a list of
-    devices."""
-    if mesh is None:
-        return 1
-    if isinstance(mesh, (int, np.integer)):
-        return int(mesh)
-    if hasattr(mesh, "devices"):
-        return int(np.size(mesh.devices))
-    return len(mesh)
-
-
-def check_mesh(mesh) -> None:
-    n = mesh_size(mesh)
-    if n != 1:
-        raise NotImplementedError(
-            f"the hybrid bundle adjustment runs on one device; a mesh of {n} "
-            "devices (tracks split over cards) is ROADMAP queue 1 item 13")
 
 
 def _weighted(r, weight, opts):
@@ -321,6 +318,26 @@ def _state_on(device, state):
     return HybridBAState(*_on(device, state))
 
 
+def _block(land, data, ranks):
+    """The rank's contiguous block of a kind's track rows (all of them
+    on one card)."""
+    if ranks is None:
+        return land, data
+    rows = block(land.shape[0], ranks)
+    return land[rows], tuple(x[rows] for x in data)
+
+
+def _collectives(ranks):
+    """(psum, gather) over the mesh's ranks: each takes tensors and
+    returns a list, summed over the ranks or the blocks' rows gathered in
+    rank order; on one card both hand their tensors back."""
+    if ranks is None:
+        same = lambda *xs: list(xs)
+        return same, same
+    return (lambda *xs: all_reduce_sum(xs, ranks),
+            lambda *xs: all_gather_rows(xs, ranks))
+
+
 def make_hybrid_ba_step(mesh, n_images: int, n_cameras: int = 1,
                         opts: HybridBAOptions = HybridBAOptions(),
                         device=None):
@@ -334,9 +351,12 @@ def make_hybrid_ba_step(mesh, n_images: int, n_cameras: int = 1,
                  weight) -- a track of weight 0 when there are no points.
     ``lam`` is the damping (``opts.damping`` when None), passed to the
     kernels as an argument, so nothing is rebuilt between iterations.
+    ``mesh``: None (one card) or a ``DeviceMesh`` of d ranks (see the
+    module docstring; the track rows a multiple of d).
     """
     from limap_tpu_torch.ops import hybrid_ba as O
-    check_mesh(mesh)
+    ranks = rank_mesh(mesh)
+    psum, gather = _collectives(ranks)
     device = resolve_device(device)
     D = n_images * 6 + (n_cameras * 2 if opts.optimize_focal else 0)
     use_dense = opts.solver == "dense" or (
@@ -353,21 +373,26 @@ def make_hybrid_ba_step(mesh, n_images: int, n_cameras: int = 1,
         state = _state_on(device, state)
         line_data = _on(device, line_data)
         point_data = _on(device, point_data)
+        lines, line_data = _block(state.line_params, line_data, ranks)
+        points, point_data = _block(state.point_params, point_data, ranks)
         kv_l, ci_l, ii_l, l2s, l2e, w_l = line_data
         kv_p, ci_p, ii_p, p2d, w_p = point_data
         lam_t = torch.tensor(lam, dtype=torch.float32, device=device)
-        tl = O.hybrid_terms("line", state.line_params, state.pose_params,
+        tl = O.hybrid_terms("line", lines, state.pose_params,
                             state.cam_fxfy, kv_l, ci_l, ii_l, (l2s, l2e),
                             w_l, opts, lam_t, n_images, n_cameras,
                             use_dense)
-        tp = O.hybrid_terms("point", state.point_params, state.pose_params,
+        tp = O.hybrid_terms("point", points, state.pose_params,
                             state.cam_fxfy, kv_p, ci_p, ii_p, (p2d,), w_p,
                             opts, lam_t, n_images, n_cameras, use_dense)
-        gp = tl.g + tp.g
-        cost = tl.cost + tp.cost
+        if use_dense:
+            gp, cost, Hp = psum(tl.g + tp.g, tl.cost + tp.cost,
+                                tl.Hp + tp.Hp)
+        else:
+            gp, cost, diag0 = psum(tl.g + tp.g, tl.cost + tp.cost,
+                                   tl.diag0 + tp.diag0)
         g = torch.where(fixed, torch.zeros_like(gp), gp)
         if use_dense:
-            Hp = tl.Hp + tp.Hp
             A = Hp + lam_t * torch.diag(torch.clamp(torch.diagonal(Hp),
                                                     min=1e-8)) + 1e-8 * eye
             A = torch.where(fixed[:, None] | fixed[None, :], eye, A)
@@ -375,15 +400,14 @@ def make_hybrid_ba_step(mesh, n_images: int, n_cameras: int = 1,
         else:
             # matrix-free CG with a Jacobi preconditioner: the reduced
             # matrix is applied from the per-track terms
-            # (ITERATIVE_SCHUR + SCHUR_JACOBI)
-            diag0 = tl.diag0 + tp.diag0
+            # (ITERATIVE_SCHUR + SCHUR_JACOBI), one all_reduce a product
             damp = lam_t * torch.clamp(diag0, min=1e-8) + 1e-8
             inv_diag = torch.where(fixed, torch.ones_like(diag0),
                                    1.0 / (diag0 + damp))
 
             def matvec_fn(v):
                 v = torch.where(fixed, torch.zeros_like(v), v)
-                out = O.hybrid_apply(tl, v) + O.hybrid_apply(tp, v)
+                out, = psum(O.hybrid_apply(tl, v) + O.hybrid_apply(tp, v))
                 out = out + damp * v
                 return torch.where(fixed, v, out)
 
@@ -402,11 +426,11 @@ def make_hybrid_ba_step(mesh, n_images: int, n_cameras: int = 1,
         d_line = O.hybrid_apply(tl, delta, backsub=True)
         if opts.constant_line:
             d_line = torch.zeros_like(d_line)
-        new_lines = retract_quat_so2(state.line_params, d_line)
         d_pt = O.hybrid_apply(tp, delta, backsub=True)
         if opts.constant_point:
             d_pt = torch.zeros_like(d_pt)
-        new_points = state.point_params + d_pt
+        new_lines, new_points = gather(retract_quat_so2(lines, d_line),
+                                       points + d_pt)
         return HybridBAState(new_lines, new_points, new_pose,
                              new_fxfy), cost
 
@@ -418,14 +442,22 @@ def make_hybrid_ba_cost(mesh, opts: HybridBAOptions = HybridBAOptions(),
     """Residual-only cost of a HybridBAState (no Jacobians): the driver's
     LM accept/reject loop evaluates candidate steps with it.  The card's
     kernel sums in a fixed order, so a state's cost is the same number
-    every time."""
+    every time.  Over a mesh: Q on the rank's block, summed over the
+    ranks."""
     from limap_tpu_torch.ops import hybrid_ba as O
-    check_mesh(mesh)
+    ranks = rank_mesh(mesh)
+    psum, _ = _collectives(ranks)
     device = resolve_device(device)
 
     def cost(state, line_data, point_data):
-        return O.hybrid_cost(_state_on(device, state),
-                             _on(device, line_data),
-                             _on(device, point_data), opts)
+        state = _state_on(device, state)
+        lines, line_data = _block(state.line_params,
+                                  _on(device, line_data), ranks)
+        points, point_data = _block(state.point_params,
+                                    _on(device, point_data), ranks)
+        c, = psum(O.hybrid_cost(state._replace(line_params=lines,
+                                               point_params=points),
+                                line_data, point_data, opts))
+        return c
 
     return cost

@@ -122,6 +122,9 @@ class GlobalLineTriangulator:
       tri.triangulate_all(matches_by_image)    # or, without a matcher,
       tri.triangulate_all_exhaustive(neighbors)
       batch = tri.compute_track_batch()        # or compute_line_tracks()
+
+    ``triangulate_all_mesh(matches_by_image, mesh)`` splits
+    ``triangulate_all``'s images over the ranks of a mesh.
     """
 
     def __init__(self, cfg: TriangulatorConfig = TriangulatorConfig(),
@@ -304,15 +307,60 @@ class GlobalLineTriangulator:
         """Triangulate and score every image with matches, in groups of
         images sized by ``GROUP_BYTES``; the results stay on the device
         and replace earlier ones."""
+        rows, matches_list = self._matched_rows(matches_by_image)
+        if rows:
+            self._record(*self._run_matched(rows, matches_list), reset=True)
+
+    def _matched_rows(self, matches_by_image):
+        """The rows of the images with matches, in image order, and their
+        matches."""
         rows, matches_list = [], []
         for img_id in self.img_ids:
             m = matches_by_image.get(img_id)
-            if m is None:
-                continue
-            rows.append(self.id2idx[img_id])
-            matches_list.append(m)
-        if rows:
-            self._record(*self._run_matched(rows, matches_list), reset=True)
+            if m is not None:
+                rows.append(self.id2idx[img_id])
+                matches_list.append(m)
+        return rows, matches_list
+
+    def triangulate_all_mesh(self, matches_by_image, mesh,
+                             axis: Optional[str] = None) -> None:
+        """``triangulate_all`` with the images split over the ranks of a
+        mesh (``parallel/mesh.py``): every image's edges are bucketed
+        once, the rows padded to a multiple of d ranks by repeating the
+        last one, and rank r runs kernels F and G on its contiguous block
+        (in groups sized by ``GROUP_BYTES``).  A row's results depend on
+        that row alone, so the per-node results, gathered in rank order
+        without the padding, are the one-card call's, and every rank then
+        builds the same tracks.  ``mesh`` None runs on this process's
+        device alone; a mesh of more than one dimension needs ``axis``."""
+        from limap_tpu_torch.parallel.mesh import (all_gather_rows, block,
+                                                   rank_mesh)
+        ranks = rank_mesh(mesh, axis)
+        if ranks is None:
+            return self.triangulate_all(matches_by_image)
+        rows, matches_list = self._matched_rows(matches_by_image)
+        if not rows:
+            return
+        per_key, per_val, nbr_rows, K, Tc = self._gather_edges(
+            rows, matches_list)
+        n = len(rows)
+        words, meta, overflow = self._fill_group(per_key, per_val, nbr_rows,
+                                                 rows, 0, n, K, Tc)
+        d = ranks.size()
+        m = -(-n // d)
+        r = np.minimum(np.arange(m * d), n - 1)[block(m * d, ranks)]
+        outs = []
+        for g0, g1 in self._groups(m, self._banks() * Tc):
+            outs.append(bucket_program(
+                self.cfg, self.L, K, Tc, self._l2d_packed, self._cam_packed,
+                self._device(words[r[g0:g1]]), self._device(meta[r[g0:g1]]),
+                self.ranges, self.vp))
+        floats = torch.cat([f for f, _ in outs])
+        ints = torch.cat([i for _, i in outs])
+        floats, ints = all_gather_rows(
+            (floats, ints.view(torch.float32)), ranks)
+        self._record([(rows, floats[:n], ints.view(torch.int32)[:n])],
+                     overflow, reset=True)
 
     def triangulate_image(self, img_id: int,
                           matches: Dict[int, np.ndarray]) -> None:

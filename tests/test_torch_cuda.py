@@ -581,6 +581,40 @@ def test_hybrid_ba_kernels_count_only_launches(cuda):
     assert (O.hybrid_terms.launches, O.hybrid_apply.launches) == n0
 
 
+def test_hybrid_ba_over_one_nccl_rank_is_the_one_card_call(
+        cuda, tmp_path, monkeypatch):
+    """The step and the cost over make_mesh() of one NCCL rank issue
+    their collectives and give the one-card call's numbers bit for bit
+    (an all_reduce or all_gather of one rank copies)."""
+    import torch.distributed as dist
+    from limap_tpu_torch.parallel import (HybridBAOptions, distributed,
+                                          make_hybrid_ba_cost,
+                                          make_hybrid_ba_step, make_mesh)
+    from limap_tpu_torch.parallel import mesh as M
+    from limap_tpu_torch.testing import hybrid_checks as HC
+    state, ld, pd, I, C = HC.seeded_problem(seed=3, device="cuda")
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    distributed.maybe_initialize(f"file://{tmp_path}/store", 1, 0)
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        for solver in ("dense", "cg"):
+            opts = HybridBAOptions(solver=solver)
+            a = b = state
+            M.LOG.reset()
+            for _ in range(3):
+                a, ca = make_hybrid_ba_step(None, I, C, opts)(a, ld, pd)
+                b, cb = make_hybrid_ba_step(mesh, I, C, opts)(b, ld, pd)
+                assert torch.equal(ca, cb)
+                assert all(torch.equal(x, y) for x, y in zip(a, b))
+            assert M.LOG.calls["all_reduce"] >= 3
+            assert M.LOG.calls["all_gather"] == 3
+            assert torch.equal(make_hybrid_ba_cost(None, opts)(a, ld, pd),
+                               make_hybrid_ba_cost(mesh, opts)(b, ld, pd))
+    finally:
+        dist.destroy_process_group()
+
+
 # ------------------------------------------------- R, S, T, U (item 14)
 def _learned_cases():
     from limap_tpu_torch.testing import learned_checks as LC
