@@ -89,8 +89,10 @@ Phases, in order; any failure exits non-zero:
      wall's analytic distance and to PointCloudEvaluator on the GT cloud
      on the wall (the mesh is never farther, its recall never lower);
      RefLineEvaluator with the GT lines as reference, held to a float64
-     computation; then N held to its plain version on the whole input and
-     timed in turns.
+     computation; then N held bit for bit to its plain version on the
+     whole input and timed in turns beside the plain scan and beside its
+     first design (mesh_min_dist_scan, every pair), with the pairs it
+     evaluated, the clusters it scanned and the always list's size.
  14. the joint SfM refinement at full width: phase 11's façade (100
      views of 800x600) written as a COLMAP model with 4,000 wall points
      and their 2D observations on poses perturbed by refine_sfm's rule,
@@ -148,8 +150,12 @@ Phases, in order; any failure exits non-zero:
      kernel R) against a shuffled copy of a view's lines (every match
      the copy), then each in the runner on 4 views, CPU and card on the
      CPU's segments; S2DNet's features at 600 x 800 and phase 12a's
-     façade refined with them, card against CPU; then V, W, X and Y held
-     to their plain versions on those paths' inputs and timed in turns.
+     façade refined with them, card against CPU; the dense runner again
+     with W's first design (ncc_argmax_rowscan, a launch a direction) in
+     W's place and then with W; then V, W, X and Y held to their plain
+     versions on those paths' inputs and timed in turns (W, both
+     directions in one pass, in both directions and beside its first
+     design and one f1 @ f2.T with both max reductions).
      Phase 16a, before it, holds V, W, X and Y to their plain versions
      on seeded inputs (ties, clipped samples, crops outside the warped
      image) and the zoo's networks at 128 x 128 card to CPU.
@@ -172,9 +178,11 @@ Phases, in order; any failure exits non-zero:
 Phase 2 also holds kernels O, P and Q to their plain versions on seeded
 inputs (lines and points, optimize_focal on and off, each constancy flag,
 ragged slots of weight 0, one track, one support).
-Phase 2 also holds kernel N (mesh_min_dist) to its plain version on
-seeded inputs: degenerate triangles, points in each of a triangle's seven
-regions, ragged sizes.
+Phase 2 also holds kernel N (mesh_min_dist) bit for bit to its plain
+version on seeded inputs (degenerate triangles, points in each of a
+triangle's seven regions, ragged sizes), its counts to the cull's replay
+in torch (ops/mesh_distance.py::mesh_min_dist_culled), and its first
+design (mesh_min_dist_scan) to the plain version.
 Phase 2 also holds the triangulator's kernels (tri_propose, F, in both
 input forms and with the VP banks, and tri_score, G) and the VP
 detector (vp_detect, J) to their plain versions on seeded inputs;
@@ -1029,7 +1037,12 @@ def localization_full_width(scene, tracks, workdir, card):
         {"q": q, "cfg": cfg, "poses": poses}
 
 
-LOC_TURNS = ("plain", "kernel", "kernel", "plain")
+# The kernel twice around one plain run: the plain versions run 10-10^4x
+# longer than the kernels (phase 10's exhaustive F ~35 s a run), so a
+# second plain turn and its warm-up would buy no resolution and cost the
+# script's time limit; the plain version has run just before, in the
+# comparison, and needs no warm-up.
+LOC_TURNS = ("kernel", "plain", "kernel")
 
 
 def timed_entry(name, path, source, replaces, launches, kernel, plain, args,
@@ -1041,7 +1054,8 @@ def timed_entry(name, path, source, replaces, launches, kernel, plain, args,
     for which in LOC_TURNS:
         fn = kernel if which == "kernel" else plain
         n = reps[0] if which == "kernel" else reps[1]
-        times[which].append(cuda_ms(lambda: fn(*args, **kwargs), n))
+        times[which].append(cuda_ms(lambda: fn(*args, **kwargs), n,
+                                    warmup=which == "kernel"))
     log(f"[kernel] {path} {name} {json.dumps(shape)}: max abs err to plain "
         f"{err:.3e}; ms in turns {list(LOC_TURNS)}: {json.dumps(times)}; "
         f"bound {bound_ms:.4f} ms ({bound_by})")
@@ -2291,22 +2305,35 @@ EVAL_SAMPLES = 500
 def mesh_seeded_cases():
     """Kernel N against its plain version on the seeded cases of
     testing/evaluation.py (degenerate triangles, the seven regions, ragged
-    sizes), and the empty inputs."""
+    sizes), bit for bit, its counts against the cull's replay in torch on
+    the same prepared mesh, the scan yardstick against plain, and the
+    empty inputs."""
     from limap_tpu_torch.ops import mesh_distance as md
     from limap_tpu_torch.testing.evaluation import mesh_cases
     for name, p, t in mesh_cases():
         pc = torch.as_tensor(p, device="cuda")
         tc = torch.as_tensor(t, device="cuda")
+        mesh = md.prepare_mesh(tc)
         n0 = md.mesh_min_dist.launches
-        k = md.mesh_min_dist(pc, tc)
+        k = md.mesh_min_dist(pc, mesh)
+        counts = md.mesh_min_dist.counts.tolist()
         pl = md.mesh_min_dist_plain(pc, tc)
+        sc = md.mesh_min_dist_scan(pc, tc)
+        # the replay on the CPU, on the card's own prepared arrays
+        _, replay = md.mesh_min_dist_culled(
+            pc.cpu(), md.PreparedMesh(*(x.cpu() for x in mesh)))
         torch.cuda.synchronize()
         err = float((k - pl).abs().max())
         log(f"[kernel] mesh_min_dist vs plain, case {name} ({len(p)} x "
             f"{len(t)}): bit-equal {torch.equal(k, pl)}, max abs err "
-            f"{err:.3e}")
+            f"{err:.3e}; counts {counts} (replay {json.dumps(replay)}); "
+            f"always {len(mesh.always)}, clusters {len(mesh.clusters)}; "
+            f"scan bit-equal {torch.equal(sc, pl)}")
         check(md.mesh_min_dist.launches == n0 + 1, "N: launch not counted")
-        check(err <= MESH_TOL, ("mesh_min_dist vs plain", name, err))
+        check(torch.equal(k, pl), ("mesh_min_dist vs plain", name, err))
+        check(torch.equal(sc, pl), ("mesh_min_dist_scan vs plain", name))
+        check(counts == [replay[k] for k in md.COUNTS],
+              ("mesh_min_dist counts vs the replay", name, counts, replay))
     n0 = md.mesh_min_dist.launches
     empty = md.mesh_min_dist(pc, tc[:0])
     none = md.mesh_min_dist(pc[:0], tc)
@@ -2402,39 +2429,66 @@ def evaluation_full_width(lines, gt, card):
     check(abs(ref_len - len64) <= REFLINE_RTOL * len64, "SumLength")
     for tau in TAUS:
         check(rel[tau] <= REFLINE_RTOL, ("ComputeRecallRef", tau, rel))
-    return measure_mesh(queries, mesh.tris, launches)
+    return measure_mesh(queries, mesh.mesh, launches)
 
 
-def measure_mesh(queries, tris, launches):
-    """Kernel N on the evaluation's whole input: held to the plain version
-    (its first turn), timed in turns plain, kernel, kernel, plain, and its
-    bound."""
+MESH_TURNS = ("plain", "kernel", "scan", "kernel", "scan")
+
+
+def measure_mesh(queries, mesh, launches):
+    """Kernel N on the evaluation's whole input: held bit for bit to the
+    plain version (its first turn), timed in turns with the plain scan
+    and the first design (every pair), its counts, and two bounds: the
+    work of the pairs and box tests it did, and every pair's."""
     from limap_tpu_torch.ops import mesh_distance as md
-    P, M = queries.shape[0], tris.shape[0]
-    times = {"kernel": [], "plain": []}
+    P, M = queries.shape[0], mesh.tris.shape[0]
+    fns = {"kernel": md.mesh_min_dist, "plain": md.mesh_min_dist_plain,
+           "scan": md.mesh_min_dist_scan}
+    times = {k: [] for k in fns}
     out = {}
-    for which in LOC_TURNS:
-        fn = md.mesh_min_dist if which == "kernel" else md.mesh_min_dist_plain
+    for which in MESH_TURNS:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        d = fn(queries, tris)
+        d = fns[which](queries, mesh.tris if which == "plain" else mesh)
         end.record()
         torch.cuda.synchronize()
         times[which].append(start.elapsed_time(end))
         out.setdefault(which, d)
+    n0 = md.mesh_min_dist.launches
+    md.mesh_min_dist(queries, mesh)
+    c = dict(zip(md.COUNTS, md.mesh_min_dist.counts.tolist()))
+    check(md.mesh_min_dist.launches == n0 + 1, "N: launch not counted")
     err = float((out["kernel"] - out["plain"]).abs().max())
     equal = torch.equal(out["kernel"], out["plain"])
-    check(err <= MESH_TOL, ("mesh_min_dist vs plain on the whole input", err))
+    check(equal, ("mesh_min_dist vs plain on the whole input", err))
+    check(torch.equal(out["scan"], out["plain"]),
+          "mesh_min_dist_scan vs plain on the whole input")
     pairs = P * M
-    bms, by = bound(pairs * md.OPS_PAIR, P * 12 + M * 36 + P * 4)
+    nbytes = P * 12 + M * 36 + P * 4
+    C = mesh.clusters.shape[0]
+    ops = md.cull_work(c)
+    bms, by = bound(ops, nbytes)
+    all_ms, all_by = bound(pairs * md.OPS_PAIR, nbytes)
     shape = {"queries": P, "triangles": M, "pairs": pairs,
-             "ops_per_pair": md.OPS_PAIR, "bit_equal_to_plain": equal,
+             "pairs_evaluated": c["pairs"],
+             "pairs_evaluated_share": c["pairs"] / pairs,
+             "clusters": C, "clusters_scanned": c["scanned"],
+             "lane_box_tests": c["tests"], "sweep_tests": c["sweep_tests"],
+             "seed_tests": c["seed_tests"], "groups": len(mesh.groups),
+             "always": len(mesh.always),
+             "warps": (P + 31) // 32, "ops_per_pair": md.OPS_PAIR,
+             "ops_per_box_test": md.OPS_BOX, "operations": ops,
+             "bit_equal_to_plain": equal,
+             "scan_ms": float(np.mean(times["scan"])),
+             "scan_ms_turns": times["scan"],
+             "bound_all_pairs_ms": all_ms, "bound_all_pairs_by": all_by,
              "library": "none (no PyTorch call computes a point-to-triangle "
                         "distance)"}
     log(f"[kernel] evaluation mesh_min_dist {json.dumps(shape)}: max abs err "
         f"to plain {err:.3e} on the whole input; ms in turns "
-        f"{list(LOC_TURNS)}: {json.dumps(times)}; bound {bms:.4f} ms ({by})")
+        f"{list(MESH_TURNS)}: {json.dumps(times)}; bound {bms:.4f} ms ({by}) "
+        f"on the work done, {all_ms:.4f} ms on every pair")
     return {"name": "mesh_min_dist", "path": "evaluation", "route": "cuda",
             "source": "limap_tpu_torch/csrc/" + N_SOURCE,
             "replaces": N_REPLACES, "launches": launches, "max_abs_err": err,
@@ -3870,7 +3924,7 @@ def zoo_kernels():
     from limap_tpu_torch.ops import (l2d2_patches, lbd_describe, ncc_argmax,
                                      tplsd_decode)
     return {"lbd_describe": lbd_describe.lbd_describe,
-            "ncc_argmax": ncc_argmax.ncc_argmax,
+            "ncc_argmax_both": ncc_argmax.ncc_argmax_both,
             "tplsd_decode": tplsd_decode.tplsd_decode,
             "l2d2_patches": l2d2_patches.l2d2_patches}
 
@@ -4032,7 +4086,7 @@ def zoo_runner_full_width(workdir, method, card, dev="cuda",
     if method == "lbd":
         rec = Recorder(lbd_mod, "lbd_describe", lambda i, s, v: s.shape[0])
     else:
-        rec = Recorder(dense_mod, "ncc_argmax",
+        rec = Recorder(dense_mod, "ncc_argmax_both",
                        lambda a, b: a.shape[0] * b.shape[0])
     t0 = time.perf_counter()
     try:
@@ -4253,13 +4307,89 @@ def s2dnet_full_width(scene, ckpt, workdir, dev="cuda"):
     pixel_card_vs_cpu(c, g, sc["refined_px"], sg["refined_px"])
 
 
+def dense_runner_yardstick(card):
+    """The dense runner again with W's first design in its place (the row
+    scan, once a direction) and then with W, after phase 16's launches
+    are read: whether W's gain shows in the runner's stage seconds."""
+    from limap_tpu_torch.line2d import dense as dense_mod
+    from limap_tpu_torch.ops import ncc_argmax as W
+
+    def rowscan_both(f1, f2):
+        return W.ncc_argmax_rowscan(f1, f2) + W.ncc_argmax_rowscan(f2, f1)
+
+    both = dense_mod.ncc_argmax_both
+    try:
+        for which, fn in (("row scan", rowscan_both), ("W", both)):
+            dense_mod.ncc_argmax_both = fn
+            with tempfile.TemporaryDirectory() as workdir:
+                log(f"[zoo] the dense runner with {which}:")
+                zoo_runner_full_width(workdir, "dense_ncc", card)
+    finally:
+        dense_mod.ncc_argmax_both = both
+
+
+def measure_ncc(path, args, launches):
+    """W on the dense runner's largest pair: both directions held to the
+    plain version (a differing index a near tie, zoo_checks.ncc_witness)
+    and to the row-scan yardstick bit for bit; timed in turns with the
+    plain version, then in turns with the yardstick (one launch a
+    direction) and the library call (one f1 @ f2.T, both max
+    reductions)."""
+    from limap_tpu_torch.ops import ncc_argmax as W
+    from limap_tpu_torch.testing import zoo_checks
+    f1, f2 = args
+    k12, ks12, k21, ks21 = W.ncc_argmax_both(*args)
+    p12, ps12, p21, ps21 = W.ncc_argmax_both_plain(*args)
+    a, b = f1.cpu().numpy(), f2.cpu().numpy()
+    rows, bad, serr = zoo_checks.ncc_witness(a, b, k12, ks12, p12, ps12)
+    cols, badc, serrc = zoo_checks.ncc_witness(b, a, k21, ks21, p21, ps21)
+    err = max(serr, serrc)
+    check(not bad and not badc and err <= zoo_checks.NCC_TIE,
+          ("W vs plain", path, len(rows), len(cols), (bad + badc)[:5], err))
+    r12, rs12 = W.ncc_argmax_rowscan(f1, f2)
+    r21, rs21 = W.ncc_argmax_rowscan(f2, f1)
+    same = bool(torch.equal(k12, r12) and torch.equal(ks12, rs12)
+                and torch.equal(k21, r21) and torch.equal(ks21, rs21))
+    check(same, ("W vs the row-scan yardstick", path))
+    ops, nbytes = W.work(f1.shape[0], f2.shape[0], f1.shape[1])
+
+    def rowscan_both():
+        W.ncc_argmax_rowscan(f1, f2)
+        W.ncc_argmax_rowscan(f2, f1)
+
+    yard = {"kernel": [], "rowscan": [], "library": []}
+    fns = {"kernel": lambda: W.ncc_argmax_both(f1, f2),
+           "rowscan": rowscan_both,
+           "library": lambda: W.ncc_argmax_both_plain(f1, f2)}
+    for which in ("library", "rowscan", "kernel", "kernel", "rowscan",
+                  "library"):
+        yard[which].append(cuda_ms(fns[which], 5))
+    entry = timed_entry(
+        "ncc_argmax_both", path, W_SOURCE, W_REPLACES, launches,
+        W.ncc_argmax_both, W.ncc_argmax_both_plain, args, {}, err,
+        *bound(ops, nbytes),
+        {"N1": f1.shape[0], "N2": f2.shape[0], "D": f1.shape[1],
+         "rows_differ": len(rows), "cols_differ": len(cols),
+         "equal_to_rowscan": same, "operations": ops, "bytes": nbytes,
+         "ms_turns_with_yardsticks": yard["kernel"],
+         "rowscan_both_ms": float(np.mean(yard["rowscan"])),
+         "rowscan_both_ms_turns": yard["rowscan"],
+         "library_ms_turns": yard["library"],
+         "library": "one f1 @ f2.T, then max over dim 1 and over dim 0"},
+        (5, 1))
+    entry["library_ms"] = float(np.mean(yard["library"]))
+    log(f"[kernel] {path} ncc_argmax_both in turns with its yardsticks "
+        f"(ms): {json.dumps(yard)}")
+    return entry
+
+
 def measure_zoo(items):
     """V, W, X and Y on their phase-16 inputs, ``items`` [(kernel, path,
     args, launches on the path)]: each held to its plain version and
-    timed in turns with its bound; W also beside torch.matmul + max."""
+    timed in turns with its bound; W also beside its first design and
+    the library call (measure_ncc)."""
     from limap_tpu_torch.ops import l2d2_patches as Y
     from limap_tpu_torch.ops import lbd_describe as V
-    from limap_tpu_torch.ops import ncc_argmax as W
     from limap_tpu_torch.ops import tplsd_decode as X
     from limap_tpu_torch.testing import zoo_checks
     entries = []
@@ -4276,25 +4406,8 @@ def measure_zoo(items):
                 {"lines": segs.shape[0], "image": list(img.shape),
                  "operations": ops, "bytes": nbytes, "library": "none"},
                 (5, 1)))
-        elif name == "ncc_argmax":
-            f1, f2 = args
-            ik, sk = W.ncc_argmax(*args)
-            ip, sp = W.ncc_argmax_plain(*args)
-            rows, bad, serr = zoo_checks.ncc_witness(
-                f1.cpu().numpy(), f2.cpu().numpy(), ik, sk, ip, sp)
-            check(not bad and serr <= zoo_checks.NCC_TIE,
-                  ("W vs plain", path, len(rows), bad[:5], serr))
-            ops, nbytes = W.work(f1.shape[0], f2.shape[0], f1.shape[1])
-            entry = timed_entry(
-                name, path, W_SOURCE, W_REPLACES, launches, W.ncc_argmax,
-                W.ncc_argmax_plain, args, {}, serr, *bound(ops, nbytes),
-                {"N1": f1.shape[0], "N2": f2.shape[0], "D": f1.shape[1],
-                 "rows_differ": len(rows), "operations": ops,
-                 "bytes": nbytes,
-                 "library": "torch.max(f1 @ f2.T, dim=1)"}, (5, 1))
-            entry["library_ms"] = cuda_ms(
-                lambda: torch.max(f1 @ f2.T, dim=1), 5)
-            entries.append(entry)
+        elif name == "ncc_argmax_both":
+            entries.append(measure_ncc(path, args, launches))
         elif name == "tplsd_decode":
             c, d, max_segs, thresh, r = args
             sk, nk = X.tplsd_decode(*args)
@@ -4361,9 +4474,11 @@ def zoo_full_width(scene, ckpt, card):
     for name, n in launches.items():
         check(n > 0, f"phase 16's paths did not launch {name}")
     check(r_launches > 0, "GlueStick's OT did not launch log_sinkhorn")
+    dense_runner_yardstick(card)
     return measure_zoo([
         ("lbd_describe", "lbd_runner", v_args, launches["lbd_describe"]),
-        ("ncc_argmax", "dense_runner", w_args, launches["ncc_argmax"]),
+        ("ncc_argmax_both", "dense_runner", w_args,
+         launches["ncc_argmax_both"]),
         ("tplsd_decode", "tplsd_detect", x_args, launches["tplsd_decode"]),
         ("l2d2_patches", "l2d2_describe", y_args, launches["l2d2_patches"])])
 
@@ -4375,7 +4490,12 @@ def zoo_full_width(scene, ckpt, card):
 # runs part there by millimetres at a cost 4e-6 apart), and CG's 64
 # float32 iterations carry the order of the sums along it: the d-rank CG
 # run's poses are held within MULTI_POSE_TOL or, where larger, the
-# one-card CG run's own distance from the one-card dense solve.
+# one-card CG run's own distance from the one-card dense solve.  Rounding
+# is the cause: in float64 the two-rank CG run is 3.7e-8 from the
+# one-process run with the scale gauge free and 1.2e-8 with two poses
+# fixed, the near-gauge direction (tests/test_torch_parallel_ba.py::
+# test_trajectory_matches_one_process_in_float64[cg] and [cg two fixed
+# poses], within MULTI_POSE_TOL); in float32 the same runs part by 2.1e-3.
 RANKS_17 = 2
 BA_STEPS_17 = 20
 MULTI_COST_RTOL, MULTI_COST_ATOL_SHARE = 5e-3, 1e-5

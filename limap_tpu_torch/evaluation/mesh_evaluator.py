@@ -3,7 +3,8 @@
 Each line is sampled at ``n_samples`` points and each sample's distance
 to the nearest triangle comes from
 :func:`~limap_tpu_torch.ops.mesh_distance.mesh_min_dist` (kernel N for a
-mesh on the GPU, the plain chunked scan on the CPU).  The mesh is given
+mesh on the GPU, on the layout that ``prepare_mesh`` builds once a mesh;
+the plain chunked scan on the CPU).  The mesh is given
 as arrays, vertices [V, 3] and faces [M, 3], so no mesh package is
 needed.
 """
@@ -18,7 +19,8 @@ from limap_tpu_torch.base.lines import Segments
 from limap_tpu_torch.evaluation.evaluator import (DEFAULT_N_SAMPLES,
                                                   sample_points_on_segments)
 from limap_tpu_torch.ops.mesh_distance import (mesh_min_dist,
-                                               point_triangle_distance)
+                                               point_triangle_distance,
+                                               prepare_mesh)
 
 __all__ = ["MeshEvaluator", "point_triangle_distance"]
 
@@ -32,18 +34,19 @@ class MeshEvaluator:
         v = np.asarray(vertices, np.float32)
         f = np.asarray(faces, np.int64).reshape(-1, 3)
         self.tris = torch.as_tensor(v[f], device=self.device).contiguous()
+        self.mesh = prepare_mesh(self.tris)
 
     def ComputeDistPoint(self, p) -> float:
         """Distance of one point [3] to the mesh."""
         q = torch.as_tensor(np.asarray(p, np.float32).reshape(1, 3),
                             device=self.device)
-        return float(mesh_min_dist(q, self.tris)[0])
+        return float(mesh_min_dist(q, self.mesh)[0])
 
     def ComputeDistsLine(self, seg: Segments,
                          n_samples: int = DEFAULT_N_SAMPLES) -> torch.Tensor:
         """[N, n_samples] sample distances of a batch of lines."""
         samples = sample_points_on_segments(seg, n_samples)
-        d = mesh_min_dist(samples.reshape(-1, 3).contiguous(), self.tris)
+        d = mesh_min_dist(samples.reshape(-1, 3).contiguous(), self.mesh)
         return d.reshape(samples.shape[:-1])
 
     def ComputeInlierRatio(self, seg: Segments, threshold: float,

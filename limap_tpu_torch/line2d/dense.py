@@ -8,9 +8,10 @@ is pluggable:
 
 - :class:`CorrelationFlowMatcher`, weight-free: mean-free unit 8 x 8
   patches on a stride-8 grid, each matched to its best correlation in
-  the other image (kernel W, ``ops/ncc_argmax.py``), the certainty that
-  correlation, both upsampled to full resolution by ``util/cv2_ops``'s
-  INTER_LINEAR resize;
+  the other image, both directions from one pass over the correlations
+  (kernel W, ``ops/ncc_argmax.py``), the certainty that correlation,
+  both upsampled to full resolution by ``util/cv2_ops``'s INTER_LINEAR
+  resize;
 - :class:`RoMaLineMatcher`, which needs the external ``romatch`` package
   and its checkpoint, and raises as the reference does without them.
 """
@@ -26,7 +27,7 @@ from limap_tpu_torch import resolve_device
 from limap_tpu_torch.line2d.base import (BaseDetector, BaseMatcher,
                                          register_extractor,
                                          register_matcher)
-from limap_tpu_torch.ops.ncc_argmax import ncc_argmax
+from limap_tpu_torch.ops.ncc_argmax import ncc_argmax_both
 from limap_tpu_torch.util import cv2_ops
 
 
@@ -85,10 +86,11 @@ class CorrelationFlowMatcher(BaseDenseMatcher):
         norm = torch.linalg.vector_norm(patches, dim=1, keepdim=True) + 1e-6
         return (patches / norm).contiguous(), (Hc, Wc), (H, W)
 
-    def _one_direction(self, fa, ga, fb, gb, shape_a, shape_b):
+    def _one_direction(self, idx, score, ga, gb, shape_a, shape_b):
+        """The warp and certainty of image a from each of its cells' best
+        cell ``idx`` of image b and that correlation ``score``."""
         Ha, Wa = shape_a
         Hc, Wc = ga
-        idx, score = ncc_argmax(fa, fb)     # kernel W
         Wc2 = gb[1]
         ty = (torch.div(idx, Wc2, rounding_mode="floor").to(torch.float64)
               + 0.5) * self.stride
@@ -104,8 +106,9 @@ class CorrelationFlowMatcher(BaseDenseMatcher):
     def get_warping_symmetric(self, img1, img2):
         f1, g1, s1 = self._features(img1)
         f2, g2, s2 = self._features(img2)
-        warp12, cert12 = self._one_direction(f1, g1, f2, g2, s1, s2)
-        warp21, cert21 = self._one_direction(f2, g2, f1, g1, s2, s1)
+        idx12, s12, idx21, s21 = ncc_argmax_both(f1, f2)     # kernel W
+        warp12, cert12 = self._one_direction(idx12, s12, g1, g2, s1, s2)
+        warp21, cert21 = self._one_direction(idx21, s21, g2, g1, s2, s1)
         return warp12, cert12, warp21, cert21
 
 

@@ -14,6 +14,7 @@ of a point to it is then known in closed form (:func:`wall_distance`).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from limap_tpu_torch.testing.pipeline import WALL_Z
 
@@ -65,6 +66,22 @@ def on_wall(points, x=WALL_X, y=WALL_Y, z=WALL_Z):
     p = np.asarray(points)
     inside, dz = wall_distance(p, x, y, z)
     return p[inside & (dz == 0)]
+
+
+def wall_samples(what, seed=0):
+    """[P, 3] f32 samples (64 a segment, consecutive, as the evaluator's)
+    of random segments over the wall (``"over"``), beside it
+    (``"beside"``) or 5 m in front of it (``"far"``)."""
+    rng = np.random.default_rng(seed)
+    n, z, xr, yr = {"over": (4, WALL_Z, WALL_X, WALL_Y),
+                    "beside": (2, WALL_Z, (6.1, 8.0), WALL_Y),
+                    "far": (2, WALL_Z + 5, (-3.0, 3.0), (-3.0, 3.0))}[what]
+    s = np.stack([rng.uniform(*xr, n), rng.uniform(*yr, n),
+                  z + rng.normal(0, 0.02, n)], 1)
+    e = s + rng.normal(0, 0.5, (n, 3)) * [1, 1, 0.05]
+    t = np.linspace(0, 1, 64)[None, :, None]
+    return torch.as_tensor((s[:, None] + t * (e - s)[:, None])
+                           .reshape(-1, 3).astype(np.float32))
 
 
 def refline_f64(ref_lines, lines, taus, n_samples=1000, chunk=1 << 22):

@@ -4,10 +4,12 @@
   border (clipped samples), of zero length, and invalid rows; within
   ``LBD_TOL`` of plain (other summation orders).
 - W (``ops/ncc_argmax.py``): random unit rows, f2 with duplicated rows
-  (exact ties: the first index must win), D = 64 and an odd D; a row
-  whose index differs from plain must be a near tie: both columns' dots
-  within ``NCC_TIE`` of each other in float64, and the scores within
-  ``NCC_TIE``.
+  and f1 and f2 both with duplicated rows (exact ties: the first index
+  must win, for rows and for columns), D = 64 and an odd D; in either
+  direction an index that differs from plain must be a near tie: both
+  candidates' dots within ``NCC_TIE`` of each other in float64, and the
+  scores within ``NCC_TIE``.  On the card both directions also equal the
+  row-scan yardstick's bit for bit (the same fmaf chains).
 - X (``ops/tplsd_decode.py``): centre maps quantized to a few levels
   (plateaus and equal scores everywhere), more and fewer peaks than
   ``max_segs``, radius 1 and 4, a map without peaks; equal bit for bit.
@@ -70,16 +72,19 @@ def lbd_cases():
 def ncc_cases():
     out = []
     rng = np.random.default_rng(1)
-    for name, n1, n2, d, dup in (("300x257x64", 300, 257, 64, False),
-                                 ("duplicates 200x130x64", 200, 130, 64,
-                                  True),
-                                 ("odd D 77x1000x49", 77, 1000, 49, False),
-                                 ("one column 33x1x64", 33, 1, 64, False)):
+    for name, n1, n2, d, dup in (("300x257x64", 300, 257, 64, 0),
+                                 ("duplicates 200x130x64", 200, 130, 64, 1),
+                                 ("odd D 77x1000x49", 77, 1000, 49, 0),
+                                 ("one column 33x1x64", 33, 1, 64, 0),
+                                 ("duplicates in both 200x130x64", 200, 130,
+                                  64, 2)):
         f1 = rng.normal(size=(n1, d))
         f2 = rng.normal(size=(n2, d))
         if dup:
             f2[n2 // 2:] = f2[:n2 - n2 // 2]
             f1[:20] = f2[:20]
+        if dup == 2:
+            f1[n1 // 2:] = f1[:n1 - n1 // 2]
         f1 /= np.linalg.norm(f1, axis=1, keepdims=True)
         f2 /= np.linalg.norm(f2, axis=1, keepdims=True)
         out.append((name, f1.astype(np.float32), f2.astype(np.float32)))
@@ -150,20 +155,37 @@ def ncc_witness(f1, f2, ik, sk, ip, sp):
     return rows, bad, serr
 
 
+def first_indices(a, b, n):
+    """The first argmax over b's rows of a[k] . b for k < n (numpy)."""
+    return np.array([int(np.argmax(b @ v)) for v in a[:n]])
+
+
 def check_ncc(device="cuda"):
     for name, f1, f2 in ncc_cases():
         t1, t2 = (torch.as_tensor(a, device=device) for a in (f1, f2))
-        ik, sk = W.ncc_argmax(t1, t2)
-        ip, sp = W.ncc_argmax_plain(t1, t2)
-        rows, bad, serr = ncc_witness(f1, f2, ik, sk, ip, sp)
-        res = {"ok": not bad and serr <= NCC_TIE, "rows_differ": len(rows),
-               "not_near_tie": bad[:5], "score_max_abs_err": serr}
+        k12, ks12, k21, ks21 = W.ncc_argmax_both(t1, t2)
+        p12, ps12, p21, ps21 = W.ncc_argmax_both_plain(t1, t2)
+        rows, bad, serr = ncc_witness(f1, f2, k12, ks12, p12, ps12)
+        cols, badc, serrc = ncc_witness(f2, f1, k21, ks21, p21, ps21)
+        res = {"ok": not bad and not badc and max(serr, serrc) <= NCC_TIE,
+               "rows_differ": len(rows), "cols_differ": len(cols),
+               "not_near_tie": (bad + badc)[:5], "score_max_abs_err": serr,
+               "col_score_max_abs_err": serrc}
         if name.startswith("duplicates"):
             # an exact copy scores equal dots: the first index must win
-            first = np.array([int(np.argmax(f2 @ v)) for v in f1[:20]])
             res["first_index"] = bool(np.array_equal(
-                ik[:20].cpu().numpy(), first))
-            res["ok"] &= res["first_index"]
+                k12[:20].cpu().numpy(), first_indices(f1, f2, 20)))
+            res["first_col_index"] = bool(np.array_equal(
+                k21[:20].cpu().numpy(), first_indices(f2, f1, 20)))
+            res["ok"] &= res["first_index"] and res["first_col_index"]
+        if t1.is_cuda:
+            # the same fmaf chains as the row scan's, in both directions
+            r12, rs12 = W.ncc_argmax_rowscan(t1, t2)
+            r21, rs21 = W.ncc_argmax_rowscan(t2, t1)
+            res["rowscan_equal"] = bool(
+                torch.equal(k12, r12) and torch.equal(ks12, rs12)
+                and torch.equal(k21, r21) and torch.equal(ks21, rs21))
+            res["ok"] &= res["rowscan_equal"]
         yield "ncc_argmax", name, res
 
 

@@ -439,18 +439,64 @@ def test_triangulator_vp_banks_vs_plain(tri_vp_results, name, case):
 @pytest.mark.parametrize("case", range(len(mesh_cases())))
 def test_mesh_min_dist_kernel_vs_plain(cuda, case):
     """Kernel N against its plain scan on the seeded cases: bit for bit
-    (the same correctly rounded fp32 operations in the same order), one
-    launch counted."""
+    (the same correctly rounded fp32 operations in the same order, only
+    pairs above a point's best skipped), one launch counted, its counts
+    those of the cull's replay on the same prepared arrays; the first
+    design (every pair) bit for bit too."""
     from limap_tpu_torch.ops import mesh_distance as md
     _, p, t = mesh_cases()[case]
     pc = torch.as_tensor(p, device="cuda")
     tc = torch.as_tensor(t, device="cuda")
     n0 = md.mesh_min_dist.launches
     got = md.mesh_min_dist(pc, tc)
+    counts = md.mesh_min_dist.counts.tolist()
     ref = md.mesh_min_dist_plain(pc, tc)
     torch.cuda.synchronize()
     assert md.mesh_min_dist.launches == n0 + 1
     assert torch.equal(got, ref), float((got - ref).abs().max())
+    assert torch.equal(md.mesh_min_dist_scan(pc, tc), ref)
+    mesh = md.prepare_mesh(tc)
+    _, replay = md.mesh_min_dist_culled(
+        pc.cpu(), md.PreparedMesh(*(x.cpu() for x in mesh)))
+    assert counts == [replay[k] for k in md.COUNTS]
+
+
+@pytest.mark.parametrize("what", ["over", "beside", "far"])
+def test_mesh_min_dist_culls_the_wall(cuda, what):
+    """On the full wall mesh (135,000 triangles) the kernel is bit-equal
+    to the plain scan and evaluates the replay's pairs: a few per mille of
+    them over and beside the wall."""
+    from limap_tpu_torch.ops import mesh_distance as md
+    from limap_tpu_torch.testing.evaluation import wall_mesh, wall_samples
+    verts, faces = wall_mesh()
+    tris = torch.as_tensor(verts[faces], device="cuda")
+    mesh = md.prepare_mesh(tris)
+    q = wall_samples(what).cuda()
+    got = md.mesh_min_dist(q, mesh)
+    counts = md.mesh_min_dist.counts.tolist()
+    assert torch.equal(got, md.mesh_min_dist_plain(q, tris))
+    _, replay = md.mesh_min_dist_culled(
+        q.cpu(), md.PreparedMesh(*(x.cpu() for x in mesh)))
+    assert counts == [replay[k] for k in md.COUNTS]
+
+
+@pytest.mark.parametrize("N1,N2,D", [(129, 257, 64), (1000, 1301, 64),
+                                     (7500, 300, 64), (300, 7500, 49)])
+def test_ncc_argmax_both_equals_the_row_scan(cuda, N1, N2, D):
+    """Kernel W's one pass gives, in both directions, the first design's
+    one-direction results bit for bit (the same fmaf chains), across
+    ragged 128-row tiles."""
+    from limap_tpu_torch.ops import ncc_argmax as W
+    g = torch.Generator(device="cuda").manual_seed(N1 + N2)
+    f1 = torch.randn(N1, D, device="cuda", generator=g)
+    f2 = torch.randn(N2, D, device="cuda", generator=g)
+    f1 = f1 / f1.norm(dim=1, keepdim=True)
+    f2 = f2 / f2.norm(dim=1, keepdim=True)
+    i12, s12, i21, s21 = W.ncc_argmax_both(f1, f2)
+    r12, rs12 = W.ncc_argmax_rowscan(f1, f2)
+    r21, rs21 = W.ncc_argmax_rowscan(f2, f1)
+    assert torch.equal(i12, r12) and torch.equal(s12, rs12)
+    assert torch.equal(i21, r21) and torch.equal(s21, rs21)
 
 
 def test_mesh_evaluator_on_the_card_never_takes_the_plain_scan(
@@ -700,21 +746,26 @@ def test_zoo_kernels_count_launches_and_refuse_bad_inputs(cuda):
     from limap_tpu_torch.ops import lbd_describe as V
     from limap_tpu_torch.ops import ncc_argmax as W
     from limap_tpu_torch.ops import tplsd_decode as X
-    kernels = (V.lbd_describe, W.ncc_argmax, X.tplsd_decode, Y.l2d2_patches)
+    kernels = (V.lbd_describe, W.ncc_argmax_both, X.tplsd_decode,
+               Y.l2d2_patches)
     n0 = tuple(k.launches for k in kernels)
     img = torch.rand(20, 30, device="cuda")
     V.lbd_describe(img, torch.zeros(0, 4, device="cuda"),
                    torch.zeros(0, dtype=torch.bool, device="cuda"))
-    W.ncc_argmax(torch.zeros(0, 8, device="cuda"),
-                 torch.ones(3, 8, device="cuda"))
+    W.ncc_argmax_both(torch.ones(2, 8, device="cuda"),
+                      torch.ones(3, 8, device="cuda"))
     X.tplsd_decode(img, torch.zeros(20, 30, 4, device="cuda"), 5)
     Y.l2d2_patches(img, torch.zeros(0, 6, device="cuda"),
                    torch.zeros(0, 4, dtype=torch.int32, device="cuda"))
     n1 = tuple(k.launches for k in kernels)
-    assert n1 == (n0[0], n0[1], n0[2] + 1, n0[3])   # empty: no launch
+    # empty: no launch; W's one launch gives both directions
+    assert n1 == (n0[0], n0[1] + 1, n0[2] + 1, n0[3])
     with pytest.raises(ValueError):
-        W.ncc_argmax(torch.zeros(3, 65, device="cuda"),
-                     torch.zeros(3, 65, device="cuda"))
+        W.ncc_argmax_both(torch.zeros(0, 8, device="cuda"),
+                          torch.ones(3, 8, device="cuda"))
+    with pytest.raises(ValueError):
+        W.ncc_argmax_both(torch.zeros(3, 65, device="cuda"),
+                          torch.zeros(3, 65, device="cuda"))
     with pytest.raises(ValueError):
         V.lbd_describe(img.double(), torch.zeros(1, 4, device="cuda"),
                        torch.ones(1, dtype=torch.bool, device="cuda"))

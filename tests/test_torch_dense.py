@@ -1,7 +1,8 @@
 """The port's dense line matchers against the JAX package on the CPU.
 
-Kernel W's plain version against JAX's jitted _ncc_flow (indices equal,
-scores 1e-6); the correlation flow on two textured rendered views (a
+Kernel W's plain version against JAX's jitted _ncc_flow by rows (indices
+equal, scores 1e-6; both directions in test_torch_ncc_both.py); the
+correlation flow on two textured rendered views (a
 cell whose best index differs must be a near tie: its two columns'
 float64 correlations within 1e-5; the warps elsewhere within 1e-5 and
 the certainties within 1e-5, both upsampled by util/cv2_ops' INTER_LINEAR
@@ -29,7 +30,8 @@ WARP_TOL = 1e-5
 def test_ncc_flow_matches_jax(case):
     _, f1, f2 = zoo_checks.ncc_cases()[case]
     ri, rs = J._ncc_flow(jnp.asarray(f1), jnp.asarray(f2))
-    pi, ps = W.ncc_argmax(torch.as_tensor(f1), torch.as_tensor(f2))
+    pi, ps, _, _ = W.ncc_argmax_both(torch.as_tensor(f1),
+                                     torch.as_tensor(f2))
     assert np.array_equal(np.asarray(ri), pi.numpy())
     np.testing.assert_allclose(ps.numpy(), np.asarray(rs), atol=1e-6)
 
@@ -57,7 +59,9 @@ def test_correlation_flow_matches_jax(textured):
         pa, _, _ = cp._features(imgs[a])
         pb, _, _ = cp._features(imgs[b])
         np.testing.assert_allclose(pa.numpy(), fa, atol=1e-6)
-        pi, _ = W.ncc_argmax(pa, pb)
+        # the port takes both directions from image 0's rows x image 1's
+        pi = W.ncc_argmax_both(*((pa, pb) if which == 0 else (pb, pa)))[
+            2 * which]
         ri, pi = np.asarray(ri), pi.numpy()
         differ = np.nonzero(ri != pi)[0]
         f64a, f64b = fa.astype(np.float64), fb.astype(np.float64)

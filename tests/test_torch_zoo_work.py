@@ -64,7 +64,9 @@ def test_x_window_maximum_is_separable(r):
 def test_w_and_v_counts():
     ops, nbytes = W.work(7500, 7500, 64)
     assert ops == 2 * 7500 * 7500 * 64
-    assert nbytes == 4 * 64 * 15000 + 12 * 7500
+    # both directions: the product once, an index and a score a row and
+    # a column
+    assert nbytes == 4 * 64 * 15000 + 12 * 15000
     ops, nbytes = V.work(600, 800, 640)
     samples = 640 * 63 * 32
     assert ops > samples * 70 and nbytes == 600 * 800 * 4 + 640 * 305
@@ -122,9 +124,13 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError):
         X.tplsd_decode(torch.zeros(4, 5), torch.zeros(4, 5, 4), 21)
     with pytest.raises(ValueError):
-        W.ncc_argmax(torch.zeros(3, 4), torch.zeros(3, 5))
+        W.ncc_argmax_both(torch.zeros(3, 4), torch.zeros(3, 5))
     with pytest.raises(ValueError):
-        W.ncc_argmax(torch.zeros(3, 4), torch.zeros(0, 4))
+        W.ncc_argmax_both(torch.zeros(3, 4), torch.zeros(0, 4))
+    with pytest.raises(ValueError):
+        W.ncc_argmax_both(torch.zeros(0, 4), torch.zeros(3, 4))
+    with pytest.raises(ValueError):
+        W.ncc_argmax_rowscan(torch.zeros(3, 4), torch.zeros(3, 4))
     with pytest.raises(ValueError):
         V.lbd_describe(torch.zeros(4, 5), torch.zeros(2, 4),
                        torch.ones(2))

@@ -10,7 +10,13 @@ in float64 as JAX's own multi-chip parity (``tests/test_multichip_parity.py
 ::test_distributed_ba_trajectory_matches_single_device``); in float32 the
 port's d-rank run may be no farther from the port's float64 run than
 twice JAX's d-device float32 run is, plus 1e-4 (JAX's float32 step is
-itself up to ~0.5 from the float64 one on this problem, ROADMAP §3)."""
+itself up to ~0.5 from the float64 one on this problem, ROADMAP §3).
+
+The problem fixes pose 0 only, so the global scale is a gauge direction
+that the damping alone holds.  GAUGE_RUN is CG in float64 on the same
+problem with poses 0 and 1 fixed at their ground truth (phase 14's
+``n_fixed_poses=2``): a 0.5 m baseline against scenes at 8 m, so the
+scale is fixed but weakly, the near-gauge direction of phase 14's CG."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -25,6 +31,9 @@ from tests.test_sharded_ba import build_problem
 
 STEPS = 10
 SOLVERS = {"dense": {"solver": "dense"}, "cg": {"solver": "cg"}}
+GAUGE_SOLVER = "cg two fixed poses"
+GAUGE_RUN = (f"{GAUGE_SOLVER} f64", {"solver": "cg", "n_fixed_poses": 2},
+             STEPS)
 COST_RTOL, COST_ATOL_SHARE, POSE_TOL, LINE_TOL = 5e-3, 1e-5, 1e-4, 1e-3
 
 
@@ -33,9 +42,12 @@ def _f64(x):
                  for a in x)
 
 
-def problem(dtype):
-    state, ld, pd, n_views, _ = build_problem(np.random.default_rng(0))
+def problem(dtype, two_fixed=False):
+    state, ld, pd, n_views, (qvecs, tvecs, _) = build_problem(
+        np.random.default_rng(0))
     out = tuple(tuple(np.array(a) for a in x) for x in (state, ld, pd))
+    if two_fixed:
+        out[0][2][1] = np.concatenate([qvecs[1], tvecs[1]])
     if dtype == "f64":
         out = tuple(_f64(x) for x in out)
     return out + (n_views, 1)
@@ -46,16 +58,25 @@ def runs():
             for dt in ("f64", "f32")]
 
 
+def all_runs():
+    return runs() + [GAUGE_RUN]
+
+
 def run_all(d):
     """The d-rank runs (each rank's), the one-process runs and JAX's
     d-device float32 runs, by run name."""
     problems = {dt: problem(dt) for dt in ("f64", "f32")}
+    problems[GAUGE_RUN[0]] = problem("f64", two_fixed=True)
+
+    def problem_of(name):
+        return problems.get(name, problems.get(name.split()[-1]))
+
     ranks = multirank.start(multirank.jobs, d, ([
-        (multirank.ba_steps, (problems[dt], [(name, kw, n)]))
-        for name, kw, n in runs() for dt in [name.split()[1]]],))
+        (multirank.ba_steps, (problem_of(name), [(name, kw, n)]))
+        for name, kw, n in all_runs()],))
     one = {}
-    for name, kw, n in runs():
-        one.update(multirank.ba_steps(0, 1, problems[name.split()[1]],
+    for name, kw, n in all_runs():
+        one.update(multirank.ba_steps(0, 1, problem_of(name),
                                       [(name, kw, n)]))
     state, ld, pd, n_views, _ = problems["f32"]
     mesh = jax_mesh(d)
@@ -80,7 +101,7 @@ def run_all(d):
 
 def check_ranks_agree(merged):
     """Every rank ends every step with the same state, bit for bit."""
-    for name, _, _ in runs():
+    for name, _, _ in all_runs():
         ref = merged[0][name]
         for r in merged[1:]:
             assert r[name]["costs"] == ref["costs"], name
@@ -146,3 +167,29 @@ def check_collectives(merged):
         assert 0 < products <= STEPS * JaxOptions().cg_iters
         assert cg["bytes"]["all_reduce"] == (
             STEPS * (2 * D + 1) + products * D) * size
+
+
+def report(d=2):
+    """Print, for each run, how far the d-rank run's last state is from
+    the one-process run's (poses, lines, points, the largest absolute
+    difference), and the one-process CG run's poses from the dense
+    solve's.
+
+        JAX_PLATFORMS=cpu python -m tests.torch_parallel_checks
+    """
+    merged, one, _, _ = run_all(d)
+    for name, _, _ in all_runs():
+        (l1, p1, q1, _), (ld, pd, qd, _) = (one[name]["states"][-1],
+                                            merged[0][name]["states"][-1])
+        print(f"{name}: {d} ranks against one process: poses "
+              f"{np.abs(qd - q1).max():.3e}, lines {np.abs(ld - l1).max():.3e}"
+              f", points {np.abs(pd - p1).max():.3e}")
+    for dt in ("f64", "f32"):
+        a = one[f"dense {dt}"]["states"][-1][2]
+        b = one[f"cg {dt}"]["states"][-1][2]
+        print(f"one process, CG against dense {dt}: poses "
+              f"{np.abs(a - b).max():.3e}")
+
+
+if __name__ == "__main__":
+    report()
