@@ -53,7 +53,12 @@ Phases, in order; any failure exits non-zero:
      line of the 10 neighbours and keeps the survivors of its culls,
      kernel G scores them), with quality gates from the port's own CPU
      run; then GT evaluation through nn_min_dist, and F and G held to
-     their plain versions and timed on that path's whole input.
+     their plain versions and timed on that path's whole input; F's
+     exhaustive passes (a table launch, then tiles staged in shared
+     memory, survivors triangulated warp-dense) also held bit for bit to
+     their first design (propose_exhaustive_scan, the yardstick, never on
+     the path) and timed in turns with it, the count and the write each
+     alone, beside the candidates reaching each cull.
  11. the COLMAP entry point with VP triangulation at full width: the
      façade variant of phase 7's scene (100 views of 800x600, its lines
      horizontal or vertical) written as a COLMAP text model with wall
@@ -107,7 +112,13 @@ Phases, in order; any failure exits non-zero:
      poses, dense and CG, gated the same way; O, P and Q held to their
      plain versions on the first steps and timed in turns, with the
      dense solve's time, their launches counted by kind and mode in the
-     runs (a product's in the CG runs); then the CLIs in process:
+     runs (a product's in the CG runs); O with its index built once a
+     solve (the supports' pair lists), its time split (the index build,
+     stage 1, stage 2 on the pairs, the first design's stage 2) and O
+     timed in turns with its first design (hybrid_terms_scan, the
+     yardstick, never on the path, its assembly held to float64 too) as
+     that design's path ran it, the supports' grouping built every call,
+     and once with the grouping prebuilt; then the CLIs in process:
      visualsfm_triangulation (the GT model converted by convert_model)
      and bundler_triangulation (a Bundler model) against the direct call
      (cameras read back within 1e-6, the phase-7 gates), and, right after
@@ -177,7 +188,8 @@ Phases, in order; any failure exits non-zero:
      step spent in them.
 Phase 2 also holds kernels O, P and Q to their plain versions on seeded
 inputs (lines and points, optimize_focal on and off, each constancy flag,
-ragged slots of weight 0, one track, one support).
+ragged slots of weight 0, one track, one support), O's matrix within
+its float64 recomputation and the same bits on a repeat.
 Phase 2 also holds kernel N (mesh_min_dist) bit for bit to its plain
 version on seeded inputs (degenerate triangles, points in each of a
 triangle's seven regions, ragged sizes), its counts to the cull's replay
@@ -185,7 +197,10 @@ in torch (ops/mesh_distance.py::mesh_min_dist_culled), and its first
 design (mesh_min_dist_scan) to the plain version.
 Phase 2 also holds the triangulator's kernels (tri_propose, F, in both
 input forms and with the VP banks, and tri_score, G) and the VP
-detector (vp_detect, J) to their plain versions on seeded inputs;
+detector (vp_detect, J) to their plain versions on seeded inputs, and
+F's exhaustive passes bit for bit to their first design
+(propose_exhaustive_scan: counts, words, rows and ok, with endpoint
+triangulation, ranges and neighbours of -1);
 phases 4 and 7 hold F and G to them on their paths' whole inputs; phase
 10a, before phase 10, runs the exhaustive runner on the card and on the
 CPU on a reduced rendered scene (the same segments) and requires the same
@@ -1046,12 +1061,16 @@ LOC_TURNS = ("kernel", "plain", "kernel")
 
 
 def timed_entry(name, path, source, replaces, launches, kernel, plain, args,
-                kwargs, err, bound_ms, bound_by, shape, reps):
+                kwargs, err, bound_ms, bound_by, shape, reps, plain_ms=None):
     """A kernel's entry of the kernels line: the kernel and its plain
     version timed in turns (LOC_TURNS; ``reps`` = (kernel runs, plain
-    runs) a turn) on the input it was held to the plain version on."""
-    times = {"kernel": [], "plain": []}
+    runs) a turn) on the input it was held to the plain version on; with
+    ``plain_ms`` the plain version's time is that of the run it was held
+    to (one run, CUDA events), and only the kernel's turns run here."""
+    times = {"kernel": [], "plain": [] if plain_ms is None else [plain_ms]}
     for which in LOC_TURNS:
+        if which == "plain" and plain_ms is not None:
+            continue
         fn = kernel if which == "kernel" else plain
         n = reps[0] if which == "kernel" else reps[1]
         times[which].append(cuda_ms(lambda: fn(*args, **kwargs), n,
@@ -1622,29 +1641,60 @@ def measure_jointloc(calls, launches):
         err, bms, by, shape, (10, 1))
 
 
-def measure_exhaustive_kernels(recorded, launches):
-    """Kernels F (form b: the count and the write, timed together) and G
-    on the exhaustive path's whole inputs."""
+# F's exhaustive passes and their first design in turns
+EXHAUSTIVE_TURNS = ("scan", "kernel", "kernel", "scan")
+
+
+def events_ms(fn):
+    """(fn's result, its ms by CUDA events) of one run, no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def measure_exhaustive_kernels(recorded, launches, path_launches):
+    """Kernels F (form b: its tables, the count and the write, timed
+    together) and G on the exhaustive path's whole inputs; F also bit for
+    bit against its first design (propose_exhaustive_scan), the two timed
+    in turns and each pass alone.  ``path_launches``: the path's launches
+    of F's table kernel and of the yardstick."""
     from limap_tpu_torch.ops import tri_propose
     from limap_tpu_torch.testing import tri_checks
     cargs, _ = recorded["count_exhaustive"]
     wargs, _ = recorded["propose_exhaustive"]
     check(cargs is not None and wargs is not None,
           "the exhaustive path gave kernel F no input")
-    cfg, L, K, l2d, cam, meta, ranges = cargs
+    cfg, L, K, l2d, cam, meta, ranges = cargs[:7]
     W = wargs[6]
     check(wargs[5].shape == meta.shape,
           ("the exhaustive path split its images into groups", W))
-    counts_k = tri_propose.count_exhaustive(*cargs)
-    counts_p = tri_propose.count_exhaustive_plain(*cargs)
-    out_k = tri_propose.propose_exhaustive(*cargs[:6], W, ranges)
-    out_p = tri_propose.propose_exhaustive_plain(*cargs[:6], W, ranges)
+    tables = tri_propose.exhaustive_tables(L, l2d, cam)
+    slot_counts = tri_propose.count_exhaustive(*cargs[:7], per_slot=True,
+                                               tables=tables)
+    counts_k = tri_propose.slot_offsets(slot_counts)[1]
+    out_k = tri_propose.propose_exhaustive(*cargs[:6], W, ranges,
+                                           slot_counts=slot_counts,
+                                           tables=tables)
+    # the plain version's one run, held to and timed (30 s at full width)
+    (counts_p, out_p), plain_ms = events_ms(lambda: (
+        tri_propose.count_exhaustive_plain(*cargs[:7]),
+        tri_propose.propose_exhaustive_plain(*cargs[:6], W, ranges)))
     res = tri_checks.compare_exhaustive(*cargs[:6], counts_k, counts_p,
                                         out_k, out_p, ranges)
     log(f"[kernel] exhaustive tri_propose against plain on the path's whole "
         f"input: {json.dumps(res)}")
     check(res["ok_to_plain"], ("tri_propose exhaustive", res))
     del out_p
+    same = tri_checks.compare_to_scan(*cargs[:7])
+    log(f"[kernel] exhaustive tri_propose against its first design on the "
+        f"path's whole input: {json.dumps(same)}")
+    check(same["bit_equal"] and same["width"] == W,
+          ("tri_propose exhaustive vs scan", same))
     work = tri_checks.exhaustive_work(*cargs[:6], counts_k, ranges)
     ops = tri_checks.operations(work, tri_checks.ops_f(cfg))
     N = counts_k.shape[0]
@@ -1655,19 +1705,54 @@ def measure_exhaustive_kernels(recorded, launches):
         f"{json.dumps(work)}; {ops} operations")
 
     def kernel():
-        return (tri_propose.count_exhaustive(*cargs),
-                tri_propose.propose_exhaustive(*cargs[:6], W, ranges))
+        tb = tri_propose.exhaustive_tables(L, l2d, cam)
+        sc = tri_propose.count_exhaustive(*cargs[:7], per_slot=True,
+                                          tables=tb)
+        return sc, tri_propose.propose_exhaustive(
+            *cargs[:6], W, ranges, slot_counts=sc, tables=tb)
 
-    def plain():
-        return (tri_propose.count_exhaustive_plain(*cargs),
-                tri_propose.propose_exhaustive_plain(*cargs[:6], W, ranges))
+    def scan():
+        return (tri_propose.count_exhaustive_scan(*cargs[:7]),
+                tri_propose.propose_exhaustive_scan(*cargs[:6], W, ranges))
 
+    fns = {"kernel": kernel, "scan": scan,
+           "tables": lambda: tri_propose.exhaustive_tables(L, l2d, cam),
+           "count": lambda: tri_propose.count_exhaustive(
+               *cargs[:7], per_slot=True, tables=tables),
+           "write": lambda: tri_propose.propose_exhaustive(
+               *cargs[:6], W, ranges, slot_counts=slot_counts, tables=tables),
+           "count_scan": lambda: tri_propose.count_exhaustive_scan(
+               *cargs[:7]),
+           "write_scan": lambda: tri_propose.propose_exhaustive_scan(
+               *cargs[:6], W, ranges)}
+    yard = {k: [] for k in fns}
+    for which in EXHAUSTIVE_TURNS + ("tables", "count", "write",
+                                     "count_scan", "write_scan"):
+        yard[which].append(cuda_ms(fns[which], 3))
+    log(f"[kernel] exhaustive tri_propose in turns with its first design, "
+        f"then each pass alone (ms): {json.dumps(yard)}")
     shape = {"lines": N, "width": W, "neighbours": K,
              "survivors_max": res["survivors_max"], "operations": ops,
-             **work}
-    entries = [timed_entry("tri_propose", "exhaustive", F_SOURCE, F_REPLACES,
-                           launches["tri_propose"], kernel, plain, (), {},
-                           res["max_abs_err"], bms, by, shape, (1, 1))]
+             "table_launches": path_launches["exhaustive_tables"],
+             "bit_equal_to_scan": same["bit_equal"],
+             "ms_turns_with_scan": yard["kernel"],
+             "scan_ms": float(np.mean(yard["scan"])),
+             "scan_ms_turns": yard["scan"],
+             "tables_ms": yard["tables"][0],
+             "count_ms": yard["count"][0], "write_ms": yard["write"][0],
+             "count_scan_ms": yard["count_scan"][0],
+             "write_scan_ms": yard["write_scan"][0], **work}
+    entry = timed_entry("tri_propose", "exhaustive", F_SOURCE, F_REPLACES,
+                        launches["tri_propose"], kernel, None, (), {},
+                        res["max_abs_err"], bms, by, shape, (3, 1),
+                        plain_ms=plain_ms)
+    # the first design, a yardstick the path never launches
+    yardstick = dict(entry, name="propose_exhaustive_scan",
+                     launches=path_launches["propose_exhaustive_scan"],
+                     ms=shape["scan_ms"], ms_turns=yard["scan"],
+                     role="yardstick: F's first design, bit-equal to its "
+                          "exhaustive passes")
+    entries = [entry, yardstick]
     words, tri, ok = out_k
     sargs = (cfg, L, K, l2d, cam, words.reshape(-1, L, W), meta, tri, ok)
     entries.append(measure_score("exhaustive", sargs, launches))
@@ -1720,10 +1805,14 @@ def exhaustive_full_width(scene, workdir, card):
     from limap_tpu_torch.testing.synthetic import gt_point_cloud
     from limap_tpu_torch.util import io as limapio
 
+    from limap_tpu_torch.ops import tri_propose
+
     imagecols, _, nbrs, gt = scene
     cfg = pipeline.exhaustive_runner_config(workdir,
                                             n_neighbors=len(nbrs[0]))
     reset_triangulator_launches()
+    tri_propose.propose_exhaustive_scan.launches = 0
+    tri_propose.exhaustive_tables.launches = 0
     recorders = triangulator_recorders()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1734,6 +1823,14 @@ def exhaustive_full_width(scene, workdir, card):
             rec.restore()
     wall = time.perf_counter() - t0
     launches = triangulator_launches()
+    path_launches = {
+        "exhaustive_tables": tri_propose.exhaustive_tables.launches,
+        "propose_exhaustive_scan": tri_propose.propose_exhaustive_scan.launches}
+    check(path_launches["propose_exhaustive_scan"] == 0,
+          "the exhaustive path launched the yardstick propose_exhaustive_scan")
+    # one table launch serves both passes
+    check(path_launches["exhaustive_tables"] == 1,
+          ("F's table launches on the exhaustive path", path_launches))
     with open(os.path.join(workdir, "metrics.json")) as f:
         metrics = json.load(f)
     segs = limapio.read_all_segments_from_folder(os.path.join(
@@ -1744,7 +1841,8 @@ def exhaustive_full_width(scene, workdir, card):
     log(f"[exhaustive] line_triangulation, use_exhaustive_matcher, "
         f"{len(nbrs)} views, {wall:.3f} s in all; stage seconds "
         f"{json.dumps(metrics['stages_s'])} on {card}; kernel launches "
-        f"{json.dumps(launches)}; peak device memory "
+        f"{json.dumps(launches)}, {json.dumps(path_launches)}; peak device "
+        f"memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"[exhaustive] proposals {json.dumps(metrics['exhaustive'])}; "
         f"overflow_edges {metrics['overflow_edges']}; {len(tracks)} tracks; "
@@ -1772,8 +1870,8 @@ def exhaustive_full_width(scene, workdir, card):
           and 0 < rep["recall"][0.01] <= rep["recall"][0.1],
           ("GT evaluation of the exhaustive tracks", rep))
     recorded = {k: (rec.args, rec.kwargs) for k, rec in recorders.items()}
-    return (recorded, launches, evaluation_queries(tracks, 1000),
-            evaluator.points)
+    return (recorded, launches, path_launches,
+            evaluation_queries(tracks, 1000), evaluator.points)
 
 
 def vp_direction_error(a, b):
@@ -2738,12 +2836,15 @@ def refine_full_width(workdir, card):
 
 
 def hybrid_launches():
-    """O's and P's launches by kind and mode, Q's in all, since the last
-    ``reset_counts``."""
+    """O's and P's launches by kind and mode, Q's in all, and O's first
+    design's (the yardstick), since the last ``reset_counts``."""
     from limap_tpu_torch.ops import hybrid_ba as O
     return {"hybrid_terms": dict(O.hybrid_terms.counts),
             "hybrid_apply": dict(O.hybrid_apply.counts),
-            "hybrid_cost": O.hybrid_cost.launches}
+            "hybrid_cost": O.hybrid_cost.launches,
+            "hybrid_terms_scan": O.hybrid_terms_scan.launches}
+
+
 
 
 def check_hybrid_launches(what, launches, product):
@@ -2758,6 +2859,8 @@ def check_hybrid_launches(what, launches, product):
                   f"{what} did not launch hybrid_apply ({mode}) on the "
                   f"{kind}s")
     check(launches["hybrid_cost"] > 0, f"{what} did not launch hybrid_cost")
+    check(launches["hybrid_terms_scan"] == 0,
+          f"{what} launched the yardstick hybrid_terms_scan")
     if not product:
         check(not any(k.endswith("apply") for k in launches["hybrid_apply"]),
               f"{what} launched CG's product on the dense path")
@@ -2868,7 +2971,8 @@ def measure_hybrid(recorded, launches, gt_line_call=None, gt_launches=None):
         errs[label] = res
     D = O.dims(I, C, opts.optimize_focal)
     Dc = 8 if opts.optimize_focal else 6
-    # O
+    # O, with the index built once (as the path does), beside its split
+    # and its first design
     for label, (args, k) in terms.items():
         kind = args[0]
         L = O.LAND[kind]
@@ -2877,17 +2981,52 @@ def measure_hybrid(recorded, launches, gt_line_call=None, gt_launches=None):
                                     args[13], O.PARAMS[kind], O.OBS[kind])
         bms, by = bound(ops, nbytes)
         res = errs[label]
+        split = HC.terms_split(args)
+        log(f"[kernel] refine hybrid_terms, {label}: time split (ms) "
+            f"{json.dumps(split)}")
+        index = O.build_index(args[6], args[5], w, args[11], args[12],
+                              args[9].optimize_focal, args[13])
+        # the yardstick shares stage 1 with O (held above); its stage 2
+        # is held to the float64 recomputation from its own terms
+        scan_res = HC.check_assembly(HC.weighted_only(
+            O.hybrid_terms_scan(*args, index=index)))
+        log(f"[kernel] refine hybrid_terms_scan (the first design), {label}, "
+            f"its assembly against float64: {json.dumps(scan_res)}")
+        check(scan_res["ok"], ("the first design of O's assembly", label))
+        # the yardstick as its path ran it: the grouping built every call
+        # (all its stage 2 reads); and once with the grouping prebuilt
+        grouping = O.grouping_index(args[6], args[5], w, args[11], args[12],
+                                    args[9].optimize_focal, args[13])
+        fns = {"kernel": lambda: O.hybrid_terms(*args, index=index),
+               "scan": lambda: O.hybrid_terms_scan(*args),
+               "scan, grouping prebuilt": lambda: O.hybrid_terms_scan(
+                   *args, index=grouping)}
+        yard = {k: [] for k in fns}
+        for which in ("scan", "kernel", "kernel", "scan",
+                      "scan, grouping prebuilt"):
+            yard[which].append(cuda_ms(fns[which], 5))
+        log(f"[kernel] refine hybrid_terms, {label}, in turns with its first "
+            f"design (ms): {json.dumps(yard)}")
         shape = {"kind": label, "tracks": int(w.shape[0]),
                  "slots": int(w.shape[1]), "weighted": int((w > 0).sum()),
                  "D": D, "dense": bool(args[13]), "operations": ops,
-                 "bytes": nbytes,
+                 "bytes": nbytes, "split_ms": split,
+                 "ms_turns_with_scan": yard["kernel"],
                  "library": "none (no PyTorch call builds a Schur system)"}
         err = max(res[n][0] for n in ("g", "diag0", "Hp") if n in res)
-        entries.append(timed_entry(
+        entry = timed_entry(
             f"hybrid_terms ({label})", "refine", O_SOURCE, O_REPLACES,
-            runs[label]["hybrid_terms"][kind], O.hybrid_terms,
-            O.hybrid_terms_plain,
-            args, {}, err, bms, by, shape, (5, 1)))
+            runs[label]["hybrid_terms"][kind],
+            lambda *a: O.hybrid_terms(*a, index=index), O.hybrid_terms_plain,
+            args, {}, err, bms, by, shape, (5, 1))
+        scan_err = max(v[0] for n, v in scan_res.items() if n != "ok")
+        entries += [entry, dict(
+            entry, name=f"hybrid_terms_scan ({label})",
+            launches=runs[label]["hybrid_terms_scan"], max_abs_err=scan_err,
+            ms=float(np.mean(yard["scan"])), ms_turns=yard["scan"],
+            grouping_prebuilt_ms=yard["scan, grouping prebuilt"][0],
+            role="yardstick: O's first design, its supports' grouping "
+                 "built every call as its path did")]
     # P: the product and the back-substitution on O's terms
     for label, (args, k) in terms.items():
         kind = args[0]
@@ -4797,6 +4936,10 @@ def main():
     for name, case, res in tri_checks.check_all_vp():
         log(f"[kernel] {name} vs plain, case {case}: {json.dumps(res)}")
         check(res["ok_to_plain"], (name, "vs plain", case, res))
+    for case, res in tri_checks.check_all_scan():
+        log(f"[kernel] tri_propose exhaustive vs its first design "
+            f"(propose_exhaustive_scan), case {case}: {json.dumps(res)}")
+        check(res["bit_equal"], ("tri_propose exhaustive vs scan", case, res))
     n0 = vp_detect.detect.launches
     for case, res in vp_checks.check_all():
         log(f"[kernel] vp_detect vs plain, case {case}: {json.dumps(res)}")
@@ -5019,8 +5162,9 @@ def main():
         t0 = time.perf_counter()
         for kernel in kernels.values():
             kernel.launches = 0
-        recorded, ex_launches, ex_queries, ex_cloud = exhaustive_full_width(
-            scene, os.path.join(workdir, "exhaustive"), card)
+        recorded, ex_launches, ex_path_launches, ex_queries, ex_cloud = \
+            exhaustive_full_width(scene, os.path.join(workdir, "exhaustive"),
+                                  card)
         nn_launches = {name: k.launches for name, k in kernels.items()}
         check(nn_launches["nn_min_dist"] > 0,
               "the exhaustive path did not launch nn_min_dist")
@@ -5029,7 +5173,8 @@ def main():
         entries += measure_kernels(kernels, "exhaustive", ex_queries,
                                    ex_cloud, nn_launches)
         del ex_queries, ex_cloud
-        entries += measure_exhaustive_kernels(recorded, ex_launches)
+        entries += measure_exhaustive_kernels(recorded, ex_launches,
+                                              ex_path_launches)
         log(f"[exhaustive] phase 10 took {time.perf_counter() - t0:.1f} s")
 
     # ---- 11a. the COLMAP path with VPs, card against CPU ----

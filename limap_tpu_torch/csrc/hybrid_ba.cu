@@ -17,14 +17,34 @@
 //   place) of their weighted supports and sum H_ll, b_l and the cost; every
 //   lane inverts H_ll + (lam + 1e-8) I and the lanes write A = H_cl H_ll^-1
 //   and g_red = g_c - A b_l over g_c.  A slot of weight 0 is read for its
-//   weight alone and its factors are not written.  Stage 2,
-//   one warp a block (g, h) of the reduced system (a group is the pose of
-//   an image or the focal lengths of a camera): the lanes take the
-//   supports of group g in track order, find each track's supports of group
-//   h (a binary search in the track's sorted images), add
-//   [u == s] H_cc[s] - A[s] H_cl[u]^T, and the warp sums by a butterfly; the
-//   diagonal warps also sum g_red and the self terms of diag0.  Every entry
-//   is written once, by one warp, in a fixed order: no atomics.
+//   weight alone and its factors are not written.  Stage 2 walks the
+//   pairs of a block (g, h) of the reduced system (a group is the pose of
+//   an image or the focal lengths of a camera): the (s, u) pairs of
+//   weighted supports of one track with s in g and u in h, listed once a
+//   solve by ops/hybrid_ba.py::build_index in the order the first design
+//   met them (s by its place in the track-major order, then u).  A block's
+//   pairs are cut into shares of SHARE consecutive pairs (without the
+//   dense matrix a group's (s, s) pairs are one share, so that g and diag0
+//   are the first design's sums bit for bit), a warp a share:
+//   the lanes add [u == s] H_cc[s] - A[s] H_cl[u]^T, and on a diagonal
+//   block g_red and the self terms of diag0 of their pairs with u == s,
+//   then the warp sums by a butterfly into the share's PART partials;
+//   then a warp a chunk adds CHUNK consecutive shares of a block in order,
+//   and a warp a block its chunks in order (an entry a lane, CHUNK loads
+//   in flight; one warp for every share of a focal block took ms), and
+//   writes the block (and g and diag0 of a diagonal block; a block
+//   without pairs is 0).  Without
+//   the dense matrix the list holds the diagonal blocks' (s, s) pairs
+//   alone.  Every entry is written once, in a fixed order: no atomics, so
+//   the same state gives the same bits.
+//   Bound: the first design (kept as the yardstick
+//   hybrid_terms_scan: a warp a block walks all of group g's supports and
+//   binary-searches each one's track for image h) visited every support of
+//   g for each of the G blocks of its row, ~1.2e7 visits on phase 14's
+//   points against the 4,441,395 pairs that contribute.  A pair's own work
+//   is 2 Dc^2 L operations on A[s] and H_cl[u] read from L2; the share
+//   kernel is held by the latency of its two dependent reads a round (the
+//   pairs, then the rows they name), not by that work.
 // P (hybrid_apply_launch) -- CG's product (_matvec, :233-239) and the
 //   back-substitution (backsub, :375-388), one cooperative launch.  Stage
 //   1, a warp a track: y = H_ll^-1 (sum_s H_cl[s]^T v[cols_s] (+ b_l)); the
@@ -41,8 +61,9 @@
 //
 // The cooperative kernels (P, Q) take as many blocks as the card holds at
 // once, at most a warp a unit of work (a track, a share of a group), and
-// stride over the units.  The file has four kernels: O's two stages, P
-// and Q.
+// stride over the units.  The file has seven kernels: O's stage 1, its
+// stage 2 (the shares, the chunks, the blocks), the first design's stage
+// 2 (the yardstick), P and Q.
 //
 // Residuals as the plain versions write them: a line's cosine-weighted
 // perpendicular distances of the 2D endpoints to the projection of the
@@ -91,6 +112,23 @@ struct Index {
   const int* inc;         // [E] t * S + s
   const int* sorted_img;  // [T, S]
   const int* sorted_pos;  // [T, S]
+};
+
+// stage 2's pairs (ops/hybrid_ba.py build_index): block b = g G + h on the
+// dense path, g without it; its pairs [pair_ptr[b], pair_ptr[b + 1]) as
+// t * S + s and t * S + u; its shares [share_ptr[b], share_ptr[b + 1])
+// (share k the pairs [share_first[k], share_first[k + 1]): SHARE of them
+// on the dense path, a whole group without it), in chunks of CHUNK
+// consecutive shares [chunk_ptr[b], chunk_ptr[b + 1])
+struct PairIndex {
+  const int* pair_ptr;     // [NB + 1]
+  const int* pair_s;       // [P]
+  const int* pair_u;       // [P]
+  const int* share_ptr;    // [NB + 1]
+  const int* share_block;  // [NS]
+  const int* chunk_ptr;    // [NB + 1] the block's chunks of CHUNK shares
+  const int* chunk_block;  // [NC]
+  const int* share_first;  // [NS + 1] share k's pairs, to share k + 1's
 };
 
 // per-track and per-support factors
@@ -423,9 +461,151 @@ LM_FN int lower_bound(const int* a, int S, int key) {
   return lo;
 }
 
-// ------------------------------------------ O, stage 2: a block (g, h)
-// writes Hp's block (g, h) (when dense) and, when g == h, g and diag0 of
-// group g
+// ------------------------------- O, stage 2: a share of a block's pairs
+// a share's pairs, its partials: the block [6][6], then g [6], then diag0 [6]
+constexpr int SHARE = 128;
+constexpr int PART = 48;
+constexpr int CHUNK = 32;
+
+// a read of memory no thread writes during the launch (through the
+// read-only path on the card, so that sum_rows keeps CHUNK loads in
+// flight)
+LM_FN float load_nc(const float* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// one pair's terms: Ar the rows of A[s] of group g (from row ro), Hu those
+// of H_cl[u] of group h (from row co), hcc and gred support s's; on a
+// diagonal block the pair with u == s (same) also adds g_red and the self
+// term of diag0, where Hu are then s's own rows of group g
+template <int L, int DC>
+LM_FN void pair_terms(const float* Ar, const float* Hu, const float* hcc,
+                      const float* gred, bool same, bool self, bool dense,
+                      int rg, int cg, int ro, int co, float (&acc)[PART]) {
+  if (self && same) {
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      if (r >= rg) break;
+      float sr = 0.f;
+#pragma unroll
+      for (int a = 0; a < L; ++a) sr += Ar[r * L + a] * Hu[r * L + a];
+      acc[36 + r] += gred[ro + r];
+      acc[42 + r] += hcc[(ro + r) * DC + ro + r] + (-sr);
+    }
+  }
+  if (!dense) return;
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    if (r >= rg) break;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      if (q >= cg) break;
+      float x = 0.f;
+#pragma unroll
+      for (int a = 0; a < L; ++a) x += Ar[r * L + a] * Hu[q * L + a];
+      acc[r * 6 + q] += -x;
+    }
+  }
+  if (!same) return;  // H_cc's rows, read for u == s alone
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    if (r >= rg) break;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      if (q >= cg) break;
+      acc[r * 6 + q] += hcc[(ro + r) * DC + co + q];
+    }
+  }
+}
+
+// share k of block b, a lane every team.size()-th pair: the sum over its
+// pairs (s, u) of [u == s] H_cc[s] - A[s] H_cl[u]^T (dense) and, on a
+// diagonal block, the self terms of g and diag0 of its pairs with u == s,
+// into part[k * PART ...] (the card's share_kernel stages the rows in
+// shared memory and adds in the same order)
+template <int L, int DC, class Team>
+LM_FN void assemble_share(const Inputs& in, const PairIndex& px,
+                          const Factors& o, int G, bool dense, int k,
+                          Team& team, float* part) {
+  const int I = in.I;
+  const int b = px.share_block[k];
+  const int g = dense ? b / G : b, hc = dense ? b % G : b;
+  const int rg = group_size(g, I), ro = group_off(g, I);
+  const int cg = group_size(hc, I), co = group_off(hc, I);
+  const int p0 = px.share_first[k], p1 = px.share_first[k + 1];
+  float acc[PART];
+#pragma unroll
+  for (int i = 0; i < PART; ++i) acc[i] = 0.f;
+  for (int p = p0 + team.rank(); p < p1; p += team.size()) {
+    const long long s = px.pair_s[p], u = px.pair_u[p];
+    pair_terms<L, DC>(o.A + s * DC * L + ro * L, o.hcl + u * DC * L + co * L,
+                      o.hcc + s * DC * DC, o.gred + s * DC, u == s, g == hc,
+                      dense, rg, cg, ro, co, acc);
+  }
+  team.sum(acc);
+  if (team.leader())
+    for (int i = 0; i < PART; ++i) part[(long long)k * PART + i] = acc[i];
+}
+
+// entry i of rows [k0, k1) of part, added in order, CHUNK loads at a
+// time in flight (an absent row adds 0)
+LM_FN float sum_rows(const float* part, int k0, int k1, int i) {
+  float x = 0.f;
+  for (int c = k0; c < k1; c += CHUNK) {
+    float v[CHUNK];
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j)
+      v[j] = c + j < k1 ? load_nc(part + (long long)(c + j) * PART + i) : 0.f;
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) x += v[j];
+  }
+  return x;
+}
+
+// chunk c: its shares' partials added in order into part2[c], an entry a
+// lane (the lanes read a share's partials side by side)
+template <class Team>
+LM_FN void assemble_chunk(const PairIndex& px, const float* part, int c,
+                          Team& team, float* part2) {
+  const int b = px.chunk_block[c];
+  const int k0 = px.share_ptr[b] + (c - px.chunk_ptr[b]) * CHUNK;
+  const int k1 = k0 + CHUNK < px.share_ptr[b + 1] ? k0 + CHUNK
+                                                   : px.share_ptr[b + 1];
+  for (int i = team.rank(); i < PART; i += team.size())
+    part2[(long long)c * PART + i] = sum_rows(part, k0, k1, i);
+}
+
+// block b: its chunks' partials added in order, an entry a lane; writes
+// Hp's block (when dense) and, on a diagonal block, g and diag0 of its
+// group; a block without pairs writes 0
+template <class Team>
+LM_FN void assemble_gather(const Inputs& in, const PairIndex& px,
+                           const float* part2, int G, bool dense, int D,
+                           int b, Team& team, float* Hp, float* gv,
+                           float* diag0) {
+  const int I = in.I;
+  const int g = dense ? b / G : b, hc = dense ? b % G : b;
+  const int rg = group_size(g, I), cg = group_size(hc, I);
+  const int rb = group_base(g, I), cb = group_base(hc, I);
+  for (int i = team.rank(); i < PART; i += team.size()) {
+    const float x = sum_rows(part2, px.chunk_ptr[b], px.chunk_ptr[b + 1], i);
+    if (i < 36) {
+      const int r = i / 6, q = i - 6 * (i / 6);
+      if (dense && r < rg && q < cg) Hp[(long long)(rb + r) * D + cb + q] = x;
+    } else if (g == hc) {
+      const int r = (i - 36) % 6;
+      if (r < rg) (i < 42 ? gv : diag0)[rb + r] = x;
+    }
+  }
+}
+
+// ------------------------- O, stage 2 of the first design: a block (g, h)
+// (the yardstick hybrid_terms_scan) writes Hp's block (g, h) (when dense)
+// and, when g == h, g and diag0 of group g
 template <int L, int DC, class Team>
 LM_FN void assemble_block(const Inputs& in, const Index& ix,
                           const Factors& o, int g, int hc, bool dense,
@@ -638,6 +818,87 @@ __global__ void __launch_bounds__(32 * WARPS)
   track_terms<KIND, DC>(in, h, o, t, team);
 }
 
+// assemble_share on the card: each round of 32 pairs (a pair a lane, as
+// there) first stages the rows it reads, group g's of A[s] and group h's
+// of H_cl[u], in shared memory with 8-byte loads spread over the warp
+// (a lane's own row gathered by scalar loads took 32 L1 wavefronts a
+// load instruction), then each lane adds its pair from there
+constexpr int SROW = 25;  // floats a staged row: at most 6 x 4, odd
+
+template <int L, int DC>
+__global__ void __launch_bounds__(32 * WARPS)
+    share_kernel(Inputs in, PairIndex px, Factors o, int G, int dense,
+                 int n_shares, float* part) {
+  __shared__ float sa[WARPS][32][SROW], sb[WARPS][32][SROW];
+  __shared__ int ss[WARPS][32], su[WARPS][32];
+  const int k = warp_id();
+  if (k >= n_shares) return;  // a whole warp
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int I = in.I;
+  const int b = px.share_block[k];
+  const int g = dense ? b / G : b, hc = dense ? b % G : b;
+  const int rg = group_size(g, I), ro = group_off(g, I);
+  const int cg = group_size(hc, I), co = group_off(hc, I);
+  const int na = rg * L / 2, nb = cg * L / 2;  // float2 a staged row
+  const int p0 = px.share_first[k], p1 = px.share_first[k + 1];
+  float acc[PART];
+#pragma unroll
+  for (int i = 0; i < PART; ++i) acc[i] = 0.f;
+  for (int base = p0; base < p1; base += 32) {
+    const int n = min(32, p1 - base);
+    const bool have = lane < n;
+    const int s = have ? px.pair_s[base + lane] : 0;
+    const int u = have ? px.pair_u[base + lane] : 0;
+    ss[w][lane] = s;
+    su[w][lane] = u;
+    __syncwarp();
+    for (int i = lane; i < n * na; i += 32) {
+      const int j = i / na, c = 2 * (i - j * na);
+      const float2 v = *reinterpret_cast<const float2*>(
+          o.A + (long long)ss[w][j] * DC * L + ro * L + c);
+      sa[w][j][c] = v.x;
+      sa[w][j][c + 1] = v.y;
+    }
+    for (int i = lane; i < n * nb; i += 32) {
+      const int j = i / nb, c = 2 * (i - j * nb);
+      const float2 v = *reinterpret_cast<const float2*>(
+          o.hcl + (long long)su[w][j] * DC * L + co * L + c);
+      sb[w][j][c] = v.x;
+      sb[w][j][c + 1] = v.y;
+    }
+    __syncwarp();
+    if (have)
+      pair_terms<L, DC>(sa[w][lane], sb[w][lane],
+                        o.hcc + (long long)s * DC * DC,
+                        o.gred + (long long)s * DC, u == s, g == hc, dense,
+                        rg, cg, ro, co, acc);
+    __syncwarp();
+  }
+  lm::WarpTeam team{lane};
+  team.sum(acc);
+  if (team.leader())
+    for (int i = 0; i < PART; ++i) part[(long long)k * PART + i] = acc[i];
+}
+
+__global__ void __launch_bounds__(32 * WARPS)
+    chunk_kernel(PairIndex px, const float* part, int n_chunks,
+                 float* part2) {
+  const int c = warp_id();
+  if (c >= n_chunks) return;
+  lm::WarpTeam team{(int)(threadIdx.x & 31)};
+  assemble_chunk(px, part, c, team, part2);
+}
+
+__global__ void __launch_bounds__(32 * WARPS)
+    gather_kernel(Inputs in, PairIndex px, const float* part2, int G,
+                  int dense, int D, float* Hp, float* gv, float* diag0) {
+  const long long b = warp_id();
+  if (b >= (dense ? (long long)G * G : G)) return;
+  lm::WarpTeam team{(int)(threadIdx.x & 31)};
+  assemble_gather(in, px, part2, G, dense, D, (int)b, team, Hp, gv, diag0);
+}
+
+// the first design's stage 2, a warp a block (the yardstick)
 template <int L, int DC>
 __global__ void __launch_bounds__(32 * WARPS)
     assemble_kernel(Inputs in, Index ix, Factors o, int G, int dense,
@@ -707,16 +968,35 @@ __global__ void __launch_bounds__(32 * WARPS)
 
 int blocks_for(long long warps) { return (int)((warps + WARPS - 1) / WARPS); }
 
+// stages: 1 stage 1, 2 stage 2, 3 both; scan: the first design's stage 2
 template <int KIND, int DC>
 int launch_terms(const Inputs& in, const Hyper& h, const Index& ix,
-                 const Factors& o, int dense, float* Hp, float* gv,
+                 const PairIndex& px, const Factors& o, int dense,
+                 int n_shares, int n_chunks, int stages, int scan,
+                 float* part, float* part2, float* Hp, float* gv,
                  float* diag0, cudaStream_t st) {
   constexpr int L = KindDims<KIND>::L;
-  terms_kernel<KIND, DC><<<blocks_for(in.T), 32 * WARPS, 0, st>>>(in, h, o);
+  if (stages & 1)
+    terms_kernel<KIND, DC><<<blocks_for(in.T), 32 * WARPS, 0, st>>>(in, h,
+                                                                    o);
+  if (!(stages & 2)) return (int)cudaGetLastError();
   const int G = in.I + (DC == 8 ? in.C : 0);
+  const int D = 6 * in.I + (DC == 8 ? 2 * in.C : 0);
   const long long n = dense ? (long long)G * G : G;
-  assemble_kernel<L, DC><<<blocks_for(n), 32 * WARPS, 0, st>>>(
-      in, ix, o, G, dense, Hp, gv, diag0);
+  if (scan) {
+    assemble_kernel<L, DC><<<blocks_for(n), 32 * WARPS, 0, st>>>(
+        in, ix, o, G, dense, Hp, gv, diag0);
+    return (int)cudaGetLastError();
+  }
+  if (n_shares) {
+    share_kernel<L, DC><<<blocks_for(n_shares), 32 * WARPS, 0, st>>>(
+        in, px, o, G, dense, n_shares, part);
+    chunk_kernel<<<blocks_for(n_chunks), 32 * WARPS, 0, st>>>(px, part,
+                                                             n_chunks, part2);
+  }
+  gather_kernel<<<blocks_for(n), 32 * WARPS, 0, st>>>(in, px, part2, G,
+                                                      dense, D, Hp, gv,
+                                                      diag0);
   return (int)cudaGetLastError();
 }
 
@@ -753,9 +1033,12 @@ int launch_apply(const Inputs& in, const Index& ix, const Factors& o,
 
 // O.  p: land, pose, fxfy, kvec, cam, img, obs, w, grp_ptr, inc,
 // sorted_img, sorted_pos, hinv, bl, hcl, A, hcc, gred, cost [T], Hp (null
-// unless dense), g, diag0, hll.  n: kind, focal, T, S, I, C, loss, const_pose,
-// const_land, dense.  f: alpha, loss scale, loss scale^2, sqrt(lw_point),
-// lam.
+// unless dense), g, diag0, hll, pair_ptr, pair_s, pair_u, share_ptr,
+// share_block, part [NS * PART], chunk_ptr, chunk_block, part2 [NC *
+// PART], share_first.  n: kind, focal, T, S, I, C, loss, const_pose,
+// const_land,
+// dense, NS, stages (1, 2 or 3), scan (the first design's stage 2), NC.
+// f: alpha, loss scale, loss scale^2, sqrt(lw_point), lam.
 extern "C" int hybrid_terms_launch(void** p, const long long* n,
                                    const float* f, void* stream) {
   Inputs in{(const float*)p[0], (const float*)p[1], (const float*)p[2],
@@ -766,15 +1049,21 @@ extern "C" int hybrid_terms_launch(void** p, const long long* n,
            (const int*)p[11]};
   Factors o{(float*)p[12], (float*)p[13], (float*)p[14], (float*)p[15],
             (float*)p[16], (float*)p[17], (float*)p[18], (float*)p[22]};
+  PairIndex px{(const int*)p[23], (const int*)p[24], (const int*)p[25],
+               (const int*)p[26], (const int*)p[27], (const int*)p[29],
+               (const int*)p[30], (const int*)p[32]};
+  float *part = (float*)p[28], *part2 = (float*)p[31];
   Hyper h{f[0], f[1], f[2], f[3], f[4], (int)n[6], (int)n[7], (int)n[8]};
   float *Hp = (float*)p[19], *gv = (float*)p[20], *diag0 = (float*)p[21];
-  const int dense = (int)n[9];
+  const int dense = (int)n[9], n_shares = (int)n[10], stages = (int)n[11],
+            scan = (int)n[12], n_chunks = (int)n[13];
   auto st = (cudaStream_t)stream;
-  if (n[0] == LINE)
-    return n[1] ? launch_terms<LINE, 8>(in, h, ix, o, dense, Hp, gv, diag0, st)
-                : launch_terms<LINE, 6>(in, h, ix, o, dense, Hp, gv, diag0, st);
-  return n[1] ? launch_terms<POINT, 8>(in, h, ix, o, dense, Hp, gv, diag0, st)
-              : launch_terms<POINT, 6>(in, h, ix, o, dense, Hp, gv, diag0, st);
+#define HBA_TERMS(KIND, DC)                                                   \
+  launch_terms<KIND, DC>(in, h, ix, px, o, dense, n_shares, n_chunks,      \
+                         stages, scan, part, part2, Hp, gv, diag0, st)
+  if (n[0] == LINE) return n[1] ? HBA_TERMS(LINE, 8) : HBA_TERMS(LINE, 6);
+  return n[1] ? HBA_TERMS(POINT, 8) : HBA_TERMS(POINT, 6);
+#undef HBA_TERMS
 }
 
 // P.  p: img, cam, w, hinv, bl, hcl, hcc, v, y [T, L], grp_ptr, inc, out

@@ -21,19 +21,50 @@
 // VP in a's view or of line b's VP in b's view (the JAX program converts
 // b's VP with a's view, which misses b's direction unless the two views
 // share R and K), with no cull but the line's VP, then score > 0, the
-// ranges and the uncertainty.  1 and 2, the exhaustive matcher: one block a
-// line a enumerates (slot, b) in that order, slot-major, over every
-// neighbour line; mode 1 counts the survivors, mode 2 writes them
-// compacted in that order (ballot + block prefix, stable) into a bucket
-// of width W, with the edge word, and the count.  A candidate stops at
-// its first failed cull; the dense match table never exists.
+// ranges and the uncertainty.
+//
+// The exhaustive matcher (tri_exhaustive_launch, modes 1 and 2): every
+// line a of an image against every line b of each of its neighbours, in
+// the order slot, then b.  Mode 1 counts each (line, slot)'s survivors;
+// mode 2 writes them into a bucket of width W at the line's offset of the
+// slot (the exclusive scan of the counts in slot order, taken by the
+// wrapper) plus the survivor's rank in the slot, with the edge word, so
+// each line's survivors come out slot-major, then by b.  A candidate stops
+// at its first failed cull; the dense match table never exists.
+//   1. A table launch (tri_exhaustive_tables, once for both passes)
+//      writes what depends on one line and its own view, once a line slot
+//      (the segment and its ok, the two rays, the plane normal unit and
+//      not, the homogeneous line, its direction and length + eps) and
+//      once an image (the loaded view and its centre).
+//   2. The candidate launch: a block of WARPS_X warps takes one image and
+//      WARPS_X of its lines, a warp a line.  For each slot, the block
+//      stages the neighbour's table rows that the two culls read (12 floats
+//      a row, B_TILE = 640 rows, 30 KB of shared memory as arrays of
+//      fields), and each warp computes its line's two epipolar lines in the
+//      neighbour once; the lanes then take the candidates b and run only
+//      the ray-angle and IoU culls, from registers and shared memory.
+//      Candidates that pass both go into the warp's queue in shared memory
+//      in candidate order (ballot + prefix); 32 queued candidates are
+//      triangulated, culled by sensitivity and ranges, and (mode 2)
+//      written warp-dense, a lane each, in queue order.
+//   Each value is the same _rn expression in the same order as the first
+//   design's propose(), so the result is bit-equal to it.  Tile shape and
+//   occupancy: 256 threads (8 lines) a block, 37 KB of shared memory
+//   (staging 30 KB, queues 2 KB, the per-slot counts 4 KB), 4 blocks an
+//   SM, 32 warps of 64, held by the registers (see X_BLOCKS).
+// The first design (modes 1 and 2 of tri_propose_launch; the
+// yardstick propose_exhaustive_scan, for timing and bit-equality only):
+// one block a line a enumerates (slot, b), every candidate recomputing its
+// rays, views and epipolar lines, and compacts the survivors by ballot +
+// block prefix.
 //
 // Bound: operations, counted in limap_tpu_torch/testing/tri_checks.py::
 // OPS_F with each value once at the coarsest index it depends on: 24 fp32
 // operations a candidate for the two ray angles, 47 past them for the
 // IoU's band, 162 a triangulation; a line's rays (88) once a line, its
-// epipolar lines (110) once a (line, slot).  This kernel recomputes those
-// for every candidate, so it does several times the counted work.
+// epipolar lines (110) once a (line, slot).  The tables and the staging
+// reach that count but for the culls' two arccosines and seven IEEE
+// divisions a candidate, which OPS_F counts as one operation each.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -160,6 +191,24 @@ struct Seg2 {
   float sx, sy, ex, ey;
 };
 
+// the IoU of l2 (its homogeneous line coor, start (sx, sy), direction and
+// length + eps n2) with the band between the epipolar lines ep_s and ep_e
+// of l1's endpoints
+__device__ __forceinline__ float band_iou(V3 coor, float sx, float sy,
+                                          float dirx, float diry, float n2,
+                                          V3 ep_s, V3 ep_e) {
+  float c[2];
+  for (int k = 0; k < 2; ++k) {
+    V3 ch = vcross(coor, k ? ep_e : ep_s);
+    float z = add(ch.z, kEps);
+    float ix = dvd(ch.x, z), iy = dvd(ch.y, z);
+    c[k] = dvd(add(mul(sub(ix, sx), dirx), mul(sub(iy, sy), diry)), n2);
+  }
+  float lo = nmin(c[0], c[1]), hi = nmax(c[0], c[1]);
+  return dvd(sub(nmin(hi, 1.f), nmax(lo, 0.f)),
+             add(sub(nmax(hi, 1.f), nmin(lo, 0.f)), kEps));
+}
+
 __device__ float epipolar_iou(const Seg2& l1, const View& v1, const Seg2& l2,
                               const View& v2) {
   V3 coor = vunit(vcross(v3(l2.sx, l2.sy, 1.f), v3(l2.ex, l2.ey, 1.f)));
@@ -167,18 +216,9 @@ __device__ float epipolar_iou(const Seg2& l1, const View& v1, const Seg2& l2,
   float len2 = __fsqrt_rn(add(mul(dx, dx), mul(dy, dy)));
   float n2 = add(len2, kEps);
   float dirx = dvd(dx, n2), diry = dvd(dy, n2);
-  float c[2];
-  float px[2] = {l1.sx, l1.ex}, py[2] = {l1.sy, l1.ey};
-  for (int k = 0; k < 2; ++k) {
-    V3 ep = vunit(epipolar_line(v1, v2, px[k], py[k]));
-    V3 ch = vcross(coor, ep);
-    float z = add(ch.z, kEps);
-    float ix = dvd(ch.x, z), iy = dvd(ch.y, z);
-    c[k] = dvd(add(mul(sub(ix, l2.sx), dirx), mul(sub(iy, l2.sy), diry)), n2);
-  }
-  float lo = nmin(c[0], c[1]), hi = nmax(c[0], c[1]);
-  return dvd(sub(nmin(hi, 1.f), nmax(lo, 0.f)),
-             add(sub(nmax(hi, 1.f), nmin(lo, 0.f)), kEps));
+  return band_iou(coor, l2.sx, l2.sy, dirx, diry, n2,
+                  vunit(epipolar_line(v1, v2, l1.sx, l1.sy)),
+                  vunit(epipolar_line(v1, v2, l1.ex, l1.ey)));
 }
 
 struct Params {
@@ -292,24 +332,15 @@ __device__ bool propose_vp(const Params& P, const Seg2& l1, bool ok,
   return ok;
 }
 
-// One proposal.  With need_row the row (start, end, depths, uncertainty)
-// is computed whatever the culls say; without it the candidate stops at
-// its first failed cull.  Returns ok.
-__device__ bool propose(const Params& P, const Seg2& l1, bool own_ok,
-                        const View& v1, const Seg2& l2, bool nb_ok,
-                        const View& v2, bool need_row, float* row) {
-  bool ok = own_ok && nb_ok;
-  if (!ok && !need_row) return false;
-  V3 c1s = ray(v1, l1.sx, l1.sy), c1e = ray(v1, l1.ex, l1.ey);
-  V3 c2s = ray(v2, l2.sx, l2.sy), c2e = ray(v2, l2.ex, l2.ey);
-  V3 n2 = vunit(vcross(c2s, c2e));
-  ok = ok && deg90(fabsf(vdot(n2, c1s)), 0.f) >= P.angle_th &&
-       deg90(fabsf(vdot(n2, c1e)), 0.f) >= P.angle_th;
-  if (!ok && !need_row) return false;
-  ok = ok && epipolar_iou(l1, v1, l2, v2) >= P.iou_th;
-  if (!ok && !need_row) return false;
-
-  V3 C1 = center(v1), C2 = center(v2);
+// The proposal past the IoU (``ok``: the culls so far): the
+// triangulation from the centres C1, C2, the rays of both lines and
+// n2u = c2s x c2e, the sensitivity cull, the ranges and the row.  With
+// need_row the row is computed whatever the culls say; without it the
+// candidate stops at its first failed cull.  Returns ok.
+__device__ __forceinline__ bool finish(const Params& P, const View& v1, V3 C1,
+                                       V3 c1s, V3 c1e, const View& v2, V3 C2,
+                                       V3 c2s, V3 c2e, V3 n2u, bool ok,
+                                       bool need_row, float* row) {
   V3 ps, pe;
   float zs, ze;
   bool valid;
@@ -322,7 +353,6 @@ __device__ bool propose(const Params& P, const Seg2& l1, bool own_ok,
     valid = ok_s && ok_e;
   } else {
     V3 B = vsub(C2, C1);
-    V3 n2u = vcross(c2s, c2e);
     float nume = vdot(B, n2u);
     float ds = vdot(c1s, n2u), de = vdot(c1e, n2u);
     float ts = dvd(nume, fabsf(ds) < kEps ? kEps : ds);
@@ -361,6 +391,26 @@ __device__ bool propose(const Params& P, const Seg2& l1, bool own_ok,
   row[8] = nmin(uncertainty(v1, ps, pe, P.var2d),
                 uncertainty(v2, ps, pe, P.var2d));
   return ok;
+}
+
+// One proposal.  With need_row the row (start, end, depths, uncertainty)
+// is computed whatever the culls say; without it the candidate stops at
+// its first failed cull.  Returns ok.
+__device__ bool propose(const Params& P, const Seg2& l1, bool own_ok,
+                        const View& v1, const Seg2& l2, bool nb_ok,
+                        const View& v2, bool need_row, float* row) {
+  bool ok = own_ok && nb_ok;
+  if (!ok && !need_row) return false;
+  V3 c1s = ray(v1, l1.sx, l1.sy), c1e = ray(v1, l1.ex, l1.ey);
+  V3 c2s = ray(v2, l2.sx, l2.sy), c2e = ray(v2, l2.ex, l2.ey);
+  V3 n2 = vunit(vcross(c2s, c2e));
+  ok = ok && deg90(fabsf(vdot(n2, c1s)), 0.f) >= P.angle_th &&
+       deg90(fabsf(vdot(n2, c1e)), 0.f) >= P.angle_th;
+  if (!ok && !need_row) return false;
+  ok = ok && epipolar_iou(l1, v1, l2, v2) >= P.iou_th;
+  if (!ok && !need_row) return false;
+  return finish(P, v1, center(v1), c1s, c1e, v2, center(v2), c2s, c2e,
+                vcross(c2s, c2e), ok, need_row, row);
 }
 
 __device__ __forceinline__ Seg2 load_seg(const float* l2d, long long n,
@@ -473,6 +523,241 @@ __global__ void __launch_bounds__(kThreads) propose_exhaustive_kernel(
   if (threadIdx.x == 0) counts[n] = base;
 }
 
+// --------------------------------------------- the tiled exhaustive passes
+// the line table: the cull's fields (staged), then the rest
+constexpr int CF = 12;  // ok, unit normal [3], coor [3], sx, sy, dir [2], len
+constexpr int RF = 12;  // ray s [3], ray e [3], normal [3], ex, ey, pad
+constexpr int VF = 20;  // kvec [4], qvec [4], tvec [3], qc [4], centre [3]
+constexpr int WARPS_X = 8;
+constexpr int B_TILE = 640;
+constexpr int QCAP = 64;
+constexpr int KMAX = 128;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ View view_at(const float* vt) {
+  View v;
+  for (int c = 0; c < 4; ++c) {
+    v.k[c] = vt[c];
+    v.q[c] = vt[4 + c];
+    v.qc[c] = vt[11 + c];
+  }
+  v.t = v3(vt[8], vt[9], vt[10]);
+  return v;
+}
+
+__device__ __forceinline__ V3 centre_at(const float* vt) {
+  return v3(vt[15], vt[16], vt[17]);
+}
+
+// one thread a line slot n = r L + a (and an image r < I)
+__global__ void __launch_bounds__(kThreads) exhaustive_tables_kernel(
+    const float* __restrict__ l2d, const float* __restrict__ cam, int I,
+    int L, float* __restrict__ cull, float* __restrict__ rest,
+    float* __restrict__ views) {
+  const long long n = blockIdx.x * (long long)kThreads + threadIdx.x;
+  if (n < I) {
+    const View v = load_view(cam + 12 * n);
+    const V3 C = center(v);
+    float* vt = views + VF * n;
+    for (int c = 0; c < 4; ++c) {
+      vt[c] = v.k[c];
+      vt[4 + c] = v.q[c];
+      vt[11 + c] = v.qc[c];
+    }
+    vt[8] = v.t.x;
+    vt[9] = v.t.y;
+    vt[10] = v.t.z;
+    vt[15] = C.x;
+    vt[16] = C.y;
+    vt[17] = C.z;
+    vt[18] = vt[19] = 0.f;
+  }
+  if (n >= (long long)I * L) return;
+  const View v = load_view(cam + 12 * (n / L));
+  bool ok;
+  const Seg2 l = load_seg(l2d, n, ok);
+  const V3 rs = ray(v, l.sx, l.sy), re = ray(v, l.ex, l.ey);
+  const V3 nu = vcross(rs, re), nrm = vunit(nu);
+  const V3 coor = vunit(vcross(v3(l.sx, l.sy, 1.f), v3(l.ex, l.ey, 1.f)));
+  const float dx = sub(l.ex, l.sx), dy = sub(l.ey, l.sy);
+  const float len = add(__fsqrt_rn(add(mul(dx, dx), mul(dy, dy))), kEps);
+  float* c = cull + CF * n;
+  c[0] = ok ? 1.f : 0.f;
+  c[1] = nrm.x;
+  c[2] = nrm.y;
+  c[3] = nrm.z;
+  c[4] = coor.x;
+  c[5] = coor.y;
+  c[6] = coor.z;
+  c[7] = l.sx;
+  c[8] = l.sy;
+  c[9] = dvd(dx, len);
+  c[10] = dvd(dy, len);
+  c[11] = len;
+  float* r = rest + RF * n;
+  r[0] = rs.x;
+  r[1] = rs.y;
+  r[2] = rs.z;
+  r[3] = re.x;
+  r[4] = re.y;
+  r[5] = re.z;
+  r[6] = nu.x;
+  r[7] = nu.y;
+  r[8] = nu.z;
+  r[9] = l.ex;
+  r[10] = l.ey;
+  r[11] = 0.f;
+}
+
+// what a warp's line a holds for its candidates
+struct Own {
+  View v1;
+  V3 C1, c1s, c1e;
+};
+
+// The warp-dense stage: lane i < nq takes queued candidate q[i]
+// ((b << 7) | slot, in candidate order), triangulates it and runs the
+// culls past the IoU; each survivor's rank in its slot is the slot's
+// survivors so far (cnt) plus those of lower lanes; mode 2 writes it at
+// its line's offset of the slot plus that rank.
+__device__ __forceinline__ void drain(
+    const Params& P, const Own& own, const int* q, int nq, const int* meta_g,
+    int L, int K, const float* __restrict__ rest,
+    const float* __restrict__ views, bool write, long long n, int W,
+    const int* __restrict__ offsets, int* cnt, int* __restrict__ words_out,
+    float* __restrict__ tri, unsigned char* __restrict__ ok_out) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  bool ok = false;
+  int slot = 0x7FFF, b = 0;
+  float r[9];
+  if (lane < nq) {
+    const int word = q[lane];
+    b = word >> 7;
+    slot = word & 0x7F;
+    const int ng = meta_g[slot];
+    const float* vt = views + VF * ng;
+    const float* t = rest + RF * ((long long)ng * L + b);
+    ok = finish(P, own.v1, own.C1, own.c1s, own.c1e, view_at(vt),
+                centre_at(vt), v3(t[0], t[1], t[2]), v3(t[3], t[4], t[5]),
+                v3(t[6], t[7], t[8]), true, false, r);
+  }
+  const unsigned okm = __ballot_sync(FULL, ok);
+  const unsigned same = __match_any_sync(FULL, slot);
+  const int before = lane < nq ? cnt[slot] : 0;
+  __syncwarp();
+  if (ok && write) {
+    const int pos = offsets[n * K + slot] + before + __popc(okm & same & lt);
+    if (pos < W) {
+      const long long o = n * W + pos;
+      words_out[o] = (b << 7) | slot;
+      for (int c = 0; c < 9; ++c) tri[o * 9 + c] = r[c];
+      ok_out[o] = 1;
+    }
+  }
+  // the first lane of each slot's run adds the slot's survivors
+  if (lane < nq && !(same & lt)) cnt[slot] = before + __popc(okm & same);
+  __syncwarp();
+}
+
+// modes 1 and 2: a block WARPS_X lines of one image, a warp a line;
+// X_BLOCKS blocks an SM (32 warps) cap the registers at 64, which spills
+// some of the triangulation's state, and still runs 20 % faster than the
+// 99 registers of 2 blocks an SM (tri_propose on an H100)
+constexpr int X_BLOCKS = 4;
+__global__ void __launch_bounds__(32 * WARPS_X, X_BLOCKS) exhaustive_kernel(
+    const float* __restrict__ cull, const float* __restrict__ rest,
+    const float* __restrict__ views, const int* __restrict__ meta, Params P,
+    int L, int K, int W, int write, const int* __restrict__ offsets,
+    int* __restrict__ scounts, int* __restrict__ words_out,
+    float* __restrict__ tri, unsigned char* __restrict__ ok_out) {
+  __shared__ float sh[CF][B_TILE];
+  __shared__ int queue[WARPS_X][QCAP];
+  __shared__ int cnt[WARPS_X][KMAX];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+  const int tiles = (L + WARPS_X - 1) / WARPS_X;
+  const int g = blockIdx.x / tiles;
+  const int a = (blockIdx.x - g * tiles) * WARPS_X + warp;
+  const int* meta_g = meta + g * (K + 1);
+  const int row = meta_g[K];
+  const long long n = (long long)g * L + a;
+  int* q = queue[warp];
+  int* cn = cnt[warp];
+  for (int k = lane; k < K; k += 32) cn[k] = 0;
+  bool live = a < L;
+  Own own;
+  Seg2 l1 = {0.f, 0.f, 0.f, 0.f};
+  own.v1 = view_at(views + VF * row);
+  own.C1 = centre_at(views + VF * row);
+  if (live) {
+    const float* c = cull + CF * ((long long)row * L + a);
+    const float* t = rest + RF * ((long long)row * L + a);
+    live = c[0] > 0.5f;
+    own.c1s = v3(t[0], t[1], t[2]);
+    own.c1e = v3(t[3], t[4], t[5]);
+    l1 = {c[7], c[8], t[9], t[10]};
+  }
+  __syncwarp();
+  int nq = 0;  // the queue's length, the same in every lane
+  for (int k = 0; k < K; ++k) {
+    const int ng = meta_g[k];
+    if (ng < 0) continue;  // uniform over the block
+    V3 ep_s = v3(0.f, 0.f, 0.f), ep_e = ep_s;
+    if (live) {
+      const View v2 = view_at(views + VF * ng);
+      ep_s = vunit(epipolar_line(own.v1, v2, l1.sx, l1.sy));
+      ep_e = vunit(epipolar_line(own.v1, v2, l1.ex, l1.ey));
+    }
+    for (int b0 = 0; b0 < L; b0 += B_TILE) {
+      const int nb = min(B_TILE, L - b0);
+      __syncthreads();  // the last tile is read
+      const float4* src = reinterpret_cast<const float4*>(
+          cull + CF * ((long long)ng * L + b0));
+      for (int i = threadIdx.x; i < nb * (CF / 4); i += 32 * WARPS_X) {
+        const float4 v = src[i];
+        const int rr = i / (CF / 4), f = 4 * (i - rr * (CF / 4));
+        sh[f][rr] = v.x;
+        sh[f + 1][rr] = v.y;
+        sh[f + 2][rr] = v.z;
+        sh[f + 3][rr] = v.w;
+      }
+      __syncthreads();
+      if (!live) continue;  // uniform over the warp
+      for (int c0 = 0; c0 < nb; c0 += 32) {
+        const int bb = c0 + lane;
+        bool hit = false;
+        if (bb < nb && sh[0][bb] > 0.5f) {
+          const V3 n2 = v3(sh[1][bb], sh[2][bb], sh[3][bb]);
+          hit = deg90(fabsf(vdot(n2, own.c1s)), 0.f) >= P.angle_th &&
+                deg90(fabsf(vdot(n2, own.c1e)), 0.f) >= P.angle_th;
+          if (hit)
+            hit = band_iou(v3(sh[4][bb], sh[5][bb], sh[6][bb]), sh[7][bb],
+                           sh[8][bb], sh[9][bb], sh[10][bb], sh[11][bb],
+                           ep_s, ep_e) >= P.iou_th;
+        }
+        const unsigned m = __ballot_sync(FULL, hit);
+        if (hit) q[nq + __popc(m & lt)] = ((b0 + bb) << 7) | k;
+        nq += __popc(m);
+        __syncwarp();
+        if (nq >= 32) {
+          drain(P, own, q, 32, meta_g, L, K, rest, views, write, n, W,
+                offsets, cn, words_out, tri, ok_out);
+          nq -= 32;
+          if (lane < nq) q[lane] = q[32 + lane];
+          __syncwarp();
+        }
+      }
+    }
+  }
+  if (live && nq > 0)
+    drain(P, own, q, nq, meta_g, L, K, rest, views, write, n, W, offsets, cn,
+          words_out, tri, ok_out);
+  __syncwarp();
+  if (a < L)
+    for (int k = lane; k < K; k += 32) scounts[n * K + k] = cn[k];
+}
+
 }  // namespace
 
 // params: host floats angle_th, iou_th, sens_th, var2d, endpoints (0/1);
@@ -524,5 +809,51 @@ extern "C" int tri_propose_launch(
         (int)K, (int)W, mode == 2, (int*)counts, (int*)words_out,
         (float*)tri, (unsigned char*)ok);
   }
+  return (int)cudaGetLastError();
+}
+
+// The exhaustive matcher's table launch (step 1 above the namespace).
+// p: l2d [I, L, 6], cam [I, 12], scratch cull [I L, 12], rest [I L, 12],
+// views [I, 20].  n: I, L.
+extern "C" int tri_exhaustive_tables(void** p, const long long* n,
+                                     void* stream) {
+  const long long I = n[0], L = n[1];
+  const long long slots = I * L > I ? I * L : I;
+  exhaustive_tables_kernel<<<(unsigned)((slots + kThreads - 1) / kThreads),
+                             kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)p[0], (const float*)p[1], (int)I, (int)L, (float*)p[2],
+      (float*)p[3], (float*)p[4]);
+  return (int)cudaGetLastError();
+}
+
+// The exhaustive matcher's tiled passes (modes 1 and 2 above the
+// namespace) on the tables of tri_exhaustive_tables.  p: meta [G, K + 1],
+// cull [I L, 12], rest [I L, 12], views [I, 20]; offsets [G L, K] (mode
+// 2) or null; scounts [G L, K]; words_out [G L, W], tri [G L, W, 9], ok
+// [G L, W] (mode 2) or null.  n: G, L, K, W, mode.  f: angle_th, iou_th,
+// sens_th, var2d, endpoints (0/1), has ranges (0/1), lo [3], hi [3].
+extern "C" int tri_exhaustive_launch(void** p, const long long* n,
+                                     const float* f, void* stream) {
+  Params P;
+  P.angle_th = f[0];
+  P.iou_th = f[1];
+  P.sens_th = f[2];
+  P.var2d = f[3];
+  P.endpoints = f[4] != 0.f;
+  P.has_ranges = f[5] != 0.f;
+  for (int c = 0; c < 3; ++c) {
+    P.lo[c] = f[6 + c];
+    P.hi[c] = f[9 + c];
+  }
+  const long long G = n[0], L = n[1], K = n[2], W = n[3], mode = n[4];
+  if (K > KMAX - 1 || (mode != 1 && mode != 2))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (L + WARPS_X - 1) / WARPS_X;
+  exhaustive_kernel<<<(unsigned)(G * tiles), 32 * WARPS_X, 0,
+                      (cudaStream_t)stream>>>(
+      (const float*)p[1], (const float*)p[2], (const float*)p[3],
+      (const int*)p[0], P, (int)L, (int)K, (int)W, mode == 2,
+      (const int*)p[4], (int*)p[5], (int*)p[6], (float*)p[7],
+      (unsigned char*)p[8]);
   return (int)cudaGetLastError();
 }

@@ -19,11 +19,19 @@ reduced blocks [T, S, S, Dc, Dc] in chunks of tracks, scatters), the
 product and the back-substitution from the factors.
 
 The kernel adds each entry of g, diag0 and the matrix in a fixed order
-(a warp per block of the matrix sums the supports of the block's row
-image, in track order, lane by lane, then across lanes by a butterfly),
-P adds a group's supports in 16 shares of consecutive supports and then
-the shares in order, and Q sums a track's supports and then the tracks
-in a fixed order, so the same state gives the same numbers on every run.
+(O's stage 2 walks the pairs of supports of one track that feed a block
+of the matrix, listed once a solve by :func:`build_index`: a warp sums
+each share of ``SHARE`` consecutive pairs lane by lane, then across lanes
+by a butterfly, and the shares are added in order), P adds a group's
+supports in 16 shares of consecutive supports and then the shares in
+order, and Q sums a track's supports and then the tracks in a fixed
+order, so the same state gives the same numbers on every run.  The
+index depends on the images, cameras and weights alone, which do not
+change during a solve: the step builds it once (``step.index``) and
+hands it to every call; without one, ``hybrid_terms`` builds its own.
+``hybrid_terms_scan`` is O with the first design's stage 2 (a warp a
+block walks all supports of the block's row group and searches each
+one's track), kept as a yardstick for timing.
 
 Each wrapper counts its launches in ``.launches``; O and P also count
 them by kind and mode in ``.counts`` (``"line"``, ``"point, apply"``,
@@ -49,6 +57,11 @@ OBS = {"line": 4, "point": 2}       # observation floats a support
 INT_MAX = 2 ** 31 - 1
 S_RED_BUDGET = 1 << 24              # floats of S_red a chunk of plain O
 SPLIT = 16                          # P's shares of a group (hybrid_ba.cu)
+SHARE = 128                         # O's pairs a share (hybrid_ba.cu)
+PART = 48                           # a share's partials (hybrid_ba.cu)
+CHUNK = 32                          # O's shares a chunk (hybrid_ba.cu)
+# O's stages (the kernel's ``stages`` argument)
+STAGE_TERMS, STAGE_ASSEMBLY, STAGES_ALL = 1, 2, 3
 
 
 class Index(NamedTuple):
@@ -56,11 +69,30 @@ class Index(NamedTuple):
     group g < I the pose of image g, I + c the focal lengths of camera
     c.  ``inc`` holds t * S + s, by group then track then slot; a track's
     weighted images sorted (``sorted_img``, INT_MAX after) with their
-    slots (``sorted_pos``)."""
+    slots (``sorted_pos``).  O's stage 2 walks the pairs of each block b
+    of the reduced system (b = g G + h with ``dense``, else the diagonal
+    block g alone): ``pair_s`` and ``pair_u`` hold t * S + s and t * S + u
+    of two weighted supports of one track, s in group g and u in group h
+    (with ``dense`` every such pair, else u == s), block by block
+    (``pair_ptr``), in each block by s's place in ``inc`` and then by u;
+    each block's pairs are cut into shares of ``SHARE`` consecutive pairs,
+    or without ``dense`` one share a block, so that g and diag0 add up as
+    the first design's (``share_first`` each share's first pair,
+    ``share_ptr`` by block, ``share_block`` the block of each share), and
+    its shares into chunks of ``CHUNK`` (``chunk_ptr``, ``chunk_block``)."""
     grp_ptr: torch.Tensor     # [G + 1] int32
     inc: torch.Tensor         # [E] int32
     sorted_img: torch.Tensor  # [T, S] int32
     sorted_pos: torch.Tensor  # [T, S] int32
+    pair_ptr: torch.Tensor    # [NB + 1] int32, NB = G^2 or G
+    pair_s: torch.Tensor      # [P] int32
+    pair_u: torch.Tensor      # [P] int32
+    share_ptr: torch.Tensor   # [NB + 1] int32
+    share_block: torch.Tensor  # [NS] int32
+    chunk_ptr: torch.Tensor   # [NB + 1] int32
+    chunk_block: torch.Tensor  # [NC] int32
+    share_first: torch.Tensor  # [NS + 1] int32
+    dense: bool
 
 
 class Terms(NamedTuple):
@@ -211,8 +243,14 @@ def _call(name, ptrs, ints, floats, dev):
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 
 
-def build_index(img, cam, weight, n_images, n_cameras, focal) -> Index:
-    """The supports' grouping for the kernels (see :class:`Index`)."""
+def n_groups(n_images, n_cameras, focal):
+    return n_images + (n_cameras if focal else 0)
+
+
+def group_index(img, cam, weight, n_images, n_cameras, focal):
+    """The supports' grouping (grp_ptr, inc, sorted_img, sorted_pos; see
+    :class:`Index`): P's index, and all the first design's stage 2
+    read."""
     T, S = img.shape
     valid = weight > 0
     flat = torch.nonzero(valid.reshape(-1)).squeeze(1)
@@ -221,13 +259,181 @@ def build_index(img, cam, weight, n_images, n_cameras, focal) -> Index:
         grp = torch.cat([grp, n_images + cam.reshape(-1)[flat].long()])
         flat = torch.cat([flat, flat])
     order = torch.argsort(grp * (T * S) + flat)
-    G = n_images + (n_cameras if focal else 0)
+    G = n_groups(n_images, n_cameras, focal)
     counts = torch.bincount(grp, minlength=G)
     grp_ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
     key = torch.where(valid, img.to(torch.int64), INT_MAX)
     sorted_img, sorted_pos = torch.sort(key, dim=1, stable=True)
-    return Index(grp_ptr.to(torch.int32), flat[order].to(torch.int32),
-                 sorted_img.to(torch.int32), sorted_pos.to(torch.int32))
+    return (grp_ptr.to(torch.int32), flat[order].to(torch.int32),
+            sorted_img.to(torch.int32), sorted_pos.to(torch.int32))
+
+
+def track_pairs(weight):
+    """Every ordered pair (s, u) of weighted supports of one track, as
+    t * S + s and t * S + u [P] int64, by s in track-major order, then
+    by u."""
+    T, S = weight.shape
+    flat = torch.nonzero((weight > 0).reshape(-1)).squeeze(1)
+    t = flat // S
+    n_t = torch.bincount(t, minlength=T)
+    first = (torch.cumsum(n_t, 0) - n_t)[t]   # the track's first support
+    rep = n_t[t]
+    s_idx = torch.repeat_interleave(
+        torch.arange(len(flat), device=flat.device), rep)
+    j = torch.arange(len(s_idx), device=flat.device) \
+        - (torch.cumsum(rep, 0) - rep)[s_idx]
+    return flat[s_idx], flat[first[s_idx] + j]
+
+
+def pair_index(img, cam, weight, n_images, n_cameras, focal, dense,
+               grp_ptr, inc, share=None):
+    """(pair_ptr, pair_s, pair_u, share_ptr, share_block, chunk_ptr,
+    chunk_block, share_first) of O's stage 2 (see :class:`Index`);
+    ``share``, pairs a share in place of the kernel's cut, is for replays
+    of other summation orders (:func:`assemble_from_pairs`)."""
+    G = n_groups(n_images, n_cameras, focal)
+    dev = weight.device
+    if dense:
+        s, u = track_pairs(weight)
+        img_f, cam_f = img.reshape(-1).long(), cam.reshape(-1).long()
+        gs = [img_f[s]] + ([n_images + cam_f[s]] if focal else [])
+        gu = [img_f[u]] + ([n_images + cam_f[u]] if focal else [])
+        # the blocks of the (image, image), (image, camera), (camera,
+        # image) and (camera, camera) groups are apart, so the stable sort
+        # keeps each block's pairs in (s, u) order
+        block = torch.cat([a * G + b for a in gs for b in gu])
+        n_copies = len(gs) * len(gu)
+        order = torch.argsort(block, stable=True)
+        pair_s = s.repeat(n_copies)[order]
+        pair_u = u.repeat(n_copies)[order]
+        NB = G * G
+        counts = torch.bincount(block, minlength=NB)
+        pair_ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    else:
+        pair_ptr, pair_s, pair_u = grp_ptr.long(), inc.long(), inc.long()
+        NB = G
+
+    def cut(ptr, size):
+        n = (ptr[1:] - ptr[:-1] + size - 1) // size
+        return (torch.cat([n.new_zeros(1), torch.cumsum(n, 0)]),
+                torch.repeat_interleave(torch.arange(NB, device=dev), n))
+
+    size = share or (SHARE if dense else max(
+        1, int((pair_ptr[1:] - pair_ptr[:-1]).max()) if NB else 1))
+    share_ptr, share_block = cut(pair_ptr, size)
+    share_first = torch.minimum(
+        pair_ptr[share_block] + (torch.arange(len(share_block), device=dev)
+                                 - share_ptr[share_block]) * size,
+        pair_ptr[-1])
+    share_first = torch.cat([share_first, pair_ptr[-1:]])
+    chunk_ptr, chunk_block = cut(share_ptr, CHUNK)
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    return tuple(map(i32, (pair_ptr, pair_s, pair_u, share_ptr, share_block,
+                           chunk_ptr, chunk_block, share_first)))
+
+
+def build_index(img, cam, weight, n_images, n_cameras, focal,
+                dense=True) -> Index:
+    """The kernels' index of one kind's supports (see :class:`Index`):
+    torch ops on the supports' device, built once a solve."""
+    img, cam = _i32(img), _i32(cam)
+    grouping = group_index(img, cam, weight, n_images, n_cameras, focal)
+    return Index(*grouping, *pair_index(img, cam, weight, n_images,
+                                        n_cameras, focal, dense,
+                                        *grouping[:2]), bool(dense))
+
+
+def grouping_index(img, cam, weight, n_images, n_cameras, focal,
+                   dense=True) -> Index:
+    """An :class:`Index` of the supports' grouping alone, its pair lists
+    empty: all the first design's stage 2 reads, built as its path built
+    it on every call."""
+    img, cam = _i32(img), _i32(cam)
+    none = torch.zeros(0, dtype=torch.int32, device=img.device)
+    return Index(*group_index(img, cam, weight, n_images, n_cameras, focal),
+                 *(none,) * 8, bool(dense))
+
+
+def check_index(index, T, S, n_images, n_cameras, focal, dense, device,
+                grouping_only=False):
+    """``index`` was built for T x S supports of these groups on
+    ``device`` (:func:`build_index` with the same ``dense``; with
+    ``grouping_only`` its grouping alone is checked, as
+    :func:`grouping_index` builds it)."""
+    G = n_groups(n_images, n_cameras, focal)
+    NB = G * G if dense else G
+    if not isinstance(index, Index) or index.dense != bool(dense):
+        raise ValueError(f"an index for dense={bool(dense)} expected")
+    ptrs = (("grp_ptr", G + 1),) + (() if grouping_only else (
+        ("pair_ptr", NB + 1), ("share_ptr", NB + 1), ("chunk_ptr", NB + 1)))
+    for name, n in ptrs:
+        check_tensor(name, getattr(index, name), torch.int32, (n,), device)
+    for name in ("sorted_img", "sorted_pos"):
+        check_tensor(name, getattr(index, name), torch.int32, (T, S), device)
+    for name in ("inc",) + (() if grouping_only else (
+            "pair_s", "pair_u", "share_block", "chunk_block",
+            "share_first")):
+        t = getattr(index, name)
+        check_tensor(name, t, torch.int32, tuple(t.shape), device)
+
+
+def _group_span(g, n_images):
+    """(first column, size, first entry of a support's camera tangent) of
+    group g."""
+    if g < n_images:
+        return 6 * g, 6, 0
+    return 6 * n_images + 2 * (g - n_images), 2, 6
+
+
+def assemble_from_pairs(terms, index):
+    """O's stage 2 replayed in torch on ``terms``' own factors (A, H_cl,
+    H_cc, g_red, in their dtype): each share of the index's pairs summed,
+    then each block's shares in order; (g, diag0, Hp or None).  The sums
+    within a share run in torch's order, not the kernel's lanes'."""
+    T, S, Dc, L = terms.A.shape
+    I, C = terms.n_images, terms.n_cameras
+    G = n_groups(I, C, terms.focal)
+    D = dims(I, C, terms.focal)
+    dense = index.dense
+    A = terms.A.reshape(T * S, Dc, L)
+    H_cl = terms.H_cl.reshape(T * S, Dc, L)
+    H_cc = terms.H_cc.reshape(T * S, Dc, Dc)
+    g_red = terms.g_red.reshape(T * S, Dc)
+    share_ptr = index.share_ptr.tolist()
+    first = index.share_first.tolist()
+    part = A.new_zeros((index.share_block.numel(), PART))
+    for k, b in enumerate(index.share_block.tolist()):
+        g, h = divmod(b, G) if dense else (b, b)
+        _, rg, ro = _group_span(g, I)
+        _, cg, co = _group_span(h, I)
+        p0, p1 = first[k], first[k + 1]
+        s = index.pair_s[p0:p1].long()
+        u = index.pair_u[p0:p1].long()
+        same = s == u
+        if g == h:
+            ss = s[same]
+            sr = (A[ss, ro:ro + rg] * H_cl[ss, ro:ro + rg]).sum(-1)
+            part[k, 36:36 + rg] = g_red[ss, ro:ro + rg].sum(0)
+            part[k, 42:42 + rg] = (torch.diagonal(
+                H_cc[ss, ro:ro + rg, ro:ro + rg], dim1=-2, dim2=-1)
+                - sr).sum(0)
+        if dense:
+            x = -(A[s, ro:ro + rg] @ H_cl[u, co:co + cg].transpose(-1, -2))
+            x[same] += H_cc[s[same], ro:ro + rg, co:co + cg]
+            part[k, :36].view(6, 6)[:rg, :cg] = x.sum(0)
+    g_out, diag0 = A.new_zeros(D), A.new_zeros(D)
+    Hp = A.new_zeros((D, D)) if dense else None
+    for b in range(G * G if dense else G):
+        x = part[share_ptr[b]:share_ptr[b + 1]].sum(0)
+        g, h = divmod(b, G) if dense else (b, b)
+        rb, rg, _ = _group_span(g, I)
+        cb, cg, _ = _group_span(h, I)
+        if dense:
+            Hp[rb:rb + rg, cb:cb + cg] = x[:36].view(6, 6)[:rg, :cg]
+        if g == h:
+            g_out[rb:rb + rg] = x[36:36 + rg]
+            diag0[rb:rb + rg] = x[42:42 + rg]
+    return g_out, diag0, Hp
 
 
 def _hyper(opts, lam):
@@ -261,58 +467,132 @@ def _i32(t):
 
 
 def hybrid_terms(kind, land, pose, fxfy, kvec, cam, img, obs, weight, opts,
-                 lam, n_images, n_cameras, dense) -> Terms:
+                 lam, n_images, n_cameras, dense, index=None) -> Terms:
     """Kernel O (see the module docstring); ``obs`` is (l2d_start,
     l2d_end) for lines and (p2d,) for points, ``lam`` the damping of the
-    landmark blocks.  ``hybrid_terms.launches`` counts the launches."""
+    landmark blocks, ``index`` the supports' :func:`build_index` (built
+    here when None; the plain version on the CPU reads none, but a given
+    one is checked on both).  ``hybrid_terms.launches`` counts the
+    launches."""
+    T, S = img.shape
+    if index is not None:
+        check_index(index, T, S, n_images, n_cameras, opts.optimize_focal,
+                    dense, land.device)
     if land.device.type == "cpu":
         return hybrid_terms_plain(kind, land, pose, fxfy, kvec, cam, img,
                                   obs, weight, opts, lam, n_images,
                                   n_cameras, dense)
     ob = torch.cat(obs, dim=-1) if kind == "line" else obs[0]
     _check(kind, land, pose, fxfy, kvec, cam, img, ob, weight)
-    return _terms_kernel(kind, land, pose, fxfy, kvec, cam, img, ob, weight,
-                         opts, lam, n_images, n_cameras, dense)
+    terms = _terms_kernel(kind, land, pose, fxfy, kvec, cam, img, ob, weight,
+                          opts, lam, n_images, n_cameras, dense, index)
+    if T:
+        _count(_TERMS, kind)
+    return terms
+
+
+def hybrid_terms_scan(kind, land, pose, fxfy, kvec, cam, img, obs, weight,
+                      opts, lam, n_images, n_cameras, dense, index=None):
+    """Kernel O with the first design's stage 2 (a warp a block walks the
+    row group's supports and searches each one's track for the column
+    group), the yardstick of the pair lists; CUDA tensors only, for
+    timing.  Without ``index`` it builds the grouping alone
+    (:func:`grouping_index`), as the first design's path did on every
+    call.  ``hybrid_terms_scan.launches`` counts its launches."""
+    if land.device.type != "cuda":
+        raise ValueError("hybrid_terms_scan is a kernel of the card")
+    T, S = img.shape
+    if index is None:
+        index = grouping_index(img, cam, weight, n_images, n_cameras,
+                               opts.optimize_focal, dense)
+    else:
+        # its stage 2 reads the grouping alone
+        check_index(index, T, S, n_images, n_cameras, opts.optimize_focal,
+                    dense, land.device, grouping_only=True)
+    ob = torch.cat(obs, dim=-1) if kind == "line" else obs[0]
+    _check(kind, land, pose, fxfy, kvec, cam, img, ob, weight)
+    terms = _terms_kernel(kind, land, pose, fxfy, kvec, cam, img, ob, weight,
+                          opts, lam, n_images, n_cameras, dense, index,
+                          scan=True)
+    if T:
+        _SCAN.launches += 1
+    return terms
+
+
+def terms_buffers(kind, T, S, n_images, n_cameras, focal, dense, device):
+    """O's outputs [T, ...] (float32, unwritten), by Terms field name
+    (``cost_t`` the per-track costs)."""
+    Dc, L, D = (8 if focal else 6), LAND[kind], dims(n_images, n_cameras,
+                                                     focal)
+    e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
+    return {"Hinv": e(T, L, L), "b_l": e(T, L), "H_cl": e(T, S, Dc, L),
+            "A": e(T, S, Dc, L), "H_cc": e(T, S, Dc, Dc),
+            "g_red": e(T, S, Dc), "cost_t": e(T), "H_ll": e(T, L, L),
+            "g": e(D), "diag0": e(D), "Hp": e(D, D) if dense else None}
+
+
+def terms_launcher(kind, land, pose, fxfy, kvec, cam, img, ob, weight, opts,
+                   lam, n_images, n_cameras, dense, index, buffers):
+    """A function ``launch(stages, scan)`` that launches O on these
+    inputs into ``buffers`` (:func:`terms_buffers`), its arguments
+    prepared once (to time a stage alone)."""
+    T, S = img.shape
+    focal = bool(opts.optimize_focal)
+    n_shares = index.share_block.numel()
+    n_chunks = index.chunk_block.numel()
+    e = lambda n: torch.empty(max(n, 1) * PART, dtype=torch.float32,
+                              device=land.device)
+    part, part2 = e(n_shares), e(n_chunks)
+    hp, loss = _hyper(opts, lam)
+    o = buffers
+    ptrs = [land.contiguous(), pose.contiguous(), fxfy.contiguous(),
+            kvec.contiguous(), _i32(cam), _i32(img), ob.contiguous(),
+            weight.contiguous(), index.grp_ptr, index.inc, index.sorted_img,
+            index.sorted_pos,
+            *(o[n] for n in ("Hinv", "b_l", "H_cl", "A", "H_cc", "g_red",
+                             "cost_t", "Hp", "g", "diag0", "H_ll")),
+            index.pair_ptr, index.pair_s, index.pair_u, index.share_ptr,
+            index.share_block, part, index.chunk_ptr, index.chunk_block,
+            part2, index.share_first]
+    ints = [KINDS.index(kind), focal, T, S, n_images, n_cameras, loss,
+            opts.constant_pose,
+            opts.constant_line if kind == "line" else opts.constant_point,
+            dense, n_shares]
+
+    def launch(stages=STAGES_ALL, scan=False):
+        _call("hybrid_terms_launch", ptrs, ints + [stages, scan, n_chunks],
+              hp, land.device)
+
+    return launch
 
 
 def _terms_kernel(kind, land, pose, fxfy, kvec, cam, img, ob, weight, opts,
-                  lam, n_images, n_cameras, dense) -> Terms:
+                  lam, n_images, n_cameras, dense, index=None,
+                  scan=False) -> Terms:
     from limap_tpu_torch.parallel import sharded_ba as sb
     T, S = img.shape
     focal = bool(opts.optimize_focal)
-    Dc, L, D = (8 if focal else 6), LAND[kind], dims(n_images, n_cameras,
-                                                     focal)
-    dev = land.device
     img32, cam32 = _i32(img), _i32(cam)
     weight = weight.contiguous()
-    index = build_index(img32, cam32, weight, n_images, n_cameras, focal)
-    e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    Hinv, b_l, H_cl, A = e(T, L, L), e(T, L), e(T, S, Dc, L), e(T, S, Dc, L)
-    H_cc, g_red, cost_t = e(T, S, Dc, Dc), e(T, S, Dc), e(T)
-    H_ll = e(T, L, L)
-    g, diag0 = e(D), e(D)
-    Hp = e(D, D) if dense else None
-    hp, loss = _hyper(opts, lam)
+    if index is None:
+        index = build_index(img32, cam32, weight, n_images, n_cameras, focal,
+                            dense)
+    o = terms_buffers(kind, T, S, n_images, n_cameras, focal, dense,
+                      land.device)
     if T:
-        _call("hybrid_terms_launch",
-              [land.contiguous(), pose.contiguous(), fxfy.contiguous(),
-               kvec.contiguous(), cam32, img32, ob.contiguous(), weight,
-               *index, Hinv, b_l, H_cl, A, H_cc, g_red, cost_t, Hp, g,
-               diag0, H_ll],
-              [KINDS.index(kind), focal, T, S, n_images, n_cameras, loss,
-               opts.constant_pose,
-               opts.constant_line if kind == "line" else opts.constant_point,
-               dense], hp, dev)
-        _count(_TERMS, kind)
+        terms_launcher(kind, land, pose, fxfy, kvec, cam32, img32, ob,
+                       weight, opts, lam, n_images, n_cameras, dense, index,
+                       o)(scan=scan)
     else:
-        g.zero_()
-        diag0.zero_()
-        if Hp is not None:
-            Hp.zero_()
-    return Terms(kind, Hinv, b_l, H_cl, H_cc, cost_t.sum(), g, diag0, Hp,
-                 img32, cam32, weight,
-                 sb._cols_for(img32, cam32, n_images, opts), n_images,
-                 n_cameras, focal, index, H_ll, A, g_red)
+        o["g"].zero_()
+        o["diag0"].zero_()
+        if o["Hp"] is not None:
+            o["Hp"].zero_()
+    return Terms(kind, o["Hinv"], o["b_l"], o["H_cl"], o["H_cc"],
+                 o["cost_t"].sum(), o["g"], o["diag0"], o["Hp"], img32, cam32,
+                 weight, sb._cols_for(img32, cam32, n_images, opts),
+                 n_images, n_cameras, focal, index, o["H_ll"], o["A"],
+                 o["g_red"])
 
 
 def _count(fn, key):
@@ -323,6 +603,8 @@ def _count(fn, key):
 hybrid_terms.launches = 0
 hybrid_terms.counts = Counter()
 _TERMS = hybrid_terms    # the count stays on this function when wrapped
+hybrid_terms_scan.launches = 0
+_SCAN = hybrid_terms_scan
 
 
 def hybrid_apply(terms: Terms, v, backsub=False):
@@ -404,8 +686,8 @@ _COST = hybrid_cost
 
 
 def reset_counts():
-    """Set the launch counts of O, P and Q to 0."""
-    for fn in (_TERMS, _APPLY, _COST):
+    """Set the launch counts of O (and its yardstick), P and Q to 0."""
+    for fn in (_TERMS, _SCAN, _APPLY, _COST):
         fn.launches = 0
     _TERMS.counts.clear()
     _APPLY.counts.clear()

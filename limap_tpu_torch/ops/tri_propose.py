@@ -27,18 +27,29 @@ Two input forms:
 - :func:`count_exhaustive` and :func:`propose_exhaustive`, the
   exhaustive matcher: line a against every valid line of each neighbour,
   enumerated inside the kernel in the order slot, then neighbour line
-  index.  The first counts each line's survivors; the second writes them
-  compacted in that order into a bucket of width ``W`` (words, tri, ok),
-  with no cap: ``W`` must cover the largest count.
+  index.  The first counts each line's survivors (or each (line, slot)'s
+  with ``per_slot``); the second writes them compacted in that order into
+  a bucket of width ``W`` (words, tri, ok), with no cap: ``W`` must cover
+  the largest count.  Each survivor goes to its line's offset of its slot
+  (:func:`slot_offsets` of the per-slot counts, which the second pass takes
+  from the first as ``slot_counts`` or counts itself) plus its rank in the
+  slot.
 
-CUDA tensors launch ``csrc/tri_propose.cu``; CPU tensors take the plain
-torch version (``*_plain``), which evaluates the candidates of a chunk
-of lines at a time.
+CUDA tensors launch ``csrc/tri_propose.cu`` (the exhaustive passes: a
+table launch of what depends on one line, :func:`exhaustive_tables`,
+which the caller builds once and hands to both passes, then a launch a
+pass over tiles of candidates staged in shared memory;
+``count_exhaustive_scan`` and
+``propose_exhaustive_scan`` launch the first design, a block a line
+recomputing every candidate, kept as a yardstick for timing and
+bit-equality); CPU tensors take the plain torch version (``*_plain``),
+which evaluates the candidates of a chunk of lines at a time.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -252,6 +263,29 @@ def _exhaustive_chunks(cfg, L, K, l2d_packed, cam_packed, meta, ranges):
         yield n0, word.expand(len(n), C), ok, tri
 
 
+def count_slots_plain(cfg, L, K, l2d_packed, cam_packed, meta,
+                      ranges=None):
+    """Form (b)'s count of each (line, slot) [G * L, K] int32, in torch
+    ops."""
+    check_exhaustive(cfg)
+    counts = torch.zeros((meta.shape[0] * L, K), dtype=torch.int32,
+                         device=meta.device)
+    for n0, _, ok, _ in _exhaustive_chunks(cfg, L, K, l2d_packed,
+                                           cam_packed, meta, ranges):
+        counts[n0:n0 + len(ok)] = ok.reshape(len(ok), K, L).sum(-1).to(
+            torch.int32)
+    return counts
+
+
+def slot_offsets(slot_counts):
+    """Each (line, slot)'s first place in the line's bucket, the
+    exclusive scan of ``slot_counts`` [N, K] in slot order, and each
+    line's survivors [N]."""
+    ends = torch.cumsum(slot_counts, 1, dtype=torch.int32)
+    return (ends - slot_counts).contiguous(), slot_counts.sum(
+        1, dtype=torch.int32)
+
+
 def count_exhaustive_plain(cfg, L, K, l2d_packed, cam_packed, meta,
                            ranges=None):
     """Form (b)'s count in torch ops."""
@@ -317,6 +351,12 @@ def build() -> ctypes.CDLL:
     # banks, counts, words_out, tri, ok, stream
     lib.tri_propose_launch.argtypes = [ptr] * 7 + [i64] * 6 + [ptr] * 5
     lib.tri_propose_launch.restype = ctypes.c_int
+    pp, pi = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(i64)
+    lib.tri_exhaustive_tables.argtypes = [pp, pi, ptr]
+    lib.tri_exhaustive_tables.restype = ctypes.c_int
+    lib.tri_exhaustive_launch.argtypes = [pp, pi,
+                                          ctypes.POINTER(ctypes.c_float), ptr]
+    lib.tri_exhaustive_launch.restype = ctypes.c_int
     return lib
 
 
@@ -325,7 +365,7 @@ MODE_WORDS, MODE_COUNT, MODE_WRITE = 0, 1, 2
 
 def _launch(cfg, L, K, l2d_packed, cam_packed, meta, ranges, mode,
             words=None, W=0, counts=None, words_out=None, tri=None,
-            ok=None, vp=None, kinds=(BANK_ALGEBRAIC,)):
+            ok=None, vp=None, kinds=(BANK_ALGEBRAIC,), counter=None):
     G = meta.shape[0]
     rng = None
     if ranges is not None:
@@ -343,7 +383,7 @@ def _launch(cfg, L, K, l2d_packed, cam_packed, meta, ranges, mode,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"tri_propose launch failed: CUDA error {err}")
-    _COUNTER.launches += 1
+    (counter or _COUNTER).launches += 1
 
 
 def propose(cfg, L, K, l2d_packed, cam_packed, words, meta, ranges=None,
@@ -376,33 +416,175 @@ propose.launches = 0
 _COUNTER = propose
 
 
-def count_exhaustive(cfg, L, K, l2d_packed, cam_packed, meta, ranges=None):
-    """Form (b), first pass: each line's survivors [G * L] int32."""
+class ExhaustiveTables(NamedTuple):
+    """What the exhaustive passes read of one line or one image, written
+    once by the table launch (csrc/tri_propose.cu, step 1)."""
+    L: int
+    cull: torch.Tensor        # [I * L, 12] the culls' fields of a line
+    rest: torch.Tensor        # [I * L, 12] its rays, normal, end point
+    views: torch.Tensor       # [I, 20] an image's view and centre
+
+
+def exhaustive_tables(L, l2d_packed, cam_packed):
+    """The exhaustive passes' tables of every line slot and image (one
+    launch), to hand to both passes; None for CPU tensors, whose plain
+    version reads none.  ``exhaustive_tables.launches`` counts the
+    launches."""
+    I, dev = cam_packed.shape[0], cam_packed.device
+    check_tensor("l2d_packed", l2d_packed, torch.float32, (I, L, 6), dev)
+    if dev.type == "cpu":
+        return None
+    e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    tables = ExhaustiveTables(L, e(I * L, 12), e(I * L, 12), e(I, 20))
+    ptrs = [l2d_packed.contiguous(), cam_packed.contiguous(), tables.cull,
+            tables.rest, tables.views]
+    with torch.cuda.device(dev):
+        err = build().tri_exhaustive_tables(
+            (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs]),
+            (ctypes.c_longlong * 2)(I, L),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tri_exhaustive_tables failed: CUDA error {err}")
+    exhaustive_tables.launches += 1
+    return tables
+
+
+exhaustive_tables.launches = 0
+
+
+def _check_tables(L, cam_packed, tables):
+    """``tables`` are :func:`exhaustive_tables` of L lines an image of
+    these cameras, on their device."""
+    I, dev = cam_packed.shape[0], cam_packed.device
+    if not isinstance(tables, ExhaustiveTables) or tables.L != L:
+        raise ValueError(f"exhaustive tables of L = {L} expected")
+    for name, t, n in (("cull", tables.cull, (I * L, 12)),
+                       ("rest", tables.rest, (I * L, 12)),
+                       ("views", tables.views, (I, 20))):
+        check_tensor(name, t, torch.float32, n, dev)
+
+
+def _tables_for(L, l2d_packed, cam_packed, tables):
+    return (exhaustive_tables(L, l2d_packed, cam_packed) if tables is None
+            else tables)
+
+
+def _launch_tiled(cfg, L, K, tables, meta, ranges, mode, scounts, W=0,
+                  offsets=None, words=None, tri=None, ok=None):
+    """One tiled exhaustive pass (tri_exhaustive_launch) on ``tables``."""
+    lo_hi = [0.0] * 6
+    if ranges is not None:
+        lo_hi = torch.cat([ranges[0], ranges[1]]).cpu().tolist()
+    f = np.asarray(list(config_params(cfg)) + [float(ranges is not None)]
+                   + lo_hi, np.float32)
+    ptrs = [meta.contiguous(), tables.cull, tables.rest, tables.views,
+            offsets, scounts, words, tri, ok]
+    with torch.cuda.device(meta.device):
+        err = build().tri_exhaustive_launch(
+            (ctypes.c_void_p * len(ptrs))(
+                *[None if t is None else t.data_ptr() for t in ptrs]),
+            (ctypes.c_longlong * 5)(meta.shape[0], L, K, W, mode),
+            f.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tri_exhaustive launch failed: CUDA error {err}")
+    _COUNTER.launches += 1
+
+
+def count_exhaustive(cfg, L, K, l2d_packed, cam_packed, meta, ranges=None,
+                     per_slot=False, tables=None):
+    """Form (b), first pass: each line's survivors [G * L] int32, or
+    with ``per_slot`` each (line, slot)'s [G * L, K].  ``tables`` is
+    :func:`exhaustive_tables` of these lines (built here when None)."""
     check_exhaustive(cfg)
     _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges)
+    if tables is not None:
+        _check_tables(L, cam_packed, tables)
     if meta.device.type == "cpu":
+        if per_slot:
+            return count_slots_plain(cfg, L, K, l2d_packed, cam_packed,
+                                     meta, ranges)
         return count_exhaustive_plain(cfg, L, K, l2d_packed, cam_packed,
                                       meta, ranges)
+    scounts = torch.zeros((meta.shape[0] * L, K), dtype=torch.int32,
+                          device=meta.device)
+    if scounts.numel():
+        _launch_tiled(cfg, L, K, _tables_for(L, l2d_packed, cam_packed,
+                                             tables),
+                      meta, ranges, MODE_COUNT, scounts)
+    return scounts if per_slot else slot_offsets(scounts)[1]
+
+
+def propose_exhaustive(cfg, L, K, l2d_packed, cam_packed, meta, W,
+                       ranges=None, slot_counts=None, tables=None):
+    """Form (b), second pass: each line's survivors compacted in the
+    order slot, then neighbour line, into words [G * L, W] int32 (-1
+    empty), tri [G * L, W, 9] and ok [G * L, W].  ``W`` must cover the
+    largest count; the wrapper raises otherwise.  ``slot_counts`` [G * L,
+    K] is the first pass's per-slot count of these lines
+    (:func:`count_exhaustive` with ``per_slot``; without it the pass
+    counts first, one launch more), ``tables`` the first pass's
+    :func:`exhaustive_tables` (built here when None)."""
+    check_exhaustive(cfg)
+    _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges)
+    N = meta.shape[0] * L
+    dev = meta.device
+    if slot_counts is not None:
+        check_tensor("slot_counts", slot_counts, torch.int32, (N, K), dev)
+    if tables is not None:
+        _check_tables(L, cam_packed, tables)
+    if meta.device.type == "cpu":
+        return propose_exhaustive_plain(cfg, L, K, l2d_packed, cam_packed,
+                                        meta, W, ranges)
+    words = torch.full((N, W), -1, dtype=torch.int32, device=dev)
+    tri = torch.zeros((N, W, 9), dtype=torch.float32, device=dev)
+    ok = torch.zeros((N, W), dtype=torch.bool, device=dev)
+    if not (N and K):
+        return words, tri, ok
+    tables = _tables_for(L, l2d_packed, cam_packed, tables)
+    if slot_counts is None:
+        slot_counts = count_exhaustive(cfg, L, K, l2d_packed, cam_packed,
+                                       meta, ranges, per_slot=True,
+                                       tables=tables)
+    offsets, totals = slot_offsets(slot_counts)
+    if int(totals.max()) > W:
+        raise ValueError(f"a line has {int(totals.max())} survivors, "
+                         f"more than the bucket width {W}")
+    scounts = torch.zeros((N, K), dtype=torch.int32, device=dev)
+    _launch_tiled(cfg, L, K, tables, meta, ranges, MODE_WRITE, scounts, W,
+                  offsets, words, tri, ok)
+    if not torch.equal(scounts, slot_counts):
+        raise RuntimeError("tri_propose: the write pass found other "
+                           "survivors than the slot counts it was given")
+    return words, tri, ok
+
+
+def count_exhaustive_scan(cfg, L, K, l2d_packed, cam_packed, meta,
+                          ranges=None):
+    """The first design's count (a block a line, every candidate from
+    scratch): the yardstick of :func:`count_exhaustive`, CUDA only."""
+    check_exhaustive(cfg)
+    _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges)
+    if meta.device.type != "cuda":
+        raise ValueError("count_exhaustive_scan is a kernel of the card")
     counts = torch.zeros(meta.shape[0] * L, dtype=torch.int32,
                          device=meta.device)
     if counts.numel() and K:
         _launch(cfg, L, K, l2d_packed, cam_packed, meta, ranges, MODE_COUNT,
-                counts=counts)
+                counts=counts, counter=_SCAN)
     return counts
 
 
-def propose_exhaustive(cfg, L, K, l2d_packed, cam_packed, meta, W,
-                       ranges=None):
-    """Form (b), second pass: each line's survivors compacted in the
-    order slot, then neighbour line, into words [G * L, W] int32 (-1
-    empty), tri [G * L, W, 9] and ok [G * L, W].  ``W`` must cover the
-    largest count of :func:`count_exhaustive`; the kernel raises
-    otherwise."""
+def propose_exhaustive_scan(cfg, L, K, l2d_packed, cam_packed, meta, W,
+                            ranges=None):
+    """The first design's write (a block a line): the yardstick of
+    :func:`propose_exhaustive`, CUDA only; words, tri, ok and each line's
+    count.  ``propose_exhaustive_scan.launches`` counts the launches of
+    both scan passes."""
     check_exhaustive(cfg)
     _check_inputs(L, K, l2d_packed, cam_packed, meta, ranges)
-    if meta.device.type == "cpu":
-        return propose_exhaustive_plain(cfg, L, K, l2d_packed, cam_packed,
-                                        meta, W, ranges)
+    if meta.device.type != "cuda":
+        raise ValueError("propose_exhaustive_scan is a kernel of the card")
     N = meta.shape[0] * L
     dev = meta.device
     words = torch.full((N, W), -1, dtype=torch.int32, device=dev)
@@ -411,8 +593,10 @@ def propose_exhaustive(cfg, L, K, l2d_packed, cam_packed, meta, W,
     counts = torch.zeros(N, dtype=torch.int32, device=dev)
     if N and K:
         _launch(cfg, L, K, l2d_packed, cam_packed, meta, ranges, MODE_WRITE,
-                W=W, counts=counts, words_out=words, tri=tri, ok=ok)
-        if int(counts.max()) > W:
-            raise ValueError(f"a line has {int(counts.max())} survivors, "
-                             f"more than the bucket width {W}")
-    return words, tri, ok
+                W=W, counts=counts, words_out=words, tri=tri, ok=ok,
+                counter=_SCAN)
+    return words, tri, ok, counts
+
+
+propose_exhaustive_scan.launches = 0
+_SCAN = propose_exhaustive_scan

@@ -126,8 +126,10 @@ def solve_hybrid_bundle_adjustment(
     lam = opts.damping
     cost_cur = float(cost_fn(state, line_data, point_data))
     costs = [cost_cur]
+    # the supports do not change during the solve: kernel O's index once
+    index = step.index(line_data, point_data)
     for _ in range(n_iterations):
-        cand, _ = step(state, line_data, point_data, lam)
+        cand, _ = step(state, line_data, point_data, lam, index=index)
         cost_new = float(cost_fn(cand, line_data, point_data))
         if cost_new < cost_cur:
             state, cost_cur = cand, cost_new

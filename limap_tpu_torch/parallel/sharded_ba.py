@@ -343,8 +343,12 @@ def make_hybrid_ba_step(mesh, n_images: int, n_cameras: int = 1,
                         device=None):
     """The BA step.
 
-    Returned fn: (state, line_data, point_data, lam=None) ->
-    (new_state, cost), cost the sum of squares at ``state``.
+    Returned fn: (state, line_data, point_data, lam=None, index=None) ->
+    (new_state, cost), cost the sum of squares at ``state``.  ``index``
+    is ``fn.index(line_data, point_data)``: kernel O's index of each
+    kind (ops/hybrid_ba.py build_index) for the rank's block of track
+    rows, which depends on the supports alone, so a solve builds it once
+    and hands it to every step; without it each step builds its own.
     line_data: (kvec [Tl,S,4], cam_index [Tl,S], img_index [Tl,S],
                 l2d_start, l2d_end, weight)
     point_data: (kvec [Tp,Sp,4], cam_index, img_index, p2d [Tp,Sp,2],
@@ -367,7 +371,20 @@ def make_hybrid_ba_step(mesh, n_images: int, n_cameras: int = 1,
         fixed = fixed | (ar < n_images * 6)
     eye = torch.eye(D, device=device)
 
-    def run(state, line_data, point_data, lam=None):
+    def build_index(line_data, point_data):
+        """(line, point) indices of kernel O for the rank's block of track
+        rows; None on the CPU, whose plain version reads none."""
+        if device.type != "cuda":
+            return None
+        out = []
+        for data in (line_data, point_data):
+            data = _on(device, data)
+            _, (_, ci, ii, *_, w) = _block(data[2], data, ranks)
+            out.append(O.build_index(ii, ci, w, n_images, n_cameras,
+                                     opts.optimize_focal, use_dense))
+        return tuple(out)
+
+    def run(state, line_data, point_data, lam=None, index=None):
         if lam is None:
             lam = opts.damping
         state = _state_on(device, state)
@@ -377,14 +394,19 @@ def make_hybrid_ba_step(mesh, n_images: int, n_cameras: int = 1,
         points, point_data = _block(state.point_params, point_data, ranks)
         kv_l, ci_l, ii_l, l2s, l2e, w_l = line_data
         kv_p, ci_p, ii_p, p2d, w_p = point_data
+        ix_l, ix_p = index if index is not None else (None, None)
         lam_t = torch.tensor(lam, dtype=torch.float32, device=device)
+        # O takes the damping as the host float of lam_t's value, so that
+        # it reads no device scalar back (a sync a call)
+        lam32 = float(np.float32(lam))
         tl = O.hybrid_terms("line", lines, state.pose_params,
                             state.cam_fxfy, kv_l, ci_l, ii_l, (l2s, l2e),
-                            w_l, opts, lam_t, n_images, n_cameras,
-                            use_dense)
+                            w_l, opts, lam32, n_images, n_cameras,
+                            use_dense, index=ix_l)
         tp = O.hybrid_terms("point", points, state.pose_params,
                             state.cam_fxfy, kv_p, ci_p, ii_p, (p2d,), w_p,
-                            opts, lam_t, n_images, n_cameras, use_dense)
+                            opts, lam32, n_images, n_cameras, use_dense,
+                            index=ix_p)
         if use_dense:
             gp, cost, Hp = psum(tl.g + tp.g, tl.cost + tp.cost,
                                 tl.Hp + tp.Hp)
@@ -434,6 +456,7 @@ def make_hybrid_ba_step(mesh, n_images: int, n_cameras: int = 1,
         return HybridBAState(new_lines, new_points, new_pose,
                              new_fxfy), cost
 
+    run.index = build_index
     return run
 
 

@@ -41,6 +41,7 @@ Q's values).
 
 from __future__ import annotations
 
+import contextlib
 import json
 
 import numpy as np
@@ -257,6 +258,30 @@ def compare_g_c(k, p, p64):
     return ok, ek, ep, scale
 
 
+def assembly_refs(k64):
+    """{name: (float64 value, sum of the contributions' magnitudes)} of
+    g, diag0 and (dense) the matrix, from a float64 Terms' own factors."""
+    g, diag0, Hp = assembled(k64)
+    mg, mdiag, mHp = assembled(k64, absolute=True)
+    refs = {"g": (g, mg), "diag0": (diag0, mdiag)}
+    if Hp is not None:
+        refs["Hp"] = (Hp, mHp)
+    return refs
+
+
+def check_assembly(terms):
+    """O's stage 2 alone: g, diag0 and the matrix of ``terms`` (the
+    kernel's, slots of weight 0 read as 0) within ``GAMMA`` of their
+    float64 recomputation from the same terms' factors.  Returns {name:
+    [error, allowed]} and ok."""
+    res = {}
+    for name, (ref, mag) in assembly_refs(_to64(terms)).items():
+        good, err, allowed = _within(getattr(terms, name), ref, mag)
+        res[name] = [err, allowed]
+        res["ok"] = res.get("ok", True) and good
+    return res
+
+
 def check_terms(kind, state, data, opts, lam, n_images, n_cameras, dense,
                 terms=None, apply=None):
     """O and P against their plain versions on one kind of track (see
@@ -306,11 +331,7 @@ def check_terms(kind, state, data, opts, lam, n_images, n_cameras, dense,
         "A": (k64.H_cl @ k64.Hinv[:, None],
               k64.H_cl.abs() @ k64.Hinv.abs()[:, None]),
     }
-    g, diag0, Hp = assembled(k64)
-    mg, mdiag, mHp = assembled(k64, absolute=True)
-    refs["g"], refs["diag0"] = (g, mg), (diag0, mdiag)
-    if Hp is not None:
-        refs["Hp"] = (Hp, mHp)
+    refs.update(assembly_refs(k64))
     for name, (ref, mag) in refs.items():
         good, err, allowed = _within(getattr(k, name), ref, mag)
         res[name] = [err, allowed]
@@ -398,6 +419,102 @@ def check_all(device="cuda", terms=None, apply=None, cost=None):
                                  dense, terms, apply)
             yield f"hybrid_terms + hybrid_apply, {kind}s", case, res
         yield "hybrid_cost", case, check_cost(state, ld, pd, opts, cost)
+
+
+@contextlib.contextmanager
+def summed_in_shares(share):
+    """Within the block, ``ops.hybrid_terms`` on the CPU gives g, diag0
+    and (dense) the matrix summed as O's stage 2 adds them: a block's
+    pairs cut into shares of ``share`` consecutive pairs, each share
+    summed, then the shares in order (``assemble_from_pairs`` on the
+    plain version's factors, in their dtype).  A replay of the card's
+    summation order, with the share size free, for the multi-rank runs
+    of ``tests/torch_parallel_checks.py``: in float64 a fault of the
+    order (a pair dropped or added twice) shows as a gap between ranks,
+    rounding does not."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    plain = O.hybrid_terms
+
+    def terms(kind, land, pose, fxfy, kvec, cam, img, obs, weight, opts,
+              lam, n_images, n_cameras, dense, index=None):
+        t = plain(kind, land, pose, fxfy, kvec, cam, img, obs, weight,
+                  opts, lam, n_images, n_cameras, dense, index=index)
+        focal = bool(opts.optimize_focal)
+        img32, cam32 = O._i32(img), O._i32(cam)
+        grouping = O.group_index(img32, cam32, weight, n_images, n_cameras,
+                                 focal)
+        ix = O.Index(*grouping, *O.pair_index(
+            img32, cam32, weight, n_images, n_cameras, focal, dense,
+            *grouping[:2], share=share), bool(dense))
+        g, diag0, Hp = O.assemble_from_pairs(t, ix)
+        return t._replace(g=g, diag0=diag0, Hp=Hp if dense else t.Hp)
+
+    O.hybrid_terms = terms
+    try:
+        yield
+    finally:
+        O.hybrid_terms = plain
+
+
+def terms_split(args, reps=10):
+    """Kernel O's time by part on the card, for one kind's input
+    ``args`` (hybrid_terms' positional arguments): the index build's
+    grouping (what the first design rebuilt every call) and its pair
+    lists (host clock around a synchronized build, in ms), then stage 1,
+    stage 2 on the pair lists and the first design's stage 2, each alone
+    (CUDA events over ``reps`` launches into the same buffers).  Returns
+    a dict of ms and the index's sizes."""
+    import time
+    from limap_tpu_torch.ops import hybrid_ba as O
+    (kind, land, pose, fxfy, kvec, cam, img, obs, w, opts, lam, I, C,
+     dense) = args
+    focal = bool(opts.optimize_focal)
+    img32, cam32 = O._i32(img), O._i32(cam)
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    grouping, group_ms = host_ms(lambda: O.group_index(img32, cam32, w, I,
+                                                       C, focal))
+    _, pairs_ms = host_ms(lambda: O.pair_index(img32, cam32, w, I, C, focal,
+                                               dense, *grouping[:2]))
+    index, build_ms = host_ms(lambda: O.build_index(img32, cam32, w, I, C,
+                                                    focal, dense))
+    ob = torch.cat(obs, dim=-1) if kind == "line" else obs[0]
+    T, S = img.shape
+    call = O.terms_launcher(kind, land, pose, fxfy, kvec, cam32, img32, ob,
+                            w, opts, lam, I, C, dense, index,
+                            O.terms_buffers(kind, T, S, I, C, focal, dense,
+                                            land.device))
+
+    def events_ms(**kw):
+        call(**kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            call(**kw)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    n_t = (w > 0).sum(1).double()
+    # stage 1 first: each stage 2 reads the factors it left in the buffers
+    return {"index_grouping_ms": group_ms, "index_pairs_ms": pairs_ms,
+            "index_ms": build_ms,
+            "stage1_ms": events_ms(stages=O.STAGE_TERMS),
+            "stage2_ms": events_ms(stages=O.STAGE_ASSEMBLY),
+            "stage2_scan_ms": events_ms(stages=O.STAGE_ASSEMBLY, scan=True),
+            "supports": int((w > 0).sum()),
+            "pairs_sum_n_t_squared": int((n_t * n_t).sum()),
+            "pairs_listed": int(index.pair_s.numel()),
+            "shares": int(index.share_block.numel()),
+            "blocks": int(index.pair_ptr.numel() - 1)}
 
 
 def main():

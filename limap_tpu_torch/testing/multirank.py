@@ -9,7 +9,8 @@ result there; ``Ranks.join`` returns the results in rank order and
 raises if a rank failed or the time ran out.  ``fn`` is one of this
 module's functions, so a child imports only the port.
 
-The workers: ``ba_steps`` (the step and the cost over the mesh),
+The workers: ``ba_steps`` (the step and the cost over the mesh;
+``ba_steps_in_shares`` with O's sums in the card's share order),
 ``hybrid_ba`` (the driver), ``mapping`` (the host dicts, the image split
 and ``triangulate_all_mesh``).  CPU tests run them on gloo; chip_smoke's
 phase 17 runs them on the card.
@@ -143,11 +144,20 @@ def ba_steps(rank, world, problem, runs, device="cpu"):
     return out
 
 
+def ba_steps_in_shares(rank, world, problem, runs, share):
+    """``ba_steps`` on the CPU with O's g, diag0 and matrix summed in
+    shares of ``share`` pairs, as the card's stage 2 adds them
+    (``testing/hybrid_checks.py::summed_in_shares``)."""
+    from limap_tpu_torch.testing.hybrid_checks import summed_in_shares
+    with summed_in_shares(share):
+        return ba_steps(rank, world, problem, runs)
+
+
 def hybrid_ba(rank, world, imagecols, pointtracks, linetracks, opts_kw,
               n_iterations, device="cpu", timed=False):
     """``solve_hybrid_bundle_adjustment`` over ``make_mesh()``: its
     output, the seconds, the collectives and, on the card, the kernels'
-    launches by kind."""
+    launches by kind (and O's yardstick's, which no path launches)."""
     from limap_tpu_torch.ops import hybrid_ba as O
     from limap_tpu_torch.parallel import (HybridBAOptions, make_mesh,
                                           solve_hybrid_bundle_adjustment)
@@ -164,7 +174,8 @@ def hybrid_ba(rank, world, imagecols, pointtracks, linetracks, opts_kw,
     return {"out": out, "seconds": secs, "collectives": M.LOG.summary(),
             "launches": {"hybrid_terms": dict(O.hybrid_terms.counts),
                          "hybrid_apply": dict(O.hybrid_apply.counts),
-                         "hybrid_cost": O.hybrid_cost.launches}}
+                         "hybrid_cost": O.hybrid_cost.launches,
+                         "hybrid_terms_scan": O.hybrid_terms_scan.launches}}
 
 
 def node_tables(tri):

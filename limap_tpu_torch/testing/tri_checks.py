@@ -871,6 +871,82 @@ def check_all_vp(device="cuda"):
             yield name, case, res
 
 
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def compare_to_scan(cfg, L, K, l2d_packed, cam_packed, meta, ranges=None):
+    """Kernel F's exhaustive passes against the first design's
+    (``*_scan``) on the same input, bit for bit: the per-line counts, and
+    words, rows and ok of the write, with the first pass's slot counts
+    and tables given (as the triangulator does) and without them.  CUDA
+    only."""
+    args = (cfg, L, K, l2d_packed, cam_packed, meta)
+    tables = tri_propose.exhaustive_tables(L, l2d_packed, cam_packed)
+    slot_counts = tri_propose.count_exhaustive(*args, ranges, per_slot=True,
+                                               tables=tables)
+    counts = tri_propose.slot_offsets(slot_counts)[1]
+    counts_s = tri_propose.count_exhaustive_scan(*args, ranges)
+    W = tri_propose.bucket_width(int(torch.maximum(counts, counts_s).max())
+                                 if counts.numel() else 0)
+    new = tri_propose.propose_exhaustive(*args, W, ranges,
+                                         slot_counts=slot_counts,
+                                         tables=tables)
+    again = tri_propose.propose_exhaustive(*args, W, ranges)
+    old = tri_propose.propose_exhaustive_scan(*args, W, ranges)
+    same = lambda a, b: bool(torch.equal(_bits(a), _bits(b)))
+    res = {"lines": int(counts.numel()), "slots": K, "width": W,
+           "survivors": int(counts.sum()),
+           "empty_slots": int((meta[:, :K] < 0).sum()),
+           "counts_equal": same(counts, counts_s)
+           and same(counts, old[3]),
+           "words_equal": same(new[0], old[0]) and same(again[0], old[0]),
+           "rows_equal": same(new[1], old[1]) and same(again[1], old[1]),
+           "ok_equal": same(new[2], old[2]) and same(again[2], old[2])}
+    res["bit_equal"] = all(res[k] for k in ("counts_equal", "words_equal",
+                                            "rows_equal", "ok_equal"))
+    return res
+
+
+def scan_cases(device="cuda"):
+    """(case, args) of the exhaustive passes' seeded comparisons with
+    the first design: the seeded scene, endpoint triangulation, ranges,
+    and neighbours of -1 between and after an image's slots."""
+    for case in ("6x120, 0.3 px", "4x40, endpoints", "4x40, ranges",
+                 "5x36, slots of -1"):
+        kw = ({} if case.startswith("6x120") else
+              {"n_views": 5, "n_lines": 36, "seed": 3}
+              if case.startswith("5x36") else
+              {"n_views": 4, "n_lines": 40})
+        tri, matches = seeded_inputs(device=device, **kw)
+        if case.endswith("endpoints"):
+            import dataclasses
+            tri.cfg = dataclasses.replace(tri.cfg,
+                                          use_endpoints_triangulation=True)
+        if case.endswith("ranges"):
+            tri.set_ranges((np.array([-6.0, -6, 6]), np.array([6.0, 6, 20])))
+        ids = tri.img_ids
+        rows = [tri.id2idx[i] for i in ids]
+        nbrs = [[tri.id2idx[n] for n in sorted(matches[i])] for i in ids]
+        if case.endswith("-1"):
+            nbrs = [nb[:2 + (j % 3)] for j, nb in enumerate(nbrs)]
+            meta = tri._meta(nbrs, rows, 4)
+            meta[0, 1] = -1
+            K = 4
+        else:
+            K = tri._slot_count(nbrs)
+            meta = tri._meta(nbrs, rows, K)
+        yield case, (tri.cfg, tri.L, K, tri._l2d_packed, tri._cam_packed,
+                     tri._device(meta), tri.ranges)
+
+
+def check_all_scan(device="cuda"):
+    """F's exhaustive passes against the first design on the seeded
+    cases: yields (case, result)."""
+    for case, args in scan_cases(device):
+        yield case, compare_to_scan(*args)
+
+
 def check_all(device="cuda"):
     """The seeded cases on ``device``: yields (name, case, result)."""
     for case, kw in (("6x120, 0.3 px", {}),

@@ -387,13 +387,14 @@ class GlobalLineTriangulator:
             self._record(*self._run_exhaustive(neighbors), reset=True)
 
     def _run_exhaustive(self, neighbors):
-        """Kernel F counts each line's survivors, the bucket takes the
-        cover of the largest count (no cap, nothing dropped), then F
-        writes the survivors and G scores them, in groups of images sized
-        by ``GROUP_BYTES``; returns the outputs, their edge columns cut
-        to the largest valid count (the bucket is as wide as the most
-        survivors of a line, its valid edges far fewer), and no dropped
-        edges."""
+        """Kernel F writes its tables of the lines once, counts each
+        (line, slot)'s survivors, the bucket takes the cover of the
+        largest line's count (no cap, nothing dropped), then F writes the
+        survivors at the slots' offsets and G scores them, in groups of
+        images sized by ``GROUP_BYTES``; returns the outputs, their edge
+        columns cut to the largest valid count (the bucket is as wide as
+        the most survivors of a line, its valid edges far fewer), and no
+        dropped edges."""
         tri_propose.check_exhaustive(self.cfg)
         ids = [i for i in self.img_ids if i in neighbors]
         rows = [self.id2idx[i] for i in ids]
@@ -402,8 +403,13 @@ class GlobalLineTriangulator:
         K = self._slot_count(nbr_rows)
         meta = self._device(self._meta(nbr_rows, rows, K))
         cfg, L = self.cfg, self.L
-        counts = tri_propose.count_exhaustive(
-            cfg, L, K, self._l2d_packed, self._cam_packed, meta, self.ranges)
+        # what depends on one line or image, once for both passes
+        tables = tri_propose.exhaustive_tables(L, self._l2d_packed,
+                                               self._cam_packed)
+        slot_counts = tri_propose.count_exhaustive(
+            cfg, L, K, self._l2d_packed, self._cam_packed, meta, self.ranges,
+            per_slot=True, tables=tables)
+        counts = tri_propose.slot_offsets(slot_counts)[1]
         max_count = int(counts.max())
         W = tri_propose.bucket_width(max_count)
         outs = []
@@ -411,7 +417,8 @@ class GlobalLineTriangulator:
             m = meta[g0:g1]
             words, tri, ok = tri_propose.propose_exhaustive(
                 cfg, L, K, self._l2d_packed, self._cam_packed, m, W,
-                self.ranges)
+                self.ranges, slot_counts=slot_counts[g0 * L:g1 * L],
+                tables=tables)
             floats, ints = tri_score.score(
                 cfg, L, K, self._l2d_packed, self._cam_packed,
                 words.reshape(g1 - g0, L, W), m, tri, ok)

@@ -256,6 +256,50 @@ def test_triangulator_kernels_refuse_what_they_cannot_take(cuda):
             2)
 
 
+SCAN_CASES = ["6x120, 0.3 px", "4x40, endpoints", "4x40, ranges",
+              "5x36, slots of -1"]
+
+
+@pytest.fixture(scope="module")
+def scan_results():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return dict(tri_checks.check_all_scan("cuda"))
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_exhaustive_passes_equal_the_first_design_bit_for_bit(scan_results,
+                                                              case):
+    """F's tiled count and write (with the count's slot counts and
+    without) give the first design's counts, words, rows and ok bit for
+    bit."""
+    res = scan_results[case]
+    assert res["bit_equal"], res
+    if case.endswith("-1"):
+        assert res["empty_slots"] > 0
+
+
+def test_exhaustive_scan_counts_its_own_launches(cuda):
+    from limap_tpu_torch.ops import tri_propose
+    tri, matches = tri_checks.seeded_inputs(n_views=3, n_lines=20)
+    n_f = tri_propose.propose.launches
+    n_s = tri_propose.propose_exhaustive_scan.launches
+    n_t = tri_propose.exhaustive_tables.launches
+    tri.triangulate_all_exhaustive({i: sorted(m) for i, m in
+                                    matches.items()})
+    # one table launch for the count and the write
+    assert tri_propose.propose.launches == n_f + 2
+    assert tri_propose.exhaustive_tables.launches == n_t + 1
+    assert tri_propose.propose_exhaustive_scan.launches == n_s
+    case, args = next(tri_checks.scan_cases("cuda"))
+    tri_checks.compare_to_scan(*args)
+    # the scan's count and write; the tiled count, and two writes of which
+    # one counts first and builds its own tables
+    assert tri_propose.propose_exhaustive_scan.launches == n_s + 2
+    assert tri_propose.propose.launches == n_f + 6
+    assert tri_propose.exhaustive_tables.launches == n_t + 3
+
+
 def test_lm_kernels_vs_plain_seeded(cuda):
     """H and I against plain, every row, on the seeded cases: 3 losses
     of the line BA, every cost function, weight and loss of the pose
@@ -606,6 +650,59 @@ def test_hybrid_ba_step_runs_on_the_kernels(cuda):
                 assert moved[f"{kind}, apply"] > 0
         assert O.hybrid_apply.launches - n0[1] == sum(
             v for k, v in moved.items() if "," in k)
+
+
+def test_hybrid_terms_with_its_index_and_the_yardstick(cuda):
+    """O given the step's prebuilt index gives the bits of O that builds
+    its own; the first design's stage 2 (the yardstick) holds to plain
+    and counts its launches apart."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    from limap_tpu_torch.parallel import HybridBAOptions
+    from limap_tpu_torch.testing import hybrid_checks as HC
+    state, ld, pd, I, C = HC.seeded_problem(seed=7, device="cuda")
+    for opts in (HybridBAOptions(optimize_focal=True),
+                 HybridBAOptions(solver="cg")):
+        dense = opts.solver != "cg"
+        lam = torch.tensor(opts.damping, device="cuda")
+        for kind, data in (("line", ld), ("point", pd)):
+            land = state.line_params if kind == "line" \
+                else state.point_params
+            args = (kind, land, state.pose_params, state.cam_fxfy,
+                    *data[:3], tuple(data[3:-1]), data[-1], opts, lam, I, C,
+                    dense)
+            ix = O.build_index(data[2], data[1], data[-1], I, C,
+                               opts.optimize_focal, dense)
+            a = HC.weighted_only(O.hybrid_terms(*args, index=ix))
+            b = HC.weighted_only(O.hybrid_terms(*args))
+            for name in ("g", "diag0", "Hinv", "H_cl", "A", "g_red"):
+                assert torch.equal(getattr(a, name), getattr(b, name)), name
+            assert (a.Hp is None) == (not dense)
+            if dense:
+                assert torch.equal(a.Hp, b.Hp)
+            n0, s0 = O.hybrid_terms.launches, O.hybrid_terms_scan.launches
+            res, _ = HC.check_terms(kind, state, data, opts, opts.damping,
+                                    I, C, dense, O.hybrid_terms_scan)
+            assert res["ok"], (kind, res)
+            assert O.hybrid_terms_scan.launches == s0 + 2
+            assert O.hybrid_terms.launches == n0
+            scan = O.hybrid_terms_scan(*args, index=ix)
+            # without an index the yardstick builds the grouping alone, as
+            # its path did on every call, and gives the same bits
+            lone = O.hybrid_terms_scan(*args)
+            assert lone.index.pair_s.numel() == 0
+            given = O.hybrid_terms_scan(*args, index=O.grouping_index(
+                data[2], data[1], data[-1], I, C, opts.optimize_focal,
+                dense))
+            for name in ("g", "diag0") + (("Hp",) if dense else ()):
+                assert torch.equal(getattr(lone, name),
+                                   getattr(scan, name)), name
+                assert torch.equal(getattr(given, name),
+                                   getattr(scan, name)), name
+            if not dense:
+                # a group's (s, s) pairs are one share: g and diag0 add up
+                # as the first design's, bit for bit
+                assert torch.equal(a.g, scan.g)
+                assert torch.equal(a.diag0, scan.diag0)
 
 
 def test_hybrid_ba_kernels_count_only_launches(cuda):

@@ -20,7 +20,8 @@ def test_ranks_end_every_step_with_the_same_state(runs):
     C.check_ranks_agree(runs[0])
 
 
-@pytest.mark.parametrize("solver", list(C.SOLVERS) + [C.GAUGE_SOLVER])
+@pytest.mark.parametrize("solver", list(C.SOLVERS) + [C.GAUGE_SOLVER,
+                                                     C.SHARES_SOLVER])
 def test_trajectory_matches_one_process_in_float64(runs, solver):
     C.check_trajectory_float64(runs[0], runs[1], solver)
 

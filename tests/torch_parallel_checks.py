@@ -16,7 +16,16 @@ The problem fixes pose 0 only, so the global scale is a gauge direction
 that the damping alone holds.  GAUGE_RUN is CG in float64 on the same
 problem with poses 0 and 1 fixed at their ground truth (phase 14's
 ``n_fixed_poses=2``): a 0.5 m baseline against scenes at 8 m, so the
-scale is fixed but weakly, the near-gauge direction of phase 14's CG."""
+scale is fixed but weakly, the near-gauge direction of phase 14's CG.
+
+SHARES_RUN is GAUGE_RUN with each rank's g and diag0 summed as kernel
+O's stage 2 adds them on the card, a group's supports cut into shares of
+SHARE_REPLAY, each share summed and then the shares in order
+(``limap_tpu_torch/testing/hybrid_checks.py::summed_in_shares``), held to
+the one-process run in float64 as GAUGE_RUN is.  In float32 such an order
+alone moves the two-rank CG lines by millimetres along the near-gauge
+direction; in float64 it must not, so a gap here is a fault of the order
+(a support dropped or added twice), not rounding."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -34,6 +43,9 @@ SOLVERS = {"dense": {"solver": "dense"}, "cg": {"solver": "cg"}}
 GAUGE_SOLVER = "cg two fixed poses"
 GAUGE_RUN = (f"{GAUGE_SOLVER} f64", {"solver": "cg", "n_fixed_poses": 2},
              STEPS)
+SHARES_SOLVER = f"{GAUGE_SOLVER} in shares"
+SHARES_RUN = (f"{SHARES_SOLVER} f64", GAUGE_RUN[1], STEPS)
+SHARE_REPLAY = 3          # supports a share: several shares a group here
 COST_RTOL, COST_ATOL_SHARE, POSE_TOL, LINE_TOL = 5e-3, 1e-5, 1e-4, 1e-3
 
 
@@ -73,7 +85,9 @@ def run_all(d):
 
     ranks = multirank.start(multirank.jobs, d, ([
         (multirank.ba_steps, (problem_of(name), [(name, kw, n)]))
-        for name, kw, n in all_runs()],))
+        for name, kw, n in all_runs()] + [
+        (multirank.ba_steps_in_shares, (problems[GAUGE_RUN[0]],
+                                        [SHARES_RUN], SHARE_REPLAY))],))
     one = {}
     for name, kw, n in all_runs():
         one.update(multirank.ba_steps(0, 1, problem_of(name),
@@ -101,7 +115,7 @@ def run_all(d):
 
 def check_ranks_agree(merged):
     """Every rank ends every step with the same state, bit for bit."""
-    for name, _, _ in all_runs():
+    for name, _, _ in all_runs() + [SHARES_RUN]:
         ref = merged[0][name]
         for r in merged[1:]:
             assert r[name]["costs"] == ref["costs"], name
@@ -112,8 +126,11 @@ def check_ranks_agree(merged):
 
 
 def check_trajectory_float64(merged, one, solver):
+    """The d-rank run of ``solver`` against the one-process run in
+    float64 (SHARES_SOLVER's against GAUGE_RUN's)."""
     name = f"{solver} f64"
-    got, ref = merged[0][name], one[name]
+    got = merged[0][name]
+    ref = one[GAUGE_RUN[0] if solver == SHARES_SOLVER else name]
     c1, cd = np.asarray(ref["costs"]), np.asarray(got["costs"])
     assert np.allclose(cd, c1, rtol=COST_RTOL, atol=COST_ATOL_SHARE * c1[0])
     (l1, _, q1, _), (ld_, _, qd, _) = ref["states"][-1], got["states"][-1]
@@ -178,8 +195,9 @@ def report(d=2):
         JAX_PLATFORMS=cpu python -m tests.torch_parallel_checks
     """
     merged, one, _, _ = run_all(d)
-    for name, _, _ in all_runs():
-        (l1, p1, q1, _), (ld, pd, qd, _) = (one[name]["states"][-1],
+    for name, _, _ in all_runs() + [SHARES_RUN]:
+        ref = one[GAUGE_RUN[0] if name == SHARES_RUN[0] else name]
+        (l1, p1, q1, _), (ld, pd, qd, _) = (ref["states"][-1],
                                             merged[0][name]["states"][-1])
         print(f"{name}: {d} ranks against one process: poses "
               f"{np.abs(qd - q1).max():.3e}, lines {np.abs(ld - l1).max():.3e}"
