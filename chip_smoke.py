@@ -118,7 +118,13 @@ Phases, in order; any failure exits non-zero:
      timed in turns with its first design (hybrid_terms_scan, the
      yardstick, never on the path, its assembly held to float64 too) as
      that design's path ran it, the supports' grouping built every call,
-     and once with the grouping prebuilt; then the CLIs in process:
+     and once with the grouping prebuilt; P's back-substitution and CG's
+     product of both kinds in one launch (hybrid_apply_both, prepared
+     once a solve as the path calls it) held bit for bit to P's first
+     design (hybrid_apply_scan, the yardstick, never on the path), split
+     into its parts (the launch, stage 1, the barrier, stage 2; the
+     wrapper's host time) and timed in turns with it, on the refine
+     path's and the GT-pose map's first steps; then the CLIs in process:
      visualsfm_triangulation (the GT model converted by convert_model)
      and bundler_triangulation (a Bundler model) against the direct call
      (cameras read back within 1e-6, the phase-7 gates), and, right after
@@ -143,9 +149,16 @@ Phases, in order; any failure exits non-zero:
      descriptors on S), then SOLD2's detector on heatmaps rendered from
      the GT lines' projections into 4 views, its recall gated against
      the JAX package's; then R, S, T and U held to their plain versions
-     on those inputs and timed in turns.  Phase 15a, after phase 6, holds
+     on those inputs and timed in turns; R (the coupling in shared
+     memory in row bands, a CTA an SM, its plan printed) also bit for
+     bit on a repeat, split into its parts, and timed in turns with its
+     first design (log_sinkhorn_scan, the yardstick, never on the path);
+     R's launches on the Sinkhorn runner, the localization and GlueStick
+     (phase 16) printed by shape.  Phase 15a, after phase 6, holds
      R, S, T and U to their plain versions on seeded inputs (ragged
-     Sinkhorn problems, points at the border, ties at detect_thresh,
+     Sinkhorn problems, R's band cases: rows past shared memory, v past
+     it, -inf rows, columns and bands, M = 0, N = 0; points at the
+     border, ties at detect_thresh,
      integer junctions) and SuperPoint (120 x 160), SuperGlue (64 x 80
      keypoints) and SOLD2 (128 x 128: forward, junctions, T and U on the
      CPU's junctions, line descriptors, Wunsch matches) card to CPU.
@@ -159,8 +172,9 @@ Phases, in order; any failure exits non-zero:
      gated on tracks and precision or matches against the JAX package's
      runs; L2D2 (patches on kernel Y), LineTR and GlueStick (OT on
      kernel R) against a shuffled copy of a view's lines (every match
-     the copy), then each in the runner on 4 views, CPU and card on the
-     CPU's segments; S2DNet's features at 600 x 800 and phase 12a's
+     the copy), then each in the runner on 4 views (GlueStick with each
+     view's nearest neighbour alone), CPU and card on the CPU's
+     segments; S2DNet's features at 600 x 800 and phase 12a's
      façade refined with them, card against CPU; the dense runner again
      with W's first design (ncc_argmax_rowscan, a launch a direction) in
      W's place and then with W; then V, W, X and Y held to their plain
@@ -189,7 +203,8 @@ Phases, in order; any failure exits non-zero:
 Phase 2 also holds kernels O, P and Q to their plain versions on seeded
 inputs (lines and points, optimize_focal on and off, each constancy flag,
 ragged slots of weight 0, one track, one support), O's matrix within
-its float64 recomputation and the same bits on a repeat.
+its float64 recomputation and the same bits on a repeat, and P (each
+kind, and both kinds in one launch) bit for bit to its first design.
 Phase 2 also holds kernel N (mesh_min_dist) bit for bit to its plain
 version on seeded inputs (degenerate triangles, points in each of a
 triangle's seven regions, ragged sizes), its counts to the cull's replay
@@ -233,6 +248,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -809,6 +825,20 @@ def from_pixels_full_width(card, workdir):
 OPS_POINT, OPS_LINE, OPS_G, OPS_PAIR = 47, 124, 280, 46
 
 
+def sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+# the card's SMs and highest SM clock (set by main), for kernel R's bound:
+# its exps at 16 a clock an SM
+SMS, SM_CLOCK_HZ = 0, 0.0
+
+
 def bound(ops, nbytes):
     seconds = {"operations": ops / FP32_PEAK, "bytes": nbytes / HBM_BYTES_PER_S}
     by = max(seconds, key=seconds.get)
@@ -918,6 +948,41 @@ class Recorder:
 
     def restore(self):
         setattr(self.module, self.name, self.orig)
+
+
+class ShapeCounter:
+    """Wraps ``module.name`` (a call of kernel R) to count its calls on
+    the card by the coupling's shape and iterations."""
+
+    def __init__(self, module, name, counts):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            if args[0].is_cuda:
+                M, N = args[0].shape
+                iters = args[2] if len(args) > 2 else kwargs.get("iters", 50)
+                counts[(M, N, iters)] += 1
+            return self.orig(*args, **kwargs)
+
+        setattr(module, name, wrapper)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def log_r_shapes(what, counts):
+    """Kernel R's launches on a path by shape, with each shape's CTAs and
+    rows a band."""
+    from limap_tpu_torch.ops import log_sinkhorn as R
+    rows = []
+    for (M, N, iters), n in sorted(counts.items()):
+        plan = R.plan(M, N)
+        rows.append({"coupling": f"{M + 1}x{N + 1}", "iters": iters,
+                     "launches": n, "ctas": plan["ctas"],
+                     "rows_a_band": plan["rows_a_band"]})
+    log(f"[kernel] log_sinkhorn on {what}: {sum(counts.values())} launches; "
+        f"by shape {json.dumps(rows)}")
 
 
 def localization_full_width(scene, tracks, workdir, card):
@@ -2684,6 +2749,10 @@ def hybrid_seeded_cases():
     n1 = (O.hybrid_terms.launches, O.hybrid_apply.launches,
           O.hybrid_cost.launches)
     check(all(b > a for a, b in zip(n0, n1)), ("O, P, Q launches", n0, n1))
+    for case, res in hybrid_checks.check_all_scan():
+        log(f"[kernel] hybrid_apply and hybrid_apply_both vs the first "
+            f"design (hybrid_apply_scan), case {case}: {json.dumps(res)}")
+        check(res["ok"], ("P vs its first design", case, res))
     log(f"[kernel] hybrid_terms, hybrid_apply, hybrid_cost seeded cases "
         f"took {time.perf_counter() - t0:.1f} s")
 
@@ -2836,34 +2905,37 @@ def refine_full_width(workdir, card):
 
 
 def hybrid_launches():
-    """O's and P's launches by kind and mode, Q's in all, and O's first
-    design's (the yardstick), since the last ``reset_counts``."""
+    """O's and P's launches by kind and mode, Q's in all, and O's and P's
+    first designs' (the yardsticks), since the last ``reset_counts``."""
     from limap_tpu_torch.ops import hybrid_ba as O
     return {"hybrid_terms": dict(O.hybrid_terms.counts),
             "hybrid_apply": dict(O.hybrid_apply.counts),
             "hybrid_cost": O.hybrid_cost.launches,
-            "hybrid_terms_scan": O.hybrid_terms_scan.launches}
+            "hybrid_terms_scan": O.hybrid_terms_scan.launches,
+            "hybrid_apply_scan": O.hybrid_apply_scan.launches}
 
 
 
 
 def check_hybrid_launches(what, launches, product):
-    """Every kind went through O and P's back-substitution (with
-    ``product`` also P's product: the CG runs), and Q ran."""
-    modes = ["backsub"] + (["apply"] if product else [])
+    """Every kind went through O and P's back-substitution, and Q ran;
+    with ``product`` (the CG runs) CG's product took both kinds in one
+    launch of P, never one kind alone; no yardstick ran."""
     for kind in ("line", "point"):
         check(launches["hybrid_terms"].get(kind, 0) > 0,
               f"{what} did not launch hybrid_terms on the {kind}s")
-        for mode in modes:
-            check(launches["hybrid_apply"].get(f"{kind}, {mode}", 0) > 0,
-                  f"{what} did not launch hybrid_apply ({mode}) on the "
-                  f"{kind}s")
+        check(launches["hybrid_apply"].get(f"{kind}, backsub", 0) > 0,
+              f"{what} did not launch hybrid_apply (backsub) on the "
+              f"{kind}s")
+        check(launches["hybrid_apply"].get(f"{kind}, apply", 0) == 0,
+              f"{what} launched CG's product on the {kind}s alone")
+    both = launches["hybrid_apply"].get("line+point, apply", 0)
+    check(both > 0 if product else both == 0,
+          f"{what}: CG's product of both kinds launched {both} times")
     check(launches["hybrid_cost"] > 0, f"{what} did not launch hybrid_cost")
-    check(launches["hybrid_terms_scan"] == 0,
-          f"{what} launched the yardstick hybrid_terms_scan")
-    if not product:
-        check(not any(k.endswith("apply") for k in launches["hybrid_apply"]),
-              f"{what} launched CG's product on the dense path")
+    check(launches["hybrid_terms_scan"] == 0
+          and launches["hybrid_apply_scan"] == 0,
+          f"{what} launched a yardstick")
 
 
 def hold_cg_to_dense(what, cg, cg_s, dense_cols, dense_costs, summ, gt):
@@ -2898,7 +2970,8 @@ def refine_gt_map(scene, card):
     on the GT poses, they start near their best), the tracks and the
     costs are gated against the port's CPU run (REFERENCE_REFINE_GT_MAP);
     CG is held to the dense run.
-    Returns the map, O's first line call and the run's launches."""
+    Returns the map, O's first call of each kind and the run's
+    launches."""
     from limap_tpu_torch.ops import hybrid_ba as O
     from limap_tpu_torch.testing import refine
     direct = refine.gt_line_map(
@@ -2934,24 +3007,27 @@ def refine_gt_map(scene, card):
          if k.endswith("apply")})
     hold_cg_to_dense("refine gt-map", cg, cg_s, out[0], out[3], summ,
                      refine.imagecols_gt_read(scene))
-    return direct, rec.calls["line"], launches
+    return direct, rec.calls, launches
 
 
-def measure_hybrid(recorded, launches, gt_line_call=None, gt_launches=None):
+def measure_hybrid(recorded, launches, gt_calls=None, gt_launches=None):
     """O, P and Q on the BA's first step of phase 14: held to their plain
     versions (testing/hybrid_checks.py), timed in turns (plain, kernel,
-    kernel, plain) beside their bounds; with ``gt_line_call`` also O and P
-    on the first step of the GT-pose line map's BA (``gt_launches`` its
-    run's launches); and the dense solve's torch.linalg.solve on the
-    path's reduced system.  A product's launches are its CG run's."""
+    kernel, plain) beside their bounds; with ``gt_calls`` (O's first call
+    of each kind) also O and P on the first step of the GT-pose line map's
+    BA (``gt_launches`` its run's launches); and the dense solve's
+    torch.linalg.solve on the path's reduced system.  P's back-
+    substitution and CG's product of both kinds are held to P's first
+    design bit for bit and timed in turns with it; the product's launches
+    are its CG run's."""
     from limap_tpu_torch.ops import hybrid_ba as O
     from limap_tpu_torch.testing import hybrid_checks as HC
     entries, errs = [], {}
     terms = {}
     calls = dict(recorded["terms"])
     runs = {label: launches for label in calls}
-    if gt_line_call is not None:
-        calls["line, GT-pose map"] = gt_line_call
+    if gt_calls is not None:
+        calls["line, GT-pose map"] = gt_calls["line"]
         runs["line, GT-pose map"] = gt_launches
     for label, (args, kwargs) in calls.items():
         kind = args[0]
@@ -3027,27 +3103,20 @@ def measure_hybrid(recorded, launches, gt_line_call=None, gt_launches=None):
             grouping_prebuilt_ms=yard["scan, grouping prebuilt"][0],
             role="yardstick: O's first design, its supports' grouping "
                  "built every call as its path did")]
-    # P: the product and the back-substitution on O's terms
-    for label, (args, k) in terms.items():
-        kind = args[0]
-        L = O.LAND[kind]
-        gen = torch.Generator().manual_seed(1)
-        v = torch.randn(D, generator=gen).to("cuda")
-        for backsub in (False, True):
-            ops, nbytes = HC.apply_work(k.weight, k.img, k.cam, L, Dc, D,
-                                        backsub)
-            bms, by = bound(ops, nbytes)
-            name = "backsub" if backsub else "apply"
-            shape = {"kind": label, "backsub": backsub, "operations": ops,
-                     "bytes": nbytes, "library": "none",
-                     "launches_from": "the dense run" if backsub
-                     else "the CG run"}
-            entries.append(timed_entry(
-                f"hybrid_apply ({label}, {name})", "refine", O_SOURCE,
-                P_REPLACES, runs[label]["hybrid_apply"][f"{kind}, {name}"],
-                O.hybrid_apply,
-                O.hybrid_apply_plain, (k, v, backsub), {},
-                errs[label][name][0], bms, by, shape, (20, 5)))
+    # P: each kind's back-substitution, and CG's product of both kinds in
+    # one launch (prepared once a solve, as the path calls it), on each
+    # system's first-step terms
+    systems = {"refine": (terms["line"][1], terms["point"][1], launches)}
+    if gt_calls is not None:
+        (pargs, pkw) = gt_calls["point"]
+        systems["GT-pose map"] = (terms["line, GT-pose map"][1],
+                                  HC.weighted_only(O.hybrid_terms(*pargs,
+                                                                  **pkw)),
+                                  gt_launches)
+    for system, (tl, tp, run) in systems.items():
+        entries += measure_apply(system, tl, tp, run, D, Dc,
+                                 errs if system == "refine" else {
+                                     "line": errs["line, GT-pose map"]})
     # Q
     (cargs, _) = recorded["cost"]
     state, ld, pd, opts_c = cargs
@@ -3076,6 +3145,113 @@ def measure_hybrid(recorded, launches, gt_line_call=None, gt_launches=None):
         f"system: {solve_ms:.4f} ms")
     for e in entries:
         e["dense_solve_ms"] = solve_ms
+    return entries
+
+
+YARD_TURNS = ("scan", "kernel", "kernel", "scan")
+
+
+def yard_entries(name, yard_name, path, source, replaces, launches, kernel,
+                 scan, plain, err, scan_err, bound_ms, bound_by, shape, reps,
+                 role):
+    """A kernel's entry of the kernels line and its first design's (the
+    yardstick, no launches on the path): the two timed in turns
+    (YARD_TURNS, ``reps`` runs a turn, CUDA events), the plain version
+    once on the same input."""
+    times = {"kernel": [], "scan": []}
+    for which in YARD_TURNS:
+        times[which].append(cuda_ms(kernel if which == "kernel" else scan,
+                                    reps))
+    plain_ms = cuda_ms(plain, 1)
+    log(f"[kernel] {path} {name} {json.dumps(shape)}: max abs err to plain "
+        f"{err:.3e} (first design {scan_err:.3e}); ms in turns "
+        f"{list(YARD_TURNS)}: {json.dumps(times)}; plain {plain_ms:.4f}; "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
+    entry = {"name": name, "path": path, "route": "cuda",
+             "source": "limap_tpu_torch/csrc/" + source, "replaces": replaces,
+             "launches": launches, "max_abs_err": err,
+             "ms": float(np.mean(times["kernel"])),
+             "ms_turns": times["kernel"], "plain_ms": plain_ms,
+             "plain_ms_turns": [plain_ms], "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None, **shape}
+    return [entry, dict(entry, name=yard_name, launches=0,
+                        max_abs_err=scan_err,
+                        ms=float(np.mean(times["scan"])),
+                        ms_turns=times["scan"], role=role)]
+
+
+def measure_apply(system, tl, tp, run, D, Dc, errs):
+    """P on one system's first-step terms (``tl``, ``tp``): each kind's
+    back-substitution and CG's product of both kinds, held to the first
+    design bit for bit and to plain, split into its parts, and timed in
+    turns with the first design; ``run`` the launches of the system's
+    runs, ``errs`` check_terms' results by kind (the back-substitution's
+    error to plain)."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    from limap_tpu_torch.testing import hybrid_checks as HC
+    gen = torch.Generator().manual_seed(1)
+    v = torch.randn(D, generator=gen).to("cuda")
+    res = HC.check_apply_scan(tl, tp, v)
+    log(f"[kernel] refine hybrid_apply, {system}: bit for bit against the "
+        f"first design (hybrid_apply_scan): {json.dumps(res)}")
+    check(res["ok"], ("P vs its first design", system, res))
+    split = {"points": HC.apply_split((tp,), v),
+             "lines": HC.apply_split((tl,), v),
+             "both": HC.apply_split((tl, tp), v),
+             "points, first design": HC.apply_split((tp,), v, scan=True),
+             "lines, first design": HC.apply_split((tl,), v, scan=True)}
+    log(f"[kernel] refine hybrid_apply, {system}: time split (ms, device "
+        f"time queued behind a sleep; the wrapper's host time a call): "
+        f"{json.dumps(split)}")
+    entries = []
+    work = {k.kind: HC.apply_work(k.weight, k.img, k.cam, O.LAND[k.kind],
+                                  Dc, D, False) for k in (tl, tp)}
+    for k in (tl, tp):
+        if k.kind not in errs:
+            continue
+        ops, nbytes = HC.apply_work(k.weight, k.img, k.cam, O.LAND[k.kind],
+                                    Dc, D, True)
+        bms, by = bound(ops, nbytes)
+        label = k.kind if system == "refine" else f"{k.kind}, {system}"
+        entries += yard_entries(
+            f"hybrid_apply ({label}, backsub)",
+            f"hybrid_apply_scan ({label}, backsub)", "refine", O_SOURCE,
+            P_REPLACES, run["hybrid_apply"].get(f"{k.kind}, backsub", 0),
+            lambda k=k: O.hybrid_apply(k, v, True),
+            lambda k=k: O.hybrid_apply_scan(k, v, True),
+            lambda k=k: O.hybrid_apply_plain(k, v, True),
+            errs[k.kind]["backsub"][0], errs[k.kind]["backsub"][0], bms, by,
+            {"kind": label, "backsub": True, "operations": ops,
+             "bytes": nbytes, "bit_equal_to_first_design": True,
+             "launches_from": "the dense run", "library": "none"}, 20,
+            "yardstick: P's first design")
+    # one product over both kinds: v read once and the output written once
+    ops = work["line"][0] + work["point"][0]
+    nbytes = work["line"][1] + work["point"][1] - 8 * D
+    bms, by = bound(ops, nbytes)
+    product = O.product_fn(tl, tp, "cuda")
+    both = product(v)
+    # against the plain product in float64 on the same terms, as
+    # check_terms holds each kind's
+    ref = O.hybrid_apply_both_plain(HC._to64(tl), HC._to64(tp), v.double())
+    err = float((both.double() - ref).abs().max())
+    entries += yard_entries(
+        f"hybrid_apply_both ({system}, CG's product)",
+        f"hybrid_apply_scan ({system}, CG's product: a launch a kind)",
+        "refine", O_SOURCE, P_REPLACES,
+        run["hybrid_apply"].get("line+point, apply", 0),
+        lambda: product(v),
+        lambda: O.hybrid_apply_scan(tl, v) + O.hybrid_apply_scan(tp, v),
+        lambda: O.hybrid_apply_both_plain(tl, tp, v), err, err, bms, by,
+        {"kind": system, "line_tracks": int(tl.img.shape[0]),
+         "point_tracks": int(tp.img.shape[0]),
+         "weighted": int((tl.weight > 0).sum() + (tp.weight > 0).sum()),
+         "operations": ops, "bytes": nbytes, "split_ms": split,
+         "bit_equal_to_first_design": True, "launches_from": "the CG run",
+         "max_abs_err_against": "the plain product in float64",
+         "product_max_abs": float(ref.abs().max()), "library": "none"}, 20,
+        "yardstick: P's first design, one launch a kind "
+        "and the sum in torch")
     return entries
 
 
@@ -3646,14 +3822,18 @@ def sinkhorn_runner_full_width(workdir, card):
                                          n_neighbors=len(nbrs[0]))
     rec = Recorder(matching, "_log_sinkhorn",
                    lambda s, *a, **k: s.numel())
+    shapes = Counter()
+    counter = ShapeCounter(matching, "_log_sinkhorn", shapes)
     reset_learned_launches()
     t0 = time.perf_counter()
     try:
         tracks = line_triangulation(cfg, imagecols, nbrs, device="cuda")
     finally:
+        counter.restore()
         rec.restore()
     wall = time.perf_counter() - t0
     launches = learned_launches()
+    log_r_shapes("the Sinkhorn runner", shapes)
     out = cfg["dir_save"]
     with open(os.path.join(out, "metrics.json")) as f:
         stages = json.load(f)["stages_s"]
@@ -3705,14 +3885,26 @@ def learned_localization(scene, tracks, q, ckpt, workdir, card):
         "2d_matcher": "superglue_endpoints",
         "matcher_options": {"superglue_weight_path": ckpt["superglue"],
                             "topk": 0}})
+    from limap_tpu_torch.point2d import matching
+    from limap_tpu_torch.point2d import superglue as sgm
     reset_learned_launches()
     prof, stats = StageProfiler(device="cuda"), {}
+    shapes = Counter()
+    counters = [ShapeCounter(matching, "_log_sinkhorn", shapes),
+                ShapeCounter(sgm, "log_sinkhorn", shapes)]
     t0 = time.perf_counter()
-    poses = runner.hybrid_localization(
-        cfg, scene[0], q["imagecols"], q["points"], tracks, q["retrieval"],
-        device="cuda", prof=prof, stats=stats)
+    try:
+        poses = runner.hybrid_localization(
+            cfg, scene[0], q["imagecols"], q["points"], tracks,
+            q["retrieval"], device="cuda", prof=prof, stats=stats)
+    finally:
+        for c in counters[::-1]:
+            c.restore()
     wall = time.perf_counter() - t0
     launches = learned_launches()
+    log_r_shapes("the superglue_endpoints localization", shapes)
+    check(sum(shapes.values()) == launches["log_sinkhorn"],
+          ("R's launches by shape", dict(shapes), launches))
     errors = localization.pose_errors(poses, q["gt"])
     log(f"[learned localize] superglue_endpoints: {len(poses)} queries in "
         f"{wall:.3f} s; stage seconds {json.dumps(prof.times)} on {card}; "
@@ -3915,16 +4107,32 @@ def measure_learned(items):
             scores, b, iters = args
             M, N = scores.shape
             zp = R.log_sinkhorn_plain(scores, b, iters)
-            err = float((R.log_sinkhorn(scores, b, iters) - zp).abs().max())
-            check(err <= learned_checks.SINKHORN_ATOL
-                  + learned_checks.SINKHORN_RTOL * float(zp.abs().max()),
-                  ("R vs plain on the path's input", path, err))
-            ops, nbytes = R.work(M, N, iters)
-            entries.append(timed_entry(
-                name, path, R_SOURCE, R_REPLACES, launches, R.log_sinkhorn,
-                R.log_sinkhorn_plain, args, {}, err, *bound(ops, nbytes),
+            z1, z2 = (R.log_sinkhorn(scores, b, iters) for _ in range(2))
+            err, tol, same = learned_checks.compare_z(z1, zp)
+            scan_err, _, _ = learned_checks.compare_z(
+                R.log_sinkhorn_scan(scores, b, iters), zp)
+            check(err <= tol and same and torch.equal(z1, z2),
+                  ("R vs plain on the path's input, and on a repeat", path,
+                   err, tol))
+            plan = R.plan(M, N)
+            split = learned_checks.sinkhorn_split(scores, b, iters)
+            log(f"[kernel] {path} log_sinkhorn {M + 1} x {N + 1}, {iters} "
+                f"iterations: plan {json.dumps(plan)}; time split (ms) "
+                f"{json.dumps(split)}")
+            ops, nbytes, exps = R.work(M, N, iters)
+            ops_ms, by = bound(ops, nbytes)
+            exp_ms = R.exp_ms(exps, SMS, SM_CLOCK_HZ)
+            entries += yard_entries(
+                name, "log_sinkhorn_scan", path, R_SOURCE, R_REPLACES,
+                launches, lambda: R.log_sinkhorn(*args),
+                lambda: R.log_sinkhorn_scan(*args),
+                lambda: R.log_sinkhorn_plain(*args), err, scan_err,
+                max(ops_ms, exp_ms), by if ops_ms >= exp_ms else "operations",
                 {"M": M, "N": N, "iters": iters, "operations": ops,
-                 "bytes": nbytes, "library": "none"}, (5, 1)))
+                 "bytes": nbytes, "exps": exps, "bound_fp32_ms": ops_ms,
+                 "bound_exp_ms": exp_ms, "plan": plan, "split_ms": split,
+                 "repeats": True, "library": "none"}, 5,
+                "yardstick: R's first design")
         elif name == "sample_descriptors":
             grid, pts, mode, scale = args
             plain = (S.sample_clamp_plain if mode == "clamp"
@@ -4283,8 +4491,9 @@ def zoo_descriptors_full_width(scene, ckpt, workdir, card, dev="cuda",
     """Phase 16's learned descriptors (random weights): L2D2, LineTR and
     GlueStick on view 0 at 600 x 800 against a shuffled copy of its lines
     on the card (every match must be the copy); then each in the runner
-    on the first views, on the CPU and on the card with the CPU's
-    segments (matches equal up to a near tie).  Returns Y's largest
+    on the first views (GlueStick's with each view's nearest neighbour
+    alone), on the CPU and on the card with the CPU's segments (matches
+    equal up to a near tie).  Returns Y's largest
     input on the path."""
     from limap_tpu_torch.line2d import get_extractor, get_matcher
     from limap_tpu_torch.line2d import l2d2 as l2d2_mod
@@ -4328,10 +4537,14 @@ def zoo_descriptors_full_width(scene, ckpt, workdir, card, dev="cuda",
     imagecols, imgs, nbrs, _ = pipeline.build_scene(
         n_views, image_dir=os.path.join(workdir, "images"))
     for method in ("l2d2", "linetr", "gluestick"):
+        # GlueStick's GNN on the CPU is the slowest match by far: its
+        # runner takes each view's nearest neighbour alone
+        mnbrs = ({i: n[:1] for i, n in nbrs.items()}
+                 if method == "gluestick" else nbrs)
         matches = {}
         for d in ("cpu", dev):
             out = os.path.join(workdir, f"{method}_{d}")
-            cfg = pipeline.runner_config(out, n_neighbors=len(nbrs[0]))
+            cfg = pipeline.runner_config(out, n_neighbors=len(mnbrs[0]))
             cfg["weight_path"] = ckpt["zoo"]
             cfg["line2d"]["extractor"] = {
                 "method": method, "sp_weight_path": ckpt["superpoint"]}
@@ -4341,16 +4554,16 @@ def zoo_descriptors_full_width(scene, ckpt, workdir, card, dev="cuda",
             if d != "cpu":
                 cfg.update(load_det=True, load_dir=os.path.join(
                     workdir, f"{method}_cpu"))
-            line_triangulation(cfg, imagecols, nbrs, device=d)
+            line_triangulation(cfg, imagecols, mnbrs, device=d)
             mdir = os.path.join(cfg["dir_save"], "line_matchings",
                                 "tpu_lsd", f"feats_{method}",
                                 f"matches_{method}")
             matches[d] = {i: np.load(os.path.join(
                 mdir, f"matches_{i}.npy"), allow_pickle=True).item()
-                for i in nbrs}
+                for i in mnbrs}
         diffs = [match_set_difference(matches[dev][i][j],
                                       matches["cpu"][i][j])
-                 for i in nbrs for j in nbrs[i]]
+                 for i in mnbrs for j in mnbrs[i]]
         n_c = sum(x[1] for x in diffs)
         n_d = sum(x[2] for x in diffs)
         log(f"[zoo runner card-vs-cpu] {method}, {n_views} views: "
@@ -4583,9 +4796,12 @@ def measure_zoo(items):
 def zoo_full_width(scene, ckpt, card):
     """Phase 16: the zoo's paths at full width with V, W, X, Y and R's
     launches counted over them, then the kernels on their inputs."""
+    from limap_tpu_torch.line2d import gluestick
     from limap_tpu_torch.ops import log_sinkhorn as R
     reset_zoo_launches()
     R.log_sinkhorn.launches = 0
+    shapes = Counter()
+    counter = ShapeCounter(gluestick, "log_sinkhorn", shapes)
     t0 = time.perf_counter()
     x_args = zoo_detectors_full_width(scene, ckpt, card)
     log(f"[zoo] the detectors took {time.perf_counter() - t0:.1f} s")
@@ -4606,10 +4822,12 @@ def zoo_full_width(scene, ckpt, card):
         t1 = time.perf_counter()
         s2dnet_full_width(scene, ckpt, os.path.join(workdir, "s2dnet"))
         log(f"[zoo] S2DNet took {time.perf_counter() - t1:.1f} s")
+    counter.restore()
     launches = zoo_launches()
     r_launches = R.log_sinkhorn.launches
     log(f"[zoo] phase 16's paths took {time.perf_counter() - t0:.1f} s; "
         f"launches {json.dumps(launches)}, log_sinkhorn {r_launches}")
+    log_r_shapes("phase 16's paths (GlueStick's OT)", shapes)
     for name, n in launches.items():
         check(n > 0, f"phase 16's paths did not launch {name}")
     check(r_launches > 0, "GlueStick's OT did not launch log_sinkhorn")
@@ -4849,9 +5067,13 @@ def main():
     from limap_tpu_torch.ops import cuda_build
     from limap_tpu_torch.ops import nn_distance as nnd
 
+    global SMS, SM_CLOCK_HZ
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    SMS = torch.cuda.get_device_properties(0).multi_processor_count
+    SM_CLOCK_HZ = sm_clock_hz()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}"
+        f"; {SMS} SMs, highest SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz")
     log("optional packages on this machine: " + ", ".join(
         f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
         for m in ("yaml", "cv2", "PIL")))
@@ -5229,10 +5451,10 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         recorded, hba_launches, refine_scene, refine_out = \
             refine_full_width(workdir, card)
-        direct, gt_line_call, gt_launches = refine_gt_map(refine_scene, card)
-        entries += measure_hybrid(recorded, hba_launches, gt_line_call,
+        direct, gt_calls, gt_launches = refine_gt_map(refine_scene, card)
+        entries += measure_hybrid(recorded, hba_launches, gt_calls,
                                   gt_launches)
-        del recorded, gt_line_call
+        del recorded, gt_calls
         refine_clis(refine_scene, direct, workdir, card)
         ba_inputs = refine_ba_inputs(refine_scene, refine_out)
     log(f"[refine] phase 14 took {time.perf_counter() - t0:.1f} s")

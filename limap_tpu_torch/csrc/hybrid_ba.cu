@@ -45,25 +45,37 @@
 //   is 2 Dc^2 L operations on A[s] and H_cl[u] read from L2; the share
 //   kernel is held by the latency of its two dependent reads a round (the
 //   pairs, then the rows they name), not by that work.
-// P (hybrid_apply_launch) -- CG's product (_matvec, :233-239) and the
-//   back-substitution (backsub, :375-388), one cooperative launch.  Stage
-//   1, a warp a track: y = H_ll^-1 (sum_s H_cl[s]^T v[cols_s] (+ b_l)); the
-//   back-substitution writes -y.  Stage 2 (the product), after a grid-wide
-//   barrier: the sum over a group's supports of H_cc[s] v[cols_s] -
-//   H_cl[s] y_t, cut into SPLIT shares of consecutive supports (a warp a
-//   share), then after another barrier the shares added in order (a warp
-//   a group).
+// P (hybrid_apply_launch) -- CG's product (_matvec, :233-239) of one kind
+//   or of both (lines then points: CG's product is their sum) and the
+//   back-substitution (backsub, :375-388).  Stage 1, a warp a track: y =
+//   H_ll^-1 (sum_s H_cl[s]^T v[cols_s] (+ b_l)); the back-substitution
+//   writes -y and ends there.  For the product each lane then writes, for
+//   its weighted supports, the contribution c_s = H_cc[s] v[cols_s] -
+//   H_cl[s] y_t [Dc] (contrib_track) while H_cl[s] is warm.  After a
+//   grid barrier (one cooperative launch), stage 2 takes a group a
+//   block: warp k sums share k of the group's supports (SPLIT shares of
+//   consecutive supports, each lane its strided supports, then a
+//   butterfly) from the contributions alone,
+//   and the first threads add the shares in order and, for both kinds,
+//   the line sum and the point sum.  The floats added and their order
+//   are those of the first design, so the product is its bits.
+//   Bound: bytes (H_cl and H_cc of each weighted support, read once).
+//   The first design (the yardstick hybrid_apply_scan) had stage 2 read
+//   each support's H_cc, H_cl, v columns and its track's y again,
+//   through a second grid barrier and partials in global memory, and a
+//   launch a kind: two a CG product, against one.
 // Q (hybrid_cost_launch) -- the residuals alone, a warp a track (lines,
 //   then points), each track's sum in lane order and a butterfly, then,
 //   after a grid-wide barrier, the first block adds the tracks in a fixed
 //   order: the same state gives the same cost every time, which the
 //   host's accept/reject test compares.
 //
-// The cooperative kernels (P, Q) take as many blocks as the card holds at
-// once, at most a warp a unit of work (a track, a share of a group), and
-// stride over the units.  The file has seven kernels: O's stage 1, its
-// stage 2 (the shares, the chunks, the blocks), the first design's stage
-// 2 (the yardstick), P and Q.
+// The cooperative kernels (P and its first design, Q) take as many
+// blocks as the card holds at once (queried once a kernel and device),
+// at most a warp a unit of work (a track, a share of a group; P a block
+// a group), and stride over the units.  The file has nine kernels: O's stage 1, its stage 2 (the
+// shares, the chunks, the blocks), the first designs of O's stage 2 and
+// of P (the yardsticks), P and Q.
 //
 // Residuals as the plain versions write them: a line's cosine-weighted
 // perpendicular distances of the 2D endpoints to the projection of the
@@ -767,6 +779,88 @@ LM_FN void apply_share(const Inputs& in, const Index& ix, const Factors& o,
     for (int p = 0; p < 6; ++p) part[((long long)g * SPLIT + k) * 6 + p] = acc[p];
 }
 
+// ------------------------- P, the product's stage 1: a track's y, then
+// each weighted support's contribution to its groups' entries
+// Every lane holds the track's sum after the butterfly, so every lane
+// computes y_t as apply_track's leader does (the same bits) and the
+// leader writes it.  Then each lane, for its own weighted supports,
+// writes c_s[p] = sum_q H_cc[s][p, q] v[col_q] - sum_a H_cl[s][p, a] y_t[a]
+// for every p < Dc: the terms apply_share adds, with its expressions and
+// order (a1 over q, a2 over a), so that stage 2 adds the same floats.
+template <int L, int DC, class Team>
+LM_FN void contrib_track(const Inputs& in, const Factors& o, const float* v,
+                         int t, Team& team, float* y, float* contrib) {
+  float acc[L];
+#pragma unroll
+  for (int a = 0; a < L; ++a) acc[a] = 0.f;
+  for (int s = team.rank(); s < in.S; s += team.size()) {
+    const long long ts = (long long)t * in.S + s;
+    if (!(in.w[ts] > 0.f)) continue;
+    const float* hcl = o.hcl + ts * DC * L;
+#pragma unroll
+    for (int p = 0; p < DC; ++p) {
+      const float vp = v[col_of(in, ts, p)];
+#pragma unroll
+      for (int a = 0; a < L; ++a) acc[a] += hcl[p * L + a] * vp;
+    }
+  }
+  team.sum(acc);
+  float yt[L];
+#pragma unroll
+  for (int a = 0; a < L; ++a) {
+    float x = 0.f;
+#pragma unroll
+    for (int b = 0; b < L; ++b) x += o.hinv[(t * L + a) * L + b] * acc[b];
+    yt[a] = x;
+  }
+  if (team.leader())
+#pragma unroll
+    for (int a = 0; a < L; ++a) y[t * L + a] = yt[a];
+  for (int s = team.rank(); s < in.S; s += team.size()) {
+    const long long ts = (long long)t * in.S + s;
+    if (!(in.w[ts] > 0.f)) continue;
+    const float* hcl = o.hcl + ts * DC * L;
+    const float* hcc = o.hcc + ts * DC * DC;
+    float vc[DC];
+#pragma unroll
+    for (int q = 0; q < DC; ++q) vc[q] = v[col_of(in, ts, q)];
+#pragma unroll
+    for (int p = 0; p < DC; ++p) {
+      float a1 = 0.f, a2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < DC; ++q) a1 += hcc[p * DC + q] * vc[q];
+#pragma unroll
+      for (int a = 0; a < L; ++a) a2 += hcl[p * L + a] * yt[a];
+      contrib[ts * DC + p] = a1 - a2;
+    }
+  }
+}
+
+// ------------------- P, the product's stage 2: share k of group g from
+// the contributions, as apply_share cuts and adds it (the same bounds,
+// lane stride and butterfly), into acc
+template <int DC, class Team>
+LM_FN void contrib_share(const Inputs& in, const Index& ix,
+                         const float* contrib, int g, int k, Team& team,
+                         float (&acc)[6]) {
+  const int rg = group_size(g, in.I), ro = group_off(g, in.I);
+  const int first = ix.grp_ptr[g], n = ix.grp_ptr[g + 1] - first;
+  const int per = (n + SPLIT - 1) / SPLIT;
+  const int lo = first + k * per;
+  const int hi = lo + per < first + n ? lo + per : first + n;
+#pragma unroll
+  for (int p = 0; p < 6; ++p) acc[p] = 0.f;
+  for (int e = lo + team.rank(); e < hi; e += team.size()) {
+    const float* c = contrib + (long long)ix.inc[e] * DC + ro;
+#pragma unroll
+    for (int p = 0; p < 6; ++p) {
+      if (p >= rg) break;
+      acc[p] += c[p];
+    }
+  }
+  team.sum(acc);
+}
+
 // group g's entries of the product: its shares added in order, an entry
 // a lane
 template <class Team>
@@ -912,24 +1006,101 @@ __global__ void __launch_bounds__(32 * WARPS)
   assemble_block<L, DC>(in, ix, o, g, hc, dense, team, Hp, gv, diag0);
 }
 
-// P: stage 1 over the tracks, then (the product) stage 2 over the shares
-// of the groups and, after another barrier, over the groups
+// P's first design (the yardstick hybrid_apply_scan): stage 1 over the
+// tracks, then (the product) stage 2 over the shares of the groups and,
+// after another barrier, over the groups.  stages (to time a part
+// alone): STAGE1 the tracks, BARRIER the two grid barriers, STAGE2 the
+// shares and the groups
+constexpr int STAGE1 = 1, BARRIER = 2, STAGE2 = 4;
+
 template <int L, int DC>
 __global__ void __launch_bounds__(32 * WARPS)
     apply_kernel(Inputs in, Index ix, Factors o, const float* v, int backsub,
-                 float* y, int G, float* part, float* out) {
+                 float* y, int G, float* part, float* out, int stages) {
   lm::WarpTeam team{(int)(threadIdx.x & 31)};
   const int nw = gridDim.x * WARPS;
-  for (int t = warp_id(); t < in.T; t += nw)
-    apply_track<L, DC>(in, o, v, backsub, t, team, y);
+  if (stages & STAGE1)
+    for (int t = warp_id(); t < in.T; t += nw)
+      apply_track<L, DC>(in, o, v, backsub, t, team, y);
   if (backsub) return;
   auto grid = cooperative_groups::this_grid();
-  grid.sync();
-  for (int u = warp_id(); u < G * SPLIT; u += nw)
-    apply_share<L, DC>(in, ix, o, v, y, u / SPLIT, u % SPLIT, team, part);
-  grid.sync();
-  for (int g = warp_id(); g < G; g += nw)
-    apply_gather(in, part, g, team, out);
+  if (stages & BARRIER) grid.sync();
+  if (stages & STAGE2)
+    for (int u = warp_id(); u < G * SPLIT; u += nw)
+      apply_share<L, DC>(in, ix, o, v, y, u / SPLIT, u % SPLIT, team, part);
+  if (stages & BARRIER) grid.sync();
+  if (stages & STAGE2)
+    for (int g = warp_id(); g < G; g += nw)
+      apply_gather(in, part, g, team, out);
+}
+
+// P: one kind of track and its buffers
+struct ApplyKind {
+  Inputs in;
+  Index ix;
+  Factors o;
+  float* y;        // [T, L]
+  float* contrib;  // [T, S, Dc] (the product)
+  int L;
+};
+
+// P, the product, one cooperative launch: stage 1, a warp a track (the
+// kinds' tracks in order), writing y and the contributions; a grid
+// barrier; stage 2, a group a block, warp k its share k of each kind,
+// and the first threads add the SPLIT shares in order, a kind at a
+// time, and write out = line sum + point sum (the sum of two products as
+// torch adds them).  With backsub, stage 1 alone writes -y (apply_track,
+// as the first design).  stages as apply_kernel's (to time a part
+// alone).  Two ordinary launches in place of the barrier were tried and
+// were no faster.
+template <int DC>
+__global__ void __launch_bounds__(32 * SPLIT)
+    product_kernel(ApplyKind k0, ApplyKind k1, int nk, const float* v,
+                   int backsub, int G, float* out, int stages) {
+  __shared__ float part[2][SPLIT][6];
+  const int w = threadIdx.x >> 5;
+  lm::WarpTeam team{(int)(threadIdx.x & 31)};
+  if (stages & STAGE1) {
+    const int T0 = k0.in.T, T = T0 + (nk > 1 ? k1.in.T : 0);
+    for (int u = blockIdx.x * SPLIT + w; u < T; u += gridDim.x * SPLIT) {
+      const ApplyKind& k = u < T0 ? k0 : k1;
+      const int t = u < T0 ? u : u - T0;
+      if (backsub) {
+        if (k.L == 4)
+          apply_track<4, DC>(k.in, k.o, v, true, t, team, k.y);
+        else
+          apply_track<3, DC>(k.in, k.o, v, true, t, team, k.y);
+      } else if (k.L == 4) {
+        contrib_track<4, DC>(k.in, k.o, v, t, team, k.y, k.contrib);
+      } else {
+        contrib_track<3, DC>(k.in, k.o, v, t, team, k.y, k.contrib);
+      }
+    }
+  }
+  if (backsub) return;
+  if (stages & BARRIER) cooperative_groups::this_grid().sync();
+  if (!(stages & STAGE2)) return;
+  const int I = k0.in.I;
+  for (int g = blockIdx.x; g < G; g += gridDim.x) {
+    for (int kk = 0; kk < nk; ++kk) {
+      float acc[6];
+      contrib_share<DC>(kk ? k1.in : k0.in, kk ? k1.ix : k0.ix,
+                        kk ? k1.contrib : k0.contrib, g, w, team, acc);
+      if (team.leader())
+#pragma unroll
+        for (int p = 0; p < 6; ++p) part[kk][w][p] = acc[p];
+    }
+    __syncthreads();
+    const int p = threadIdx.x;
+    if (p < group_size(g, I)) {
+      float x0 = 0.f, x1 = 0.f;
+      for (int k = 0; k < SPLIT; ++k) x0 += part[0][k][p];
+      if (nk > 1)
+        for (int k = 0; k < SPLIT; ++k) x1 += part[1][k][p];
+      out[group_base(g, I) + p] = nk > 1 ? x0 + x1 : x0;
+    }
+    __syncthreads();
+  }
 }
 
 // Q: lines are tracks [0, Tl), points [Tl, Tl + Tp); then the first block
@@ -1000,16 +1171,33 @@ int launch_terms(const Inputs& in, const Hyper& h, const Index& ix,
   return (int)cudaGetLastError();
 }
 
+// The blocks of ``kernel`` (``threads`` a block) resident at once on the
+// current device, queried once a kernel, device and process.
+int resident_blocks(const void* kernel, int threads) {
+  struct Entry {
+    const void* kernel;
+    int dev, blocks;
+  };
+  static Entry cache[64];
+  static int n_cached = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  for (int i = 0; i < n_cached; ++i)
+    if (cache[i].kernel == kernel && cache[i].dev == dev)
+      return cache[i].blocks;
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  const int blocks = sms * per_sm;
+  if (n_cached < 64 && blocks > 0) cache[n_cached++] = {kernel, dev, blocks};
+  return blocks;
+}
+
 // a cooperative launch of ``kernel`` with one warp a unit of ``warps``,
 // at most as many blocks as are resident at once
 template <typename K, typename... Args>
 int launch_coop(K kernel, long long warps, cudaStream_t st, Args... args) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * WARPS,
-                                                0);
-  const long long most = (long long)sms * per_sm;
+  const long long most = resident_blocks((const void*)kernel, 32 * WARPS);
   const int blocks = (int)(blocks_for(warps) < most ? blocks_for(warps)
                                                     : most);
   void* ptrs[] = {(void*)&args...};
@@ -1021,11 +1209,35 @@ int launch_coop(K kernel, long long warps, cudaStream_t st, Args... args) {
 template <int L, int DC>
 int launch_apply(const Inputs& in, const Index& ix, const Factors& o,
                  const float* v, int backsub, float* y, float* part,
-                 float* out, cudaStream_t st) {
+                 float* out, int stages, cudaStream_t st) {
   const int G = in.I + (DC == 8 ? in.C : 0);
   const long long warps = in.T > G * SPLIT ? in.T : G * SPLIT;
   const int err = launch_coop(apply_kernel<L, DC>, warps, st, in, ix, o, v,
-                              backsub, y, G, part, out);
+                              backsub, y, G, part, out, stages);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// P in the new design: one cooperative launch, as many blocks as the
+// larger stage takes (a warp a track, a block a group; the
+// back-substitution is stage 1 alone), at most as many as are resident
+// at once.
+template <int DC>
+int launch_product(const ApplyKind& k0, const ApplyKind& k1, int nk,
+                   const float* v, int backsub, int G, float* out,
+                   int stages, cudaStream_t st) {
+  constexpr int THREADS = 32 * SPLIT;
+  const long long T = k0.in.T + (nk > 1 ? k1.in.T : 0);
+  long long blocks = (T + SPLIT - 1) / SPLIT;
+  if (!backsub && G > blocks) blocks = G;
+  const long long most =
+      resident_blocks((const void*)product_kernel<DC>, THREADS);
+  if (blocks > most) blocks = most;
+  if (blocks < 1) blocks = 1;
+  void* ptrs[] = {(void*)&k0, (void*)&k1, (void*)&nk, (void*)&v,
+                  (void*)&backsub, (void*)&G, (void*)&out, (void*)&stages};
+  const int err = (int)cudaLaunchCooperativeKernel(
+      (const void*)product_kernel<DC>, dim3((unsigned)blocks), dim3(THREADS),
+      ptrs, 0, st);
   return err ? err : (int)cudaGetLastError();
 }
 
@@ -1066,11 +1278,11 @@ extern "C" int hybrid_terms_launch(void** p, const long long* n,
 #undef HBA_TERMS
 }
 
-// P.  p: img, cam, w, hinv, bl, hcl, hcc, v, y [T, L], grp_ptr, inc, out
-// and part [G * SPLIT * 6] (both null for the back-substitution).  n:
-// kind, focal, T, S, I, C, backsub.
-extern "C" int hybrid_apply_launch(void** p, const long long* n,
-                                   const float*, void* stream) {
+// P's first design (the yardstick).  p: img, cam, w, hinv, bl, hcl, hcc,
+// v, y [T, L], grp_ptr, inc, out and part [G * SPLIT * 6] (both null for
+// the back-substitution).  n: kind, focal, T, S, I, C, backsub, stages.
+extern "C" int hybrid_apply_scan_launch(void** p, const long long* n,
+                                        const float*, void* stream) {
   Inputs in{nullptr, nullptr, nullptr, nullptr, (const int*)p[1],
             (const int*)p[0], nullptr, (const float*)p[2], (int)n[2],
             (int)n[3], (int)n[4], (int)n[5]};
@@ -1079,13 +1291,47 @@ extern "C" int hybrid_apply_launch(void** p, const long long* n,
             (float*)p[6], nullptr, nullptr, nullptr};
   const float* v = (const float*)p[7];
   float *y = (float*)p[8], *out = (float*)p[11], *part = (float*)p[12];
-  const int backsub = (int)n[6];
+  const int backsub = (int)n[6], stages = (int)n[7];
   auto st = (cudaStream_t)stream;
-  if (n[0] == LINE)
-    return n[1] ? launch_apply<4, 8>(in, ix, o, v, backsub, y, part, out, st)
-                : launch_apply<4, 6>(in, ix, o, v, backsub, y, part, out, st);
-  return n[1] ? launch_apply<3, 8>(in, ix, o, v, backsub, y, part, out, st)
-              : launch_apply<3, 6>(in, ix, o, v, backsub, y, part, out, st);
+#define HBA_APPLY(L, DC) \
+  launch_apply<L, DC>(in, ix, o, v, backsub, y, part, out, stages, st)
+  if (n[0] == LINE) return n[1] ? HBA_APPLY(4, 8) : HBA_APPLY(4, 6);
+  return n[1] ? HBA_APPLY(3, 8) : HBA_APPLY(3, 6);
+#undef HBA_APPLY
+}
+
+// P.  n: nk (1, or 2 for lines then points), focal, I, C, backsub,
+// stages, then per kind: kind, T, S.  p: v, out ([D]; null for the
+// back-substitution), then per kind: img, cam, w, hinv, bl, hcl, hcc,
+// y [T, L], grp_ptr, inc, contrib [T, S, Dc] (null for the
+// back-substitution).
+extern "C" int hybrid_apply_launch(void** p, const long long* n,
+                                   const float*, void* stream) {
+  const int nk = (int)n[0], focal = (int)n[1], I = (int)n[2],
+            C = (int)n[3];
+  ApplyKind k[2] = {};
+  for (int i = 0; i < nk; ++i) {
+    void** q = p + 2 + 11 * i;
+    const long long* m = n + 6 + 3 * i;
+    k[i].in = Inputs{nullptr, nullptr, nullptr, nullptr, (const int*)q[1],
+                     (const int*)q[0], nullptr, (const float*)q[2],
+                     (int)m[1], (int)m[2], I, C};
+    k[i].ix = Index{(const int*)q[8], (const int*)q[9], nullptr, nullptr};
+    k[i].o = Factors{(float*)q[3], (float*)q[4], (float*)q[5], nullptr,
+                     (float*)q[6], nullptr, nullptr, nullptr};
+    k[i].y = (float*)q[7];
+    k[i].contrib = (float*)q[10];
+    k[i].L = m[0] == LINE ? 4 : 3;
+  }
+  const int G = I + (focal ? C : 0);
+  const float* v = (const float*)p[0];
+  float* out = (float*)p[1];
+  const int backsub = (int)n[4], stages = (int)n[5];
+  auto st = (cudaStream_t)stream;
+  return focal ? launch_product<8>(k[0], k[1], nk, v, backsub, G, out,
+                                   stages, st)
+               : launch_product<6>(k[0], k[1], nk, v, backsub, G, out,
+                                   stages, st);
 }
 
 // Q.  p: line land, point land, pose, fxfy, then kvec, cam, img, obs, w of

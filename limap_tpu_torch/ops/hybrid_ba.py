@@ -8,7 +8,9 @@ the sum of squares at the state; and the reduced camera system's gradient
 g [D], its Jacobi diagonal diag0 [D] and, on the dense path, its matrix
 [D, D] (D = 6 I, + 2 C with the focal lengths).  ``hybrid_apply`` (P) is
 CG's matrix-free product from those terms, or with ``backsub`` the
-landmark updates.  ``hybrid_cost`` (Q) is the cost of a state.
+landmark updates; ``hybrid_apply_both`` the product of the lines' and
+the points' terms in one launch.  ``hybrid_cost`` (Q) is the cost of a
+state.
 
 CUDA tensors launch ``csrc/hybrid_ba.cu``; on the card a slot of weight
 0 is read for its weight alone, and its per-support factors (H_cl,
@@ -23,15 +25,17 @@ The kernel adds each entry of g, diag0 and the matrix in a fixed order
 of the matrix, listed once a solve by :func:`build_index`: a warp sums
 each share of ``SHARE`` consecutive pairs lane by lane, then across lanes
 by a butterfly, and the shares are added in order), P adds a group's
-supports in 16 shares of consecutive supports and then the shares in
-order, and Q sums a track's supports and then the tracks in a fixed
-order, so the same state gives the same numbers on every run.  The
+supports' contributions (each written once by its track's warp, before
+a grid barrier) in 16 shares of consecutive supports and then the
+shares in order, and Q sums a track's supports and then the tracks in
+a fixed order, so the same state gives the same numbers on every run.  The
 index depends on the images, cameras and weights alone, which do not
 change during a solve: the step builds it once (``step.index``) and
 hands it to every call; without one, ``hybrid_terms`` builds its own.
 ``hybrid_terms_scan`` is O with the first design's stage 2 (a warp a
 block walks all supports of the block's row group and searches each
-one's track), kept as a yardstick for timing.
+one's track), and ``hybrid_apply_scan`` P's first design (stage 2
+re-reads each support's factors), kept as yardsticks for timing.
 
 Each wrapper counts its launches in ``.launches``; O and P also count
 them by kind and mode in ``.counts`` (``"line"``, ``"point, apply"``,
@@ -41,6 +45,7 @@ them by kind and mode in ``.counts`` (``"line"``, ``"point, apply"``,
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 from typing import NamedTuple, Optional
 
@@ -62,6 +67,9 @@ PART = 48                           # a share's partials (hybrid_ba.cu)
 CHUNK = 32                          # O's shares a chunk (hybrid_ba.cu)
 # O's stages (the kernel's ``stages`` argument)
 STAGE_TERMS, STAGE_ASSEMBLY, STAGES_ALL = 1, 2, 3
+# P's parts (the kernels' ``stages`` argument): the tracks, the grid
+# barrier between the stages (the first design's two), the groups
+APPLY_STAGE1, APPLY_BARRIER, APPLY_STAGE2, APPLY_ALL = 1, 2, 4, 7
 
 
 class Index(NamedTuple):
@@ -207,6 +215,7 @@ def hybrid_cost_plain(state, line_data, point_data, opts):
 
 
 # ------------------------------------------------------------ the kernels
+@functools.lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
     from limap_tpu_torch.ops.cuda_build import load_library
     lib = load_library(SOURCE)
@@ -214,7 +223,7 @@ def build() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_longlong)
     fp = ctypes.POINTER(ctypes.c_float)
     for name in ("hybrid_terms_launch", "hybrid_apply_launch",
-                 "hybrid_cost_launch"):
+                 "hybrid_apply_scan_launch", "hybrid_cost_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [pp, lp, fp, ptr]
         fn.restype = ctypes.c_int
@@ -436,6 +445,49 @@ def assemble_from_pairs(terms, index):
     return g_out, diag0, Hp
 
 
+def contributions(terms, v):
+    """P's stage 1 replayed in torch: y [T, L] and each support's
+    contribution c [T, S, Dc] = H_cc v[cols] - H_cl y to its groups'
+    entries, over the weighted supports (the rest 0), in ``terms``'
+    dtype."""
+    w = (terms.weight > 0).to(terms.H_cl.dtype)
+    vc = v[terms.cols] * w[..., None]
+    y = torch.einsum("tab,tb->ta", terms.Hinv,
+                     torch.einsum("tspa,tsp->ta", terms.H_cl, vc))
+    c = torch.einsum("tspq,tsq->tsp", terms.H_cc, vc) \
+        - torch.einsum("tspa,ta->tsp", terms.H_cl, y)
+    return y, c * w[..., None]
+
+
+def apply_from_contributions(terms, v):
+    """P's product replayed in torch (B.1-B.2 of the kernel's design): the
+    contributions (:func:`contributions`), then each group's supports
+    (``group_index``'s lists) cut into ``SPLIT`` shares of consecutive
+    supports as the kernel cuts them, each share summed, the shares added
+    in order.  The sums within a share run in torch's order, not the
+    kernel's lanes'."""
+    T, S = terms.weight.shape
+    I, C, focal = terms.n_images, terms.n_cameras, terms.focal
+    Dc = 8 if focal else 6
+    _, c = contributions(terms, v)
+    c = c.reshape(T * S, Dc)
+    grp_ptr, inc, _, _ = group_index(terms.img, terms.cam, terms.weight, I,
+                                     C, focal)
+    ptr = grp_ptr.tolist()
+    out = torch.zeros_like(v)
+    for g in range(n_groups(I, C, focal)):
+        base, size, ro = _group_span(g, I)
+        e = inc[ptr[g]:ptr[g + 1]].long()
+        n = len(e)
+        per = -(-n // SPLIT)
+        x = v.new_zeros(size)
+        for k in range(SPLIT):
+            lo = min(k * per, n)
+            x = x + c[e[lo:min(lo + per, n)], ro:ro + size].sum(0)
+        out[base:base + size] = x
+    return out
+
+
 def _hyper(opts, lam):
     from limap_tpu_torch.optimize.lm import LOSSES
     if opts.loss not in LOSSES:
@@ -614,37 +666,181 @@ def hybrid_apply(terms: Terms, v, backsub=False):
     launches."""
     if v.device.type == "cpu":
         return hybrid_apply_plain(terms, v, backsub)
-    return _apply_kernel(terms, v, backsub)
+    return _apply_kernel((terms,), v, backsub)
 
 
-def _apply_kernel(terms: Terms, v, backsub):
-    T, S = terms.img.shape
-    L = LAND[terms.kind]
-    dev = v.device
+def hybrid_apply_both_plain(tl: Terms, tp: Terms, v):
+    """The plain version of :func:`hybrid_apply_both`: the two kinds'
+    plain products, added."""
+    return hybrid_apply_plain(tl, v) + hybrid_apply_plain(tp, v)
+
+
+def hybrid_apply_both(tl: Terms, tp: Terms, v):
+    """Kernel P on both kinds at once: CG's product of the reduced matrix
+    of the lines' and the points' terms with v [D], ``hybrid_apply(tl, v)
+    + hybrid_apply(tp, v)`` bit for bit in one launch (counted in
+    ``hybrid_apply.launches``, key ``"line+point, apply"``)."""
+    if v.device.type == "cpu":
+        return hybrid_apply_both_plain(tl, tp, v)
+    _check_both(tl, tp)
+    return _apply_kernel((tl, tp), v, False)
+
+
+def _check_both(tl, tp):
+    if (tl.kind, tp.kind) != KINDS or (tl.n_images, tl.n_cameras,
+                                       tl.focal) != (tp.n_images,
+                                                     tp.n_cameras, tp.focal):
+        raise ValueError("hybrid_apply_both takes the lines' and the "
+                         "points' terms of one system")
+
+
+class ApplyLaunch:
+    """P's launch on fixed terms (one kind, or the lines' and the
+    points' for the product of both), its arguments and scratch prepared
+    once: ``launch(v, stages=APPLY_ALL)`` launches it on v [D] and
+    returns a new output ([D], or [T, L] with ``backsub``).  ``stages``
+    times a part alone (``APPLY_STAGE1`` the tracks, ``APPLY_BARRIER``
+    the barrier between the stages, or the first design's two,
+    ``APPLY_STAGE2`` the groups); ``scan`` launches the first design (one
+    kind).  Counts nothing: the wrappers count."""
+
+    def __init__(self, kinds, device, backsub=False, scan=False):
+        t0 = kinds[0]
+        if scan and len(kinds) != 1:
+            raise ValueError("the first design takes one kind")
+        self.device, self.backsub = torch.device(device), bool(backsub)
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.D = dims(t0.n_images, t0.n_cameras, t0.focal)
+        self.L = LAND[t0.kind]
+        self.T = t0.img.shape[0]
+        G = n_groups(t0.n_images, t0.n_cameras, t0.focal)
+        Dc = 8 if t0.focal else 6
+        f32 = lambda n: torch.empty(n, dtype=torch.float32,
+                                    device=self.device)
+        # y is the product's scratch, the back-substitution's output (a
+        # new tensor a call)
+        self.y = None if backsub else f32(max(self.T, 1) * self.L)
+        if scan:
+            self.scratch = [None if backsub else f32(G * SPLIT * 6)]
+            ptrs = [t0.img, t0.cam, t0.weight, t0.Hinv, t0.b_l, t0.H_cl,
+                    t0.H_cc, None, self.y, t0.index.grp_ptr, t0.index.inc,
+                    None, self.scratch[0]]
+            self.slots = (7, 11, 8)          # v, out, y
+            ints = [KINDS.index(t0.kind), t0.focal, self.T, t0.img.shape[1],
+                    t0.n_images, t0.n_cameras, backsub, APPLY_ALL]
+            name = "hybrid_apply_scan_launch"
+        else:
+            ptrs = [None, None]
+            ints = [len(kinds), t0.focal, t0.n_images, t0.n_cameras,
+                    backsub, APPLY_ALL]
+            self.scratch = []
+            for i, t in enumerate(kinds):
+                T, S = t.img.shape
+                y = self.y if i == 0 else f32(max(T, 1) * LAND[t.kind])
+                contrib = None if backsub else f32(max(T * S * Dc, 1))
+                self.scratch += [y, contrib]
+                ptrs += [t.img, t.cam, t.weight, t.Hinv, t.b_l, t.H_cl,
+                         t.H_cc, y, t.index.grp_ptr, t.index.inc, contrib]
+                ints += [KINDS.index(t.kind), T, S]
+            self.slots = (0, 1, 9)
+            name = "hybrid_apply_launch"
+        self.kinds = kinds               # the tensors the pointers name
+        self.ptrs = _ptrs(*ptrs)
+        self.ints = _ints(*ints)
+        self.stage_slot = 7 if scan else 5
+        self.fn = getattr(build(), name)
+        self.name = name
+
+    def __call__(self, v, stages=APPLY_ALL):
+        check_tensor("v", v, torch.float32, (self.D,), self.device)
+        v = v.contiguous()
+        iv, io, iy = self.slots
+        self.ptrs[iv] = v.data_ptr()
+        if self.backsub:
+            out = torch.empty((self.T, self.L), dtype=torch.float32,
+                              device=self.device)
+            self.ptrs[iy] = out.data_ptr()
+        else:
+            out = torch.empty(self.D, dtype=torch.float32,
+                              device=self.device)
+            self.ptrs[io] = out.data_ptr()
+        self.ints[self.stage_slot] = stages
+        if torch.cuda.current_device() == self.device.index:
+            err = self.fn(self.ptrs, self.ints, None,
+                          torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(self.device):
+                err = self.fn(self.ptrs, self.ints, None,
+                              torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.name} failed: CUDA error {err}")
+        return out
+
+
+def _no_tracks(terms, v, backsub):
+    """P's output where no kind has a track (nothing is launched)."""
     D = dims(terms.n_images, terms.n_cameras, terms.focal)
-    check_tensor("v", v, torch.float32, (D,), dev)
-    G = terms.n_images + (terms.n_cameras if terms.focal else 0)
-    y = torch.empty((T, L), dtype=torch.float32, device=dev)
-    out = part = None
-    if not backsub:
-        out = torch.empty(D, dtype=torch.float32, device=dev)
-        part = torch.empty(G * SPLIT * 6, dtype=torch.float32, device=dev)
-    if T:
-        _call("hybrid_apply_launch",
-              [terms.img, terms.cam, terms.weight, terms.Hinv, terms.b_l,
-               terms.H_cl, terms.H_cc, v.contiguous(), y,
-               terms.index.grp_ptr, terms.index.inc, out, part],
-              [KINDS.index(terms.kind), terms.focal, T, S, terms.n_images,
-               terms.n_cameras, backsub], (), dev)
-        _count(_APPLY, f"{terms.kind}, {'backsub' if backsub else 'apply'}")
-    elif out is not None:
-        out.zero_()
-    return y if backsub else out
+    check_tensor("v", v, torch.float32, (D,), v.device)
+    if backsub:
+        return torch.empty((0, LAND[terms.kind]), dtype=torch.float32,
+                           device=v.device)
+    return torch.zeros_like(v)
+
+
+def _count_apply(kinds, backsub):
+    key = "+".join(t.kind for t in kinds)
+    _count(_APPLY, f"{key}, {'backsub' if backsub else 'apply'}")
+
+
+def _apply_kernel(kinds, v, backsub):
+    if not any(t.img.shape[0] for t in kinds):
+        return _no_tracks(kinds[0], v, backsub)
+    out = ApplyLaunch(kinds, v.device, backsub)(v)
+    _count_apply(kinds, backsub)
+    return out
+
+
+def product_fn(tl: Terms, tp: Terms, device):
+    """CG's product for one solve: a function v -> ``hybrid_apply_both(tl,
+    tp, v)``, its launch prepared once (the terms do not change during a
+    solve; each call allocates its output and counts its launch)."""
+    if torch.device(device).type == "cpu":
+        return lambda v: hybrid_apply_both_plain(tl, tp, v)
+    _check_both(tl, tp)
+    if not (tl.img.shape[0] or tp.img.shape[0]):
+        return lambda v: _no_tracks(tl, v, False)
+    launch = ApplyLaunch((tl, tp), device)
+    key = "line+point, apply"
+
+    def product(v):
+        out = launch(v)
+        _count(_APPLY, key)
+        return out
+
+    return product
 
 
 hybrid_apply.launches = 0
 hybrid_apply.counts = Counter()
 _APPLY = hybrid_apply
+
+
+def hybrid_apply_scan(terms: Terms, v, backsub=False):
+    """Kernel P's first design (stage 2 re-reads each support's factors,
+    two grid barriers), the yardstick; CUDA tensors only.
+    ``hybrid_apply_scan.launches`` counts its launches."""
+    if v.device.type != "cuda":
+        raise ValueError("hybrid_apply_scan is a kernel of the card")
+    if not terms.img.shape[0]:
+        return _no_tracks(terms, v, backsub)
+    out = ApplyLaunch((terms,), v.device, backsub, scan=True)(v)
+    hybrid_apply_scan.launches += 1
+    return out
+
+
+hybrid_apply_scan.launches = 0
+_APPLY_SCAN = hybrid_apply_scan
 
 
 def hybrid_cost(state, line_data, point_data, opts):
@@ -687,7 +883,7 @@ _COST = hybrid_cost
 
 def reset_counts():
     """Set the launch counts of O (and its yardstick), P and Q to 0."""
-    for fn in (_TERMS, _SCAN, _APPLY, _COST):
+    for fn in (_TERMS, _SCAN, _APPLY, _APPLY_SCAN, _COST):
         fn.launches = 0
     _TERMS.counts.clear()
     _APPLY.counts.clear()

@@ -427,9 +427,13 @@ def make_hybrid_ba_step(mesh, n_images: int, n_cameras: int = 1,
             inv_diag = torch.where(fixed, torch.ones_like(diag0),
                                    1.0 / (diag0 + damp))
 
+            # both kinds' products in one launch of P, prepared once a
+            # solve
+            product = O.product_fn(tl, tp, device)
+
             def matvec_fn(v):
                 v = torch.where(fixed, torch.zeros_like(v), v)
-                out, = psum(O.hybrid_apply(tl, v) + O.hybrid_apply(tp, v))
+                out, = psum(product(v))
                 out = out + damp * v
                 return torch.where(fixed, v, out)
 

@@ -34,7 +34,8 @@ The kernel leaves the per-support factors of a slot of weight 0
 unwritten; the checks read them as 0, as the plain version writes them.
 
 P is held the same way to the plain product on the kernel's own terms,
-Q to the plain cost within ``COST_RTOL``.  Every kernel must repeat its
+and to its first design (``hybrid_apply_scan``) bit for bit
+(:func:`check_all_scan`), Q to the plain cost within ``COST_RTOL``.  Every kernel must repeat its
 results bit for bit (no atomics; the LM's accept test compares two of
 Q's values).
 """
@@ -421,6 +422,97 @@ def check_all(device="cuda", terms=None, apply=None, cost=None):
         yield "hybrid_cost", case, check_cost(state, ld, pd, opts, cost)
 
 
+def check_apply_scan(tl, tp, v):
+    """P's product and back-substitution on each kind's kernel terms,
+    and the product of both kinds, against the first design (the
+    yardstick ``hybrid_apply_scan``) bit for bit."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    res = {}
+    for t in (tl, tp):
+        for backsub in (False, True):
+            res[f"{t.kind}, {'backsub' if backsub else 'apply'}"] = bool(
+                torch.equal(O.hybrid_apply(t, v, backsub),
+                            O.hybrid_apply_scan(t, v, backsub)))
+    res["both"] = bool(torch.equal(
+        O.hybrid_apply_both(tl, tp, v),
+        O.hybrid_apply_scan(tl, v) + O.hybrid_apply_scan(tp, v)))
+    res["ok"] = all(res.values())
+    return res
+
+
+def check_all_scan(device="cuda"):
+    """The seeded cases: P against its first design bit for bit; yields
+    (case, result)."""
+    from limap_tpu_torch.parallel.sharded_ba import HybridBAOptions
+    for i, (case, prob, okw) in enumerate(cases()):
+        state, ld, pd, I, C = seeded_problem(seed=10 + i, device=device,
+                                             **prob)
+        tl, tp = kernel_terms(state, ld, pd, HybridBAOptions(**okw), I, C)
+        gen = torch.Generator().manual_seed(i)
+        v = torch.randn(tl.g.shape[0], generator=gen).to(tl.g.device)
+        yield case, check_apply_scan(tl, tp, v)
+
+
+def kernel_terms(state, ld, pd, opts, n_images, n_cameras):
+    """Kernel O's terms of the lines and of the points (the dense matrix
+    unless ``opts`` asks for CG)."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    lam = torch.tensor(opts.damping, device=state.pose_params.device)
+    terms = []
+    for kind, data in (("line", ld), ("point", pd)):
+        land, (kv, ci, ii), obs, w = _parts(kind, state, data)
+        terms.append(O.hybrid_terms(
+            kind, land, state.pose_params, state.cam_fxfy, kv, ci, ii, obs,
+            w, opts, lam, n_images, n_cameras, opts.solver != "cg"))
+    return terms
+
+
+def device_ms(fn, reps):
+    """ms of the device's work a call of ``fn``, over ``reps`` calls
+    queued behind a sleep kernel (so the host's own time a call does not
+    count), and ms of the host's time a call (no synchronization)."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7))          # ~10 ms at 2 GHz
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host
+
+
+def apply_split(kinds, v, reps=20, scan=False):
+    """Kernel P's time by part on the card, for the terms ``kinds`` (one
+    kind, or the lines' and the points' for the product of both) and v:
+    the launch with no work, stage 1, the barrier between the stages (the
+    first design's two), stage 2, each the difference of two device
+    times (:func:`device_ms`, the launches' arguments prepared once), and
+    the host's time a call of the wrapper."""
+    from limap_tpu_torch.ops import hybrid_ba as O
+    launch = O.ApplyLaunch(kinds, v.device, scan=scan)
+    parts = (0, O.APPLY_STAGE1, O.APPLY_STAGE1 | O.APPLY_BARRIER,
+             O.APPLY_ALL)
+    ms = [device_ms(lambda: launch(v, stages), reps)[0] for stages in parts]
+    if scan:
+        call = lambda: O.hybrid_apply_scan(kinds[0], v)
+    elif len(kinds) == 2:
+        call = lambda: O.hybrid_apply_both(*kinds, v)
+    else:
+        call = lambda: O.hybrid_apply(kinds[0], v)
+    whole, host = device_ms(call, reps)
+    return {"launch_ms": ms[0], "stage1_ms": ms[1] - ms[0],
+            "barrier_ms": ms[2] - ms[1], "stage2_ms": ms[3] - ms[2],
+            "device_ms": ms[3], "wrapper_device_ms": whole,
+            "wrapper_host_ms": host,
+            "design": "first (scan)" if scan else "contributions"}
+
+
 @contextlib.contextmanager
 def summed_in_shares(share):
     """Within the block, ``ops.hybrid_terms`` on the CPU gives g, diag0
@@ -525,6 +617,10 @@ def main():
     ok = True
     for name, case, res in check_all():
         print(f"{name}, {case}: {json.dumps(res)}", flush=True)
+        ok = ok and res["ok"]
+    for case, res in check_all_scan():
+        print(f"hybrid_apply vs its first design, {case}: "
+              f"{json.dumps(res)}", flush=True)
         ok = ok and res["ok"]
     print("ok" if ok else "FAILED")
     return 0 if ok else 1

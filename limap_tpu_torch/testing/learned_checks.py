@@ -4,6 +4,10 @@
   problem, 0, 50 and 100 iterations; within ``SINKHORN_ATOL`` +
   ``SINKHORN_RTOL`` |Z| of plain (both fp32, other summation orders and
   exp implementations), and bit for bit from one launch to the next.
+  On the card also the band design's cases (``SINKHORN_BAND_CASES``:
+  the runner's and SuperGlue's sizes, rows past shared memory, couplings
+  too wide for v in shared memory, M = 0, N = 0, -inf rows, columns and
+  bands), and the first design held to plain on the same inputs.
 - S (``ops/sample_descriptors.py``): clamp mode with 256 channels at the
   image border, outside it and on cell corners; zero mode with 128
   channels across the grid's edges; within ``SAMPLE_TOL``.
@@ -64,6 +68,110 @@ def check_sinkhorn(device="cuda"):
                "finite": bool(torch.isfinite(z1).all())}
         res["ok"] = err <= tol and res["repeats"] and res["finite"]
         yield "log_sinkhorn", f"{M}x{N}x{iters}", res
+
+
+# R's band design (``ops/log_sinkhorn.py::plan``): (name, M, N, iters,
+# bin, rows_cap, scores).  ``rows_cap`` >= 0 leaves the rows of a band
+# past it in global memory.  "inf" scores hold a row and a column of
+# -inf and rows 16-31 all -inf (16 bands of their own where a band is a
+# row).
+SINKHORN_BAND_CASES = [
+    ("the runner's largest pair", 556, 565, 50, 1.0, -1, "normal"),
+    ("200 x 200", 199, 199, 50, 0.5, -1, "normal"),
+    ("a small coupling", 300, 200, 30, 0.5, -1, "normal"),
+    ("rows past 8 a band from global memory", 2000, 300, 20, 0.5, 8,
+     "normal"),
+    ("SuperGlue's coupling", 2048, 2048, 100, 1.0, -1, "normal"),
+    ("4,097 x 4,097, bands past shared memory", 4096, 4096, 20, 1.0, -1,
+     "normal"),
+    ("40,001 columns, every row from global memory", 300, 40000, 10, 0.5,
+     -1, "normal"),
+    ("60,001 columns, v and every row from global memory", 40, 60000, 10,
+     0.5, -1, "normal"),
+    ("M = 0", 0, 40, 10, 0.5, -1, "normal"),
+    ("N = 0", 40, 0, 10, 0.5, -1, "normal"),
+    ("-inf rows, a column and bands", 48, 40, 30, 0.5, -1, "inf"),
+    ("-inf rows, a column and bands, rows from global memory", 48, 40, 30,
+     0.5, 0, "inf"),
+    ("-inf rows, a column and bands, v from global memory", 48, 60000, 10,
+     0.5, -1, "inf"),
+]
+
+
+def band_scores(M, N, seed, kind):
+    s = sinkhorn_scores(M, N, seed)
+    if kind == "inf":
+        s[3, :] = -np.inf
+        s[:, 7] = -np.inf
+        s[16:32, :] = -np.inf
+    return s
+
+
+def compare_z(z, zp):
+    """(max abs error over the entries finite in ``zp``, its tolerance,
+    whether the non-finite entries are the same)."""
+    fin = torch.isfinite(zp)
+    same = bool(torch.equal(torch.isfinite(z), fin)) and bool(
+        torch.equal(torch.nan_to_num(z[~fin]), torch.nan_to_num(zp[~fin])))
+    if not fin.any():
+        return 0.0, SINKHORN_ATOL, same
+    err = float((z[fin] - zp[fin]).abs().max())
+    return err, SINKHORN_ATOL + SINKHORN_RTOL * float(zp[fin].abs().max()), \
+        same
+
+
+def check_sinkhorn_bands(device="cuda"):
+    """R's band design on each case against plain within the tolerance
+    above, bit for bit on a repeat; the first design (the yardstick)
+    against plain on the same input."""
+    for k, (name, M, N, iters, b, cap, kind) in enumerate(
+            SINKHORN_BAND_CASES):
+        s = torch.as_tensor(band_scores(M, N, 100 + k, kind),
+                            device=device)
+        zp = R.log_sinkhorn_plain(s, b, iters)
+        z1 = R.launch(s, b, iters, cap)
+        z2 = R.launch(s, b, iters, cap)
+        zs = R.log_sinkhorn_scan(s, b, iters)
+        err, tol, same = compare_z(z1, zp)
+        scan_err, _, scan_same = compare_z(zs, zp)
+        res = {"plan": R.plan(M, N, s.device, cap),
+               "max_abs_err": err, "tol": tol, "infinities_equal": same,
+               "repeats": bool(torch.equal(torch.nan_to_num(z1),
+                                           torch.nan_to_num(z2))),
+               "scan_max_abs_err": scan_err}
+        res["ok"] = (err <= tol and same and res["repeats"]
+                     and scan_err <= tol and scan_same)
+        yield "log_sinkhorn bands", f"{name} ({M}x{N}x{iters})", res
+
+
+def _events_ms(fn, reps):
+    from limap_tpu_torch.testing.hybrid_checks import device_ms
+    return device_ms(fn, reps)[0]
+
+
+def sinkhorn_split(scores, bin_score, iters, reps=5):
+    """Kernel R's time by part on the card, on one input (ms of device
+    time, ``hybrid_checks.device_ms``, the least of two rounds): the
+    launch with the load and the write (no iteration), then the
+    iterations' barriers, u-pass, v-partials and merge, each the
+    difference of two runs with one part more
+    (:func:`~limap_tpu_torch.ops.log_sinkhorn.launch_parts`)."""
+    def run(it, parts):
+        if parts is None:
+            return _events_ms(lambda: R.launch(scores, bin_score, it), reps)
+        return _events_ms(
+            lambda: R.launch_parts(scores, bin_score, it, parts), reps)
+
+    # each configuration the least of two rounds
+    configs = ([(0, None)] + [(iters, p) for p in R.TIMED_PARTS]
+               + [(iters, None)])
+    rounds = [[run(it, p) for it, p in configs] for _ in range(2)]
+    cum = [min(a, b) for a, b in zip(*rounds)]
+    out = {"load_write_ms": cum[0]}
+    for k, name in enumerate(("barriers", "u_pass", "v_partials", "merge")):
+        out[f"{name}_ms"] = cum[k + 1] - cum[k]
+    out["all_ms"] = cum[-1]
+    return out
 
 
 def sample_inputs(mode, seed=0):
@@ -197,6 +305,8 @@ def check_refine(device="cuda"):
 
 def check_all(device="cuda"):
     yield from check_sinkhorn(device)
+    if device != "cpu":
+        yield from check_sinkhorn_bands(device)
     yield from check_sample(device)
     yield from check_candidates(device)
     yield from check_refine(device)

@@ -157,7 +157,8 @@ def hybrid_ba(rank, world, imagecols, pointtracks, linetracks, opts_kw,
               n_iterations, device="cpu", timed=False):
     """``solve_hybrid_bundle_adjustment`` over ``make_mesh()``: its
     output, the seconds, the collectives and, on the card, the kernels'
-    launches by kind (and O's yardstick's, which no path launches)."""
+    launches by kind (and O's and P's yardsticks', which no path
+    launches)."""
     from limap_tpu_torch.ops import hybrid_ba as O
     from limap_tpu_torch.parallel import (HybridBAOptions, make_mesh,
                                           solve_hybrid_bundle_adjustment)
@@ -175,7 +176,8 @@ def hybrid_ba(rank, world, imagecols, pointtracks, linetracks, opts_kw,
             "launches": {"hybrid_terms": dict(O.hybrid_terms.counts),
                          "hybrid_apply": dict(O.hybrid_apply.counts),
                          "hybrid_cost": O.hybrid_cost.launches,
-                         "hybrid_terms_scan": O.hybrid_terms_scan.launches}}
+                         "hybrid_terms_scan": O.hybrid_terms_scan.launches,
+                         "hybrid_apply_scan": O.hybrid_apply_scan.launches}}
 
 
 def node_tables(tri):

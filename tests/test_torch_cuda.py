@@ -644,10 +644,12 @@ def test_hybrid_ba_step_runs_on_the_kernels(cuda):
         for kind in ("line", "point"):
             assert moved[kind] == 1
             assert moved[f"{kind}, backsub"] == 1
-            if solver == "dense":
-                assert moved.get(f"{kind}, apply", 0) == 0
-            else:
-                assert moved[f"{kind}, apply"] > 0
+            # CG's product takes both kinds in one launch
+            assert moved.get(f"{kind}, apply", 0) == 0
+        if solver == "dense":
+            assert moved.get("line+point, apply", 0) == 0
+        else:
+            assert moved["line+point, apply"] > 0
         assert O.hybrid_apply.launches - n0[1] == sum(
             v for k, v in moved.items() if "," in k)
 
@@ -703,6 +705,41 @@ def test_hybrid_terms_with_its_index_and_the_yardstick(cuda):
                 # as the first design's, bit for bit
                 assert torch.equal(a.g, scan.g)
                 assert torch.equal(a.diag0, scan.diag0)
+
+
+@pytest.fixture(scope="module")
+def hybrid_scan_results():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from limap_tpu_torch.testing import hybrid_checks as HC
+    return dict(HC.check_all_scan("cuda"))
+
+
+@pytest.mark.parametrize("case", _hybrid_cases())
+def test_hybrid_apply_equals_its_first_design_bit_for_bit(
+        hybrid_scan_results, case):
+    """P's product and back-substitution on each kind, and the product of
+    both kinds in one launch, are the first design's bits."""
+    res = hybrid_scan_results[case]
+    assert res["ok"], res
+
+
+def test_hybrid_apply_both_is_one_launch(cuda):
+    from limap_tpu_torch.ops import hybrid_ba as O
+    from limap_tpu_torch.parallel import HybridBAOptions
+    from limap_tpu_torch.testing import hybrid_checks as HC
+    state, ld, pd, I, C = HC.seeded_problem(seed=5, device="cuda")
+    tl, tp = HC.kernel_terms(state, ld, pd, HybridBAOptions(solver="cg"), I,
+                             C)
+    v = torch.randn(tl.g.shape[0], device="cuda")
+    n0, s0 = O.hybrid_apply.launches, O.hybrid_apply_scan.launches
+    c0 = O.hybrid_apply.counts["line+point, apply"]
+    O.hybrid_apply_both(tl, tp, v)
+    assert O.hybrid_apply.launches == n0 + 1
+    assert O.hybrid_apply.counts["line+point, apply"] == c0 + 1
+    assert O.hybrid_apply_scan.launches == s0
+    with pytest.raises(ValueError):
+        O.hybrid_apply_both(tp, tl, v)
 
 
 def test_hybrid_ba_kernels_count_only_launches(cuda):
@@ -780,6 +817,63 @@ def learned_results():
 def test_learned_kernels_vs_plain(learned_results, name, case):
     res = learned_results[(name, case)]
     assert res["ok"], res
+
+
+def _band_cases():
+    from limap_tpu_torch.testing import learned_checks as LC
+    return [c[0] for c in LC.SINKHORN_BAND_CASES]
+
+
+@pytest.mark.parametrize("case", _band_cases())
+def test_log_sinkhorn_bands_hold_to_plain_and_repeat(learned_results, case):
+    """R's band design on each case: within the tolerance of plain, the
+    same infinities, the same bits on a repeat; the first design held to
+    plain on the same input."""
+    res = next(r for (name, c), r in learned_results.items()
+               if name == "log_sinkhorn bands" and c.startswith(case + " ("))
+    assert res["ok"], res
+
+
+def test_log_sinkhorn_plans_bands_in_shared_memory_and_global_past_it(cuda):
+    from limap_tpu_torch.ops import log_sinkhorn as R
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pair = R.plan(556, 565)
+    assert pair["ctas"] == sms and pair["v_in_shared_memory"]
+    assert pair["rows_in_shared_memory"] == pair["rows_a_band"]
+    assert R.plan(40, 30)["ctas"] == 41            # a CTA a row
+    sg = R.plan(2048, 2048)
+    assert sg["rows_in_shared_memory"] == sg["rows_a_band"]
+    big = R.plan(4096, 4096)
+    assert 0 < big["rows_in_shared_memory"] < big["rows_a_band"]
+    assert R.plan(2000, 300, rows_cap=8)["rows_in_shared_memory"] == 8
+    wide = R.plan(10, 40000)
+    assert wide["v_in_shared_memory"]
+    assert wide["rows_in_shared_memory"] == 0
+    wider = R.plan(10, 70000)
+    assert not wider["v_in_shared_memory"]
+    assert wider["rows_in_shared_memory"] == 0
+    from limap_tpu_torch.testing import learned_checks as LC
+    s = torch.randn(10, 70000, device="cuda")
+    err, tol, same = LC.compare_z(R.log_sinkhorn(s, 0.5, 5),
+                                  R.log_sinkhorn_plain(s, 0.5, 5))
+    assert err <= tol and same
+    with pytest.raises(ValueError):
+        R.launch_parts(torch.randn(30, 20, device="cuda"), 0.5, 10, 8)
+
+
+def test_log_sinkhorn_scan_counts_apart(cuda):
+    from limap_tpu_torch.ops import log_sinkhorn as R
+    n0 = (R.log_sinkhorn.launches, R.log_sinkhorn_scan.launches)
+    s = torch.randn(30, 20, device="cuda")
+    z = R.log_sinkhorn(s, 0.5, 10)
+    zs = R.log_sinkhorn_scan(s, 0.5, 10)
+    R.launch(s, 0.5, 10)
+    R.launch_parts(s, 0.5, 10, R.PART_SYNC)
+    assert (R.log_sinkhorn.launches, R.log_sinkhorn_scan.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    assert (z - zs).abs().max() <= 1e-4
+    with pytest.raises(ValueError):
+        R.log_sinkhorn_scan(s.cpu(), 0.5, 10)
 
 
 def test_learned_kernels_count_launches_and_refuse_bad_inputs(cuda):
