@@ -38,8 +38,17 @@ Phases, in order; any failure exits non-zero:
      views and 1000 point matches, through hybrid_localization (tpu_lsd,
      epipolar-IoU grid, reprojection filter, PnPL RANSAC with the
      pose_score and trace_roots kernels, LO on the lm_jointloc kernel, f64
-     polish), with quality gates; then the four localization kernels held
-     to their plain versions and timed on that path's own inputs.
+     polish), with quality gates, the PnPL stages printed; then the four
+     localization kernels held to their plain versions and timed on that
+     path's own inputs; I (every LO solve, with the first design's team)
+     and B (every launch's input) also held bit for bit to their first
+     designs (lm_jointloc_scan, trace_roots_scan: the yardsticks, never
+     on the path), their device time summed over the path's launches for
+     both, I's team choices and the chains' active matches, and each
+     timed in turns with its first design.  With ``--save-loc-inputs
+     FILE`` the inputs of every LO solve and of every launch of B are
+     saved there, for testing/lo_wall.py to time another checkout's
+     kernels on them.
   9. fit and merge at full width on phase 7's images, each with the
      analytic depth of the wall: line_fitnmerge (tpu_lsd, one batched
      RANSAC over every segment with the line_ransac kernel, the linker's
@@ -239,7 +248,10 @@ Prints the kernels' JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.
 """
 
+import argparse
+import collections
 import copy
+import dataclasses
 import importlib
 import importlib.util
 import json
@@ -931,17 +943,21 @@ def localization_card_vs_cpu():
 
 class Recorder:
     """Wraps ``module.name`` to keep the arguments of its largest call
-    (by ``size``), so the path's own inputs can be measured afterwards."""
+    (by ``size``), so the path's own inputs can be measured afterwards;
+    with ``keep_all`` every call's (``calls``)."""
 
-    def __init__(self, module, name, size):
+    def __init__(self, module, name, size, keep_all=False):
         self.module, self.name, self.size = module, name, size
         self.orig = getattr(module, name)
         self.args, self.kwargs, self.best = None, None, -1
+        self.calls = [] if keep_all else None
 
         def wrapper(*args, **kwargs):
             n = size(*args, **kwargs)
             if n > self.best:
                 self.args, self.kwargs, self.best = args, kwargs, n
+            if self.calls is not None:
+                self.calls.append((args, kwargs))
             return self.orig(*args, **kwargs)
 
         setattr(module, name, wrapper)
@@ -1033,7 +1049,8 @@ def localization_full_width(scene, tracks, workdir, card):
             -1 if k.get("errors") else a[0].shape[0] * (a[3].shape[0]
                                                         + a[5].shape[0]))),
         "trace_roots": Recorder(pnl, "trace_roots",
-                                lambda *a, **k: a[0].shape[0]),
+                                lambda *a, **k: a[0].shape[0],
+                                keep_all=True),
         "epipolar_iou_grid": Recorder(runner, "epipolar_iou_grid",
                                       lambda *a, **k: a[0].shape[0]
                                       * a[1].shape[0]),
@@ -1042,7 +1059,8 @@ def localization_full_width(scene, tracks, workdir, card):
                "trace_roots": trace_roots.trace_roots,
                "epipolar_iou_grid": epipolar_iou.epipolar_iou_grid,
                "lm_jointloc": lm_jointloc.solve}
-    for k in kernels.values():
+    for k in list(kernels.values()) + [lm_jointloc.solve_scan,
+                                       trace_roots.trace_roots_scan]:
         k.launches = 0
     # every LO solve's input, for kernel I's comparison with plain
     lo_calls, lo_solve = [], lm_jointloc.solve
@@ -1092,6 +1110,14 @@ def localization_full_width(scene, tracks, workdir, card):
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for name, n in launches.items():
         check(n > 0, f"the localization path did not launch {name}")
+    check(lm_jointloc.solve_scan.launches == 0
+          and trace_roots.trace_roots_scan.launches == 0,
+          "the localization path launched a first design")
+    log(f"[localize] PnPL stages summed over the {len(poses)} queries: "
+        f"pnpl_sample_solve {prof.times.get('pnpl_sample_solve', 0.0):.4f} "
+        f"s (kernel B's {launches['trace_roots']} launches), pnpl_lo_polish "
+        f"{prof.times.get('pnpl_lo_polish', 0.0):.4f} s (kernel I's "
+        f"{launches['lm_jointloc']} solves) on {card}")
 
     errors = localization.pose_errors(poses, q["gt"])
     for q_id, (te, re) in errors.items():
@@ -1113,7 +1139,8 @@ def localization_full_width(scene, tracks, workdir, card):
           ("median rotation error", summary, ref))
     return launches, dict({k: (r.args, r.kwargs)
                            for k, r in recorders.items()},
-                          lm_jointloc=lo_calls), \
+                          lm_jointloc=lo_calls,
+                          trace_roots_calls=recorders["trace_roots"].calls), \
         {"q": q, "cfg": cfg, "poses": poses}
 
 
@@ -1155,43 +1182,29 @@ def timed_entry(name, path, source, replaces, launches, kernel, plain, args,
 
 def measure_localization_kernels(recorded, launches):
     """Each localization kernel on the largest input its path gave it:
-    held to the plain version, timed against it in turns, and its bound."""
-    from limap_tpu_torch.ops import epipolar_iou, pose_score, trace_roots
+    held to the plain version, timed against it in turns, and its bound;
+    I and B also held to their first designs and timed with them."""
+    from limap_tpu_torch.ops import epipolar_iou, pose_score
     from limap_tpu_torch.testing import kernel_checks
     plain = {"pose_score": pose_score.pose_score_plain,
-             "trace_roots": trace_roots.trace_roots_plain,
              "epipolar_iou_grid": epipolar_iou.epipolar_iou_grid_plain}
     kernel = {"pose_score": pose_score.pose_score,
-              "trace_roots": trace_roots.trace_roots,
               "epipolar_iou_grid": epipolar_iou.epipolar_iou_grid}
     source = {"pose_score": ("pose_score.cu",
                              "limap_tpu/estimators/absolute_pose.py:70"),
-              "trace_roots": ("trace_roots.cu",
-                              "limap_tpu/estimators/pnl_solvers.py:142"),
               "epipolar_iou_grid": (
                   "epipolar_iou.cu",
                   "limap_tpu/triangulation/functions.py:149")}
-    entries = [measure_jointloc(recorded.pop("lm_jointloc"),
-                                launches["lm_jointloc"])]
+    entries = measure_jointloc(recorded.pop("lm_jointloc"),
+                               launches["lm_jointloc"])
+    entries += measure_trace_roots(recorded.pop("trace_roots"),
+                                   recorded.pop("trace_roots_calls"),
+                                   launches["trace_roots"])
     for name, (args, kwargs) in recorded.items():
         out_k = kernel[name](*args, **kwargs)
         out_p = plain[name](*args, **kwargs)
         torch.cuda.synchronize()
-        if name == "trace_roots":
-            res = kernel_checks.compare_trace_roots(
-                out_k, out_p, args[6],
-                kernel_checks.rank_deficient(*args[:5]), args[:5])
-            log(f"[kernel] localization trace_roots against plain on the "
-                f"path's input: {json.dumps(res)}")
-            check(res["ok"], (name, "on the path's input", res))
-            err = res["max_abs_err"]
-            B, K = args[0].shape[0], args[4].shape[0]
-            n_roots, n_bisect = args[6], args[5]
-            evals = K + 3 * n_roots * n_bisect + 3 * n_roots
-            bms, by = bound(B * evals * OPS_G,
-                            B * 96 + K * 4 + B * 2 * n_roots * 37)
-            shape = {"instances": B, "grid": K - 1, "n_roots": n_roots}
-        elif name == "pose_score":
+        if name == "pose_score":
             res = kernel_checks.compare_pose_score(
                 out_k, out_p, kernel[name](*args, errors=True),
                 plain[name](*args, errors=True), args[9],
@@ -1218,6 +1231,68 @@ def measure_localization_kernels(recorded, launches):
             (20, 2)))
     return entries
 
+
+def measure_trace_roots(largest, calls, launches):
+    """Kernel B on the path's inputs: every launch's input held to the
+    first design (trace_roots_scan) bit for bit, the device time of all
+    launches summed for both, the largest input held to plain, and the
+    kernel and the first design timed in turns there (the plan sweep is
+    testing/loc_kernels.py's)."""
+    from limap_tpu_torch.ops import trace_roots as B
+    from limap_tpu_torch.testing import kernel_checks, loc_kernels
+    args, kwargs = largest
+    check(args is not None and calls, "the localization path gave kernel "
+          "B no input")
+    n_bisect = args[5] if len(args) > 5 else kwargs.get("n_bisect", 48)
+    n_roots = args[6] if len(args) > 6 else kwargs.get("n_roots", 8)
+    bits = {"launches": len(calls), "instances": 0, "slots_differing": 0,
+            "ok_differing": 0}
+    totals = {"kernel": 0.0, "first design": 0.0}
+    for a, k in calls:
+        res = loc_kernels.trace_roots_bits(
+            list(a[:5]), a[5] if len(a) > 5 else k.get("n_bisect", 48),
+            a[6] if len(a) > 6 else k.get("n_roots", 8))
+        bits["instances"] += res["instances"]
+        bits["slots_differing"] += res["slots_differing"]
+        bits["ok_differing"] += int(not res["ok_equal"])
+        totals["kernel"] += loc_kernels.cuda_ms(
+            lambda: B.trace_roots(*a, **k), 3)
+        totals["first design"] += loc_kernels.cuda_ms(
+            lambda: B.trace_roots_scan(*a, **k), 2)
+    bits["ok"] = bits["slots_differing"] == 0 and bits["ok_differing"] == 0
+    log(f"[kernel] localization trace_roots against its first design, bit "
+        f"for bit, on every launch's input: {json.dumps(bits)}; device ms "
+        f"summed over the {len(calls)} launches (CUDA events; the first "
+        f"design is rebuilt on the shared __noinline__ G): "
+        f"{json.dumps(totals)}")
+    check(bits["ok"], ("trace_roots against its first design", bits))
+    plan = B.plan(n_roots, n_bisect)
+    out_k = B.trace_roots(*args, **kwargs)
+    out_s = B.trace_roots_scan(*args, **kwargs)
+    out_p = B.trace_roots_plain(*args[:5], n_bisect, n_roots)
+    deficient = kernel_checks.rank_deficient(*args[:5])
+    res = kernel_checks.compare_trace_roots(out_k, out_p, n_roots, deficient,
+                                            list(args[:5]))
+    res_s = kernel_checks.compare_trace_roots(out_s, out_p, n_roots,
+                                              deficient, list(args[:5]))
+    log(f"[kernel] localization trace_roots against plain on the path's "
+        f"input: {json.dumps(res)}")
+    check(res["ok"], ("trace_roots", "on the path's input", res))
+    Bn, K = args[0].shape[0], args[4].shape[0]
+    evals = K + 3 * n_roots * n_bisect + 3 * n_roots
+    bms, by = bound(Bn * evals * OPS_G,
+                    Bn * 96 + K * 4 + Bn * 2 * n_roots * 37)
+    shape = {"instances": Bn, "grid": K - 1, "n_roots": n_roots,
+             "plan": plan, "launches_summed_ms": totals, "bits": bits}
+    return yard_entries(
+        "trace_roots", "trace_roots_scan", "localization", "trace_roots.cu",
+        "limap_tpu/estimators/pnl_solvers.py:142", launches,
+        lambda: B.trace_roots(*args, **kwargs),
+        lambda: B.trace_roots_scan(*args, **kwargs),
+        lambda: B.trace_roots_plain(*args[:5], n_bisect, n_roots),
+        res["max_abs_err"], res_s["max_abs_err"], bms, by, shape, 20,
+        "the first design, a thread an instance (rebuilt on the shared "
+        "__noinline__ G); the yardstick, never on the path")
 
 
 def fit_rows(fitted):
@@ -1649,14 +1724,37 @@ def measure_line_ba(path, recorded, launches):
         res["max_abs_err"], bms, by, shape, (5, 1))
 
 
+def jointloc_call(call):
+    """(params0, data, cfg, n_iter) of a recorded lm_jointloc.solve call."""
+    args, kwargs = call
+    n_iter = args[11] if len(args) > 11 else kwargs.get("num_iterations", 50)
+    return args[0], tuple(args[1:10]), args[10], n_iter
+
+
+def active_spread(calls):
+    """Quantiles (0, 10, 50, 90, 100 %) of the active lines, points and
+    matches of every chain of the recorded solves."""
+    lines = torch.cat([c[0][5].sum(1) for c in calls]).cpu().numpy()
+    points = torch.cat([c[0][8].sum(1) for c in calls]).cpu().numpy()
+    q = (0, 10, 50, 90, 100)
+    return {"chains": int(len(lines)),
+            **{k: [int(x) for x in np.percentile(v, q, method="nearest")]
+               for k, v in (("lines", lines), ("points", points),
+                            ("matches", lines + points))}}
+
+
 def measure_jointloc(calls, launches):
     """Kernel I on every LO solve of phase 8: the solves of a query share
     their matches and config, so their rows go to plain together (rows
     are independent); the normal equations at the start and the solve
-    held to plain row by row; the largest solve timed in turns, with its
-    bound."""
-    from limap_tpu_torch.ops import lm_jointloc
-    from limap_tpu_torch.testing import lm_checks
+    held to plain row by row; every solve also with the first design's
+    team bit for bit against the first design (lm_jointloc_scan); the
+    device time of every solve summed for both; the team choices and the
+    chains' active matches; the largest solve timed in turns with the
+    first design, with its bound (the splits of an iteration are
+    testing/loc_kernels.py's)."""
+    from limap_tpu_torch.ops import lm_jointloc as I
+    from limap_tpu_torch.testing import lm_checks, loc_kernels
     check(calls, "the localization path gave kernel I no input")
     groups = {}
     for args, kwargs in calls:
@@ -1668,6 +1766,9 @@ def measure_jointloc(calls, launches):
     totals = {"solves": len(calls), "groups": len(groups), "rows_held": 0,
               "parted": 0, "stalled_at_singular_point": 0, "accepted": 0}
     err = ne_err = 0.0
+    largest = max(calls, key=lambda c: c[0][0].shape[0]
+                  * (c[0][1].shape[0] + c[0][6].shape[0]))
+    scan_err = None
     for (_, _, cfg, n_iter), group in groups.items():
         params0 = torch.cat([a[0] for a in group])
         data = list(group[0][1:10])
@@ -1682,14 +1783,48 @@ def measure_jointloc(calls, launches):
             totals[k] += res[k]
         err = max(err, res["max_abs_err"])
         ne_err = max(ne_err, res_ne["max_rel_err"])
+        if any(a is largest[0] for a in group):
+            # the first design's error to plain, on the largest's group
+            _, res_s = lm_checks.check_jointloc(params0, tuple(data), cfg,
+                                                n_iter, solve=I.solve_scan)
+            check(res_s["ok"], ("lm_jointloc_scan", res_s))
+            scan_err = res_s["max_abs_err"]
     log(f"[kernel] localization lm_jointloc against plain on every LO solve, "
         f"row by row: {json.dumps(totals)}; max abs err {err:.3e}; normal "
-        f"equations max rel err {ne_err:.3e} "
+        f"equations max rel err {ne_err:.3e}; the first design on the "
+        f"largest solve's group {scan_err:.3e} "
         f"({time.perf_counter() - t0:.1f} s)")
-    args, kwargs = max(calls, key=lambda c: c[0][0].shape[0]
-                       * (c[0][1].shape[0] + c[0][6].shape[0]))
-    params0, data, cfg = args[0], args[1:10], args[10]
-    n_iter = args[11] if len(args) > 11 else kwargs.get("num_iterations", 50)
+    # bit for bit with the first design's team; the device time of every
+    # solve for both (the card alone: the host work prepared once)
+    bits = {"solves": len(calls), "rows": 0, "rows_differing": 0,
+            "solves_differing": 0}
+    summed = {"kernel": 0.0, "first design": 0.0}
+    teams = collections.Counter()
+    for call in calls:
+        params0, data, cfg, n_iter = jointloc_call(call)
+        res = loc_kernels.jointloc_bits(params0, data, cfg, n_iter)
+        bits["rows"] += res["rows"]
+        bits["rows_differing"] += res["rows_differing"]
+        bits["solves_differing"] += int(not res["ok"])
+        _, team, go = I.prepared(params0, data, cfg, n_iter)
+        summed["kernel"] += loc_kernels.cuda_ms(go, 3)
+        teams.update(team["chain_warps"].tolist())
+        summed["first design"] += loc_kernels.cuda_ms(
+            I.prepared(params0, data, cfg, n_iter, scan=True)[2], 3)
+    bits["ok"] = bits["solves_differing"] == 0
+    spread = active_spread(calls)
+    log(f"[kernel] localization lm_jointloc with the first design's team "
+        f"{list(I.FIRST_DESIGN_TEAM)} against the first design, bit for bit "
+        f"(trace, params, costs, accepts): {json.dumps(bits)}")
+    log(f"[kernel] localization lm_jointloc team choices (warps: chains) "
+        f"{json.dumps(dict(sorted(teams.items())))}; the chains' active "
+        f"matches (quantiles 0/10/50/90/100 %) {json.dumps(spread)}; device "
+        f"ms summed over the {len(calls)} solves (CUDA events, the host "
+        f"work prepared once; the first design is rebuilt "
+        f"without contraction) {json.dumps(summed)}")
+    check(bits["ok"], ("lm_jointloc against its first design", bits))
+    args, kwargs = largest
+    params0, data, cfg, n_iter = jointloc_call(largest)
     T, nl, npt = params0.shape[0], data[0].shape[0], data[5].shape[0]
     ops = lm_checks.ops_jointloc(cfg, int(data[4].sum()), int(data[7].sum()),
                                  T, n_iter)
@@ -1698,12 +1833,26 @@ def measure_jointloc(calls, launches):
              "operations": ops, "config": [cfg.cost_function,
                                            cfg.cost_function_weight,
                                            cfg.loss], **totals,
-             "normal_equations_max_rel_err": ne_err}
-    return timed_entry(
-        "lm_jointloc", "localization", I_SOURCE, LM_REPLACES, launches,
-        lambda: lm_jointloc.solve(*args, **kwargs),
-        lambda: lm_jointloc.solve_plain(params0, data, cfg, n_iter), (), {},
-        err, bms, by, shape, (10, 1))
+             "normal_equations_max_rel_err": ne_err,
+             "team_warps": I.chain_warps(data[4], data[7]),
+             "teams": dict(teams),
+             "active": spread, "launches_summed_ms": summed, "bits": bits,
+             "device_ms": {
+                 "kernel": loc_kernels.cuda_ms(
+                     I.prepared(params0, data, cfg, n_iter)[2], 10),
+                 "first design": loc_kernels.cuda_ms(
+                     I.prepared(params0, data, cfg, n_iter, scan=True)[2],
+                     10)},
+             "ms_are": "a call of the wrapper, as the path makes it"}
+    return yard_entries(
+        "lm_jointloc", "lm_jointloc_scan", "localization", I_SOURCE,
+        LM_REPLACES, launches, lambda: I.solve(*args, **kwargs),
+        lambda: I.solve_scan(*args, **kwargs),
+        lambda: I.solve_plain(params0, data, cfg, n_iter), err, scan_err,
+        bms, by, shape, 10,
+        "the first design, a block of 256 threads a chain, two passes and "
+        "two block sums an iteration over every match (rebuilt "
+        "without contraction); the yardstick, never on the path")
 
 
 # F's exhaustive passes and their first design in turns
@@ -4164,8 +4313,19 @@ def measure_learned(items):
                 xy = torch.stack([p[:, 1] / (scale * Wc) * 2 - 1,
                                   p[:, 0] / (scale * Hc) * 2 - 1], -1)
             xy = xy[None, None].contiguous()
-            entry["library_ms"] = cuda_ms(lambda: F.grid_sample(
-                g, xy, mode="bilinear", align_corners=False), 20)
+            # the library call in turns with the kernel: library, kernel,
+            # kernel, library
+            fns = {"kernel": lambda: S.sample_descriptors(*args),
+                   "library": lambda: F.grid_sample(
+                       g, xy, mode="bilinear", align_corners=False)}
+            lib_turns = {"kernel": [], "library": []}
+            for which in ("library", "kernel", "kernel", "library"):
+                lib_turns[which].append(cuda_ms(fns[which], 20))
+            entry["library_ms"] = float(np.mean(lib_turns["library"]))
+            entry["library_ms_turns"] = lib_turns["library"]
+            entry["ms_turns_with_library"] = lib_turns["kernel"]
+            log(f"[kernel] {path} sample_descriptors ({mode}) in turns "
+                f"with F.grid_sample (ms): {json.dumps(lib_turns)}")
             entries.append(entry)
         elif name == "sold2_candidates":
             hm, junc, si, ei, n_s, prm = args
@@ -5060,7 +5220,31 @@ def multicard(ba_inputs, card, dev="cuda"):
     log("[multi-card] (b) both ranks' BA outputs identical bit for bit")
 
 
+def save_loc_inputs(recorded, path):
+    """The inputs of phase 8's LO solves and of B's launches, on the CPU,
+    as testing/lo_wall.py reads them (the config as a dict)."""
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else x
+
+    def call(a, k):
+        return [cpu(x) if not dataclasses.is_dataclass(x)
+                else dataclasses.asdict(x) for x in a], \
+            {n: cpu(v) for n, v in k.items()}
+
+    torch.save({"lm_jointloc": [call(*c) for c in recorded["lm_jointloc"]],
+                "trace_roots": [call(*c) for c in
+                                recorded["trace_roots_calls"]]}, path)
+    log(f"[localize] the inputs of {len(recorded['lm_jointloc'])} LO solves "
+        f"and {len(recorded['trace_roots_calls'])} launches of B saved to "
+        f"{path}")
+
+
 def main():
+    parser = argparse.ArgumentParser(
+        description="Drive every path of the port on one card.")
+    parser.add_argument("--save-loc-inputs", default="", metavar="FILE",
+                        help="save phase 8's LO and root-finder inputs")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
         return 2
@@ -5344,7 +5528,12 @@ def main():
         loc_launches, recorded, loc_direct = localization_full_width(
             scene, runner_tracks, workdir, card)
         log(f"[localize] phase 8 took {time.perf_counter() - t0:.1f} s")
+        if opts.save_loc_inputs:
+            save_loc_inputs(recorded, opts.save_loc_inputs)
+        t0 = time.perf_counter()
         entries += measure_localization_kernels(recorded, loc_launches)
+        log(f"[localize] phase 8's kernel checks took "
+            f"{time.perf_counter() - t0:.1f} s")
         del recorded
         # phase 14's localization CLI, on phase 8's map and queries
         t0 = time.perf_counter()

@@ -26,6 +26,11 @@
 //
 // Compiles as host C++ too (without __CUDACC__), for tests of the
 // arithmetic on a CPU.
+//
+// Kernels H, K, L and M run lm_row; kernel I runs its own fused loop
+// (one pass and one sum an iteration, lm_jointloc.cu) and keeps lm_row
+// only in its first design: a PR redesigns two kernels, and the gates of
+// H, K, L and M hold the bits lm_row gives them.
 #pragma once
 
 #include <cfloat>

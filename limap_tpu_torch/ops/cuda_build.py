@@ -3,7 +3,7 @@
 Each ``.cu`` file has a plain C interface.  It is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library under ``limap_tpu_torch/_build/`` at first
 use, loaded with ``ctypes``, and rebuilt when its source, a header of
-``csrc`` or the flags change (the hash of all three names the library).
+``csrc`` or its flags change (the hash of all three names the library).
 Nothing here runs at import.
 """
 
@@ -22,6 +22,10 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source: kernel I's two designs inline the same residual
+# and must round alike, so nothing there is contracted into an FMA (nvcc
+# contracts by the inlining context)
+SOURCE_FLAGS = {"lm_jointloc.cu": ("-fmad=false",)}
 
 # per library: (seconds spent building in this process, ptxas report)
 BUILD_INFO: dict = {}
@@ -40,22 +44,27 @@ def nvcc_path() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` if its library is missing, then load it."""
+def load_library(source: str, define: str = "") -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` if its library is missing, then load it;
+    with ``define`` the source's variant built with ``-D<define>`` (a
+    library of its own, named after the macro)."""
     src = os.path.join(CSRC_DIR, source)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(source, ()) + (
+        (f"-D{define}",) if define else ())
+    h = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
         with open(path, "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()[:16]
-    stem = os.path.splitext(source)[0]
+    stem = os.path.splitext(source)[0] + (f"_{define.lower()}" if define
+                                           else "")
     lib = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if not os.path.exists(lib):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.run([nvcc_path(), *flags, "-o", tmp, src],
                               capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {source} "

@@ -12,16 +12,22 @@ bisected ``n_bisect`` times, and the ``n_roots`` interior local minima
 of |G| with the smallest |G| (near-double roots) refined by as many
 ternary steps.
 
-``trace_roots`` launches ``csrc/trace_roots.cu`` on CUDA tensors (one
-thread an instance, the grid of G in local memory) and takes
-:func:`trace_roots_plain` on CPU tensors.  The grid is an input: it must
-be the f32 grid the JAX package's solvers use (:func:`alpha_grid`), since
-a last-place difference at a grid point can flip a sign test.
+``trace_roots`` launches ``csrc/trace_roots.cu`` on CUDA tensors (a
+warp an instance: the grid across the lanes, the roots' cells by warp
+votes, every root's steps as trees walked bit for bit, in the phases of
+:func:`plan`) and takes :func:`trace_roots_plain` on CPU tensors.
+``trace_roots_scan`` is the first design (a thread an instance), kept as
+the yardstick the kernel is held to bit for bit.  The grid is an input:
+it must be the f32 grid the JAX package's solvers use
+(:func:`alpha_grid`), since a last-place difference at a grid point can
+flip a sign test.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
@@ -30,8 +36,9 @@ from limap_tpu_torch.base.pose import cross, quat_to_rotmat
 
 _EPS = 1e-12
 SOURCE = "trace_roots.cu"
-MAX_GRID = 1024   # grid intervals the kernel holds in local memory
+MAX_GRID = 1024   # grid intervals the kernels take
 MAX_ROOTS = 8
+LANES = 32
 
 
 def alpha_grid(n_grid: int) -> np.ndarray:
@@ -177,22 +184,77 @@ def trace_roots_plain(v1, n1, C2, C3, alphas, n_bisect: int = 48,
     return R, ok & finite
 
 
+@functools.lru_cache(maxsize=None)
+def plan(n_roots: int, n_bisect: int) -> tuple:
+    """The kernel's phases ((simple depth, double depth, rounds), ...) with
+    the fewest rounds of evaluations: a simple root of depth d walks d
+    bisection steps a round on 2^d - 1 lanes, a double root d ternary
+    steps on 2 (2^d - 1) lanes, and a phase's trees fit in 32 lanes.  The
+    first phase runs both kinds until one of them is done; the second
+    the other kind alone, as deep as fits.  Ties go to the shallower
+    first phase.  4 roots, 48 steps: ((1, 2, 24), (3, 0, 8)), 32 rounds;
+    8 roots: ((1, 1, 48),), 48 rounds.  Cached: every launch asks."""
+    def deepest(lanes_a_level):
+        return max((d for d in range(1, 6)
+                    if n_roots * lanes_a_level * ((1 << d) - 1) <= LANES),
+                   default=0)
+
+    best = None
+    for ds in range(6):
+        for dd in range(5):
+            if not (ds or dd) or n_roots * ((1 << ds) - 1
+                                            + 2 * ((1 << dd) - 1)) > LANES:
+                continue
+            rounds = min(math.ceil(n_bisect / d) for d in (ds, dd) if d)
+            phases = [(ds, dd, rounds)]
+            for kind, d in ((0, ds), (1, dd)):
+                left = n_bisect - min(n_bisect, rounds * d)
+                if left:
+                    depth = deepest(1 + kind)
+                    phases.append((depth, 0, math.ceil(left / depth)) if
+                                  kind == 0 else
+                                  (0, depth, math.ceil(left / depth)))
+            if len(phases) > 2:
+                continue
+            key = (sum(p[2] for p in phases), ds + dd)
+            if best is None or key < best[0]:
+                best = (key, phases)
+    if best is None:
+        raise ValueError(f"{n_roots} roots do not fit in a warp")
+    return tuple(best[1])
+
+
+def plan_words(phases) -> np.ndarray:
+    """The kernel's ``plan`` argument: n_phases, then (ds, dd, rounds)."""
+    words = np.zeros(1 + 3 * 2, np.int64)
+    words[0] = len(phases)
+    for k, p in enumerate(phases):
+        words[1 + 3 * k:4 + 3 * k] = p
+    return words
+
+
+@functools.lru_cache(maxsize=None)
+def _planned_words(n_roots: int, n_bisect: int) -> np.ndarray:
+    """:func:`plan_words` of :func:`plan`'s phases, built once a shape."""
+    words = plan_words(plan(n_roots, n_bisect))
+    words.setflags(write=False)
+    return words
+
+
+@functools.lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
     from limap_tpu_torch.ops.cuda_build import load_library
     lib = load_library(SOURCE)
     ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-    lib.trace_roots_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64,
-                                       i64, i64, ptr, ptr, ptr]
+    lib.trace_roots_launch.argtypes = [ptr] * 5 + [i64] * 4 + [ptr] * 4
     lib.trace_roots_launch.restype = ctypes.c_int
+    lib.trace_roots_scan_launch.argtypes = [ptr] * 5 + [i64] * 4 + [ptr] * 3
+    lib.trace_roots_scan_launch.restype = ctypes.c_int
     return lib
 
 
-def trace_roots(v1, n1, C2, C3, alphas, n_bisect: int = 48,
-                n_roots: int = 8):
-    """:func:`trace_roots_plain` on CPU tensors; the CUDA kernel on CUDA
-    tensors (``trace_roots.launches`` counts its launches)."""
-    args = (v1, n1, C2, C3, alphas)
-    for name, t, shape in zip(("v1", "n1", "C2", "C3"), args,
+def _check(v1, n1, C2, C3, alphas):
+    for name, t, shape in zip(("v1", "n1", "C2", "C3"), (v1, n1, C2, C3),
                               ((3,), (3,), (3, 3), (3, 3))):
         if t.dtype != torch.float32 or tuple(t.shape[1:]) != shape \
                 or t.shape[0] != v1.shape[0] or t.device != v1.device:
@@ -201,9 +263,11 @@ def trace_roots(v1, n1, C2, C3, alphas, n_bisect: int = 48,
                              f"{t.device}")
     if alphas.dim() != 1 or alphas.dtype != torch.float32:
         raise ValueError("alphas must be an fp32 [n_grid + 1] grid")
-    if v1.device.type == "cpu":
-        return trace_roots_plain(v1, n1, C2, C3, alphas.to(v1.device),
-                                 n_bisect, n_roots)
+
+
+def _launch(name, v1, n1, C2, C3, alphas, n_bisect, n_roots, *extra):
+    """One launch of ``name`` (trace_roots_launch or the first design's
+    trace_roots_scan_launch) on CUDA tensors; returns (R, ok)."""
     n_grid = alphas.shape[0] - 1
     if not n_roots < n_grid <= MAX_GRID or not 1 <= n_roots <= MAX_ROOTS:
         raise ValueError(f"the kernel takes 1..{MAX_ROOTS} roots and more"
@@ -217,14 +281,59 @@ def trace_roots(v1, n1, C2, C3, alphas, n_bisect: int = 48,
     v1, n1, C2, C3, alphas = (t.contiguous() for t in
                               (v1, n1, C2, C3, alphas.to(v1.device)))
     with torch.cuda.device(v1.device):
-        err = build().trace_roots_launch(
+        err = getattr(build(), name)(
             v1.data_ptr(), n1.data_ptr(), C2.data_ptr(), C3.data_ptr(),
-            alphas.data_ptr(), B, n_grid, n_bisect, n_roots, R.data_ptr(),
-            ok.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            alphas.data_ptr(), B, n_grid, n_bisect, n_roots, *extra,
+            R.data_ptr(), ok.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"trace_roots launch failed: CUDA error {err}")
-    trace_roots.launches += 1
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
     return R, ok
 
 
+def trace_roots(v1, n1, C2, C3, alphas, n_bisect: int = 48,
+                n_roots: int = 8):
+    """:func:`trace_roots_plain` on CPU tensors; the CUDA kernel on CUDA
+    tensors (``trace_roots.launches`` counts its launches)."""
+    _check(v1, n1, C2, C3, alphas)
+    if v1.device.type == "cpu":
+        return trace_roots_plain(v1, n1, C2, C3, alphas.to(v1.device),
+                                 n_bisect, n_roots)
+    out = launch_parts(v1, n1, C2, C3, alphas, n_bisect, n_roots)
+    if v1.shape[0]:
+        trace_roots.launches += 1
+    return out
+
+
 trace_roots.launches = 0
+
+
+def launch_parts(v1, n1, C2, C3, alphas, n_bisect: int = 48,
+                 n_roots: int = 8, phases=None):
+    """The kernel on CUDA tensors with the phases ``phases``
+    (:func:`plan`'s by default), for timing another plan; counts
+    nothing."""
+    _check(v1, n1, C2, C3, alphas)
+    if v1.device.type != "cuda":
+        raise ValueError("launch_parts runs the kernel of the card")
+    words = _planned_words(n_roots, n_bisect) if phases is None \
+        else plan_words(phases)
+    return _launch("trace_roots_launch", v1, n1, C2, C3, alphas, n_bisect,
+                   n_roots, words.ctypes.data)
+
+
+def trace_roots_scan(v1, n1, C2, C3, alphas, n_bisect: int = 48,
+                     n_roots: int = 8):
+    """The first design (a thread an instance), the yardstick, on CUDA
+    tensors only.  ``trace_roots_scan.launches`` counts its launches."""
+    _check(v1, n1, C2, C3, alphas)
+    if v1.device.type != "cuda":
+        raise ValueError("trace_roots_scan is a kernel of the card")
+    out = _launch("trace_roots_scan_launch", v1, n1, C2, C3, alphas,
+                  n_bisect, n_roots)
+    if v1.shape[0]:
+        trace_roots_scan.launches += 1
+    return out
+
+
+trace_roots_scan.launches = 0

@@ -918,9 +918,12 @@ def jointloc_residual_count(data, cfg):
     return (R_l * data[4].sum(1) + 2 * data[7].sum(1)).cpu().numpy()
 
 
-def check_jointloc(params0, data, cfg, num_iterations=50, kernels=True):
-    """I held to plain on one input: (normal equations, solve) results."""
+def check_jointloc(params0, data, cfg, num_iterations=50, kernels=True,
+                   solve=None):
+    """I held to plain on one input: (normal equations, solve) results;
+    ``solve`` another launcher of I's signature (its first design)."""
     from limap_tpu_torch.ops import lm_jointloc as I
+    solve = I.solve if solve is None else solve
     d64 = [x.cpu() if x.dtype == torch.bool else x.cpu().double()
            for x in data]
     ne_64 = I.normal_equations_plain(params0.cpu().double(), d64, cfg)
@@ -935,8 +938,8 @@ def check_jointloc(params0, data, cfg, num_iterations=50, kernels=True):
     res_p = I.solve_plain(params0, data, cfg, num_iterations, rows_p)
     tr_p = torch.stack(rows_p, 1)
     if kernels:
-        res_k, tr_k = I.solve(params0, *data, cfg, num_iterations,
-                              trace=True)
+        res_k, tr_k = solve(params0, *data, cfg, num_iterations,
+                            trace=True)
     else:
         res_k, tr_k = res_p, tr_p
     res = compare_solve(res_k, tr_k, res_p, tr_p, problem, R,

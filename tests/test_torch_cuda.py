@@ -960,3 +960,184 @@ def test_zoo_kernels_count_launches_and_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         V.lbd_describe(img.double(), torch.zeros(1, 4, device="cuda"),
                        torch.ones(1, dtype=torch.bool, device="cuda"))
+
+
+# ---- kernels I and B against their first designs (the yardsticks)
+def _jointloc_cases():
+    """Kernel I's seeded cases: (name, params0, data, cfg)."""
+    for corners, configs in ((False, lm_checks.JOINTLOC_CONFIGS),
+                             (True, lm_checks.JOINTLOC_CORNER_CONFIGS)):
+        params0, data = lm_checks.seeded_jointloc(seed=2, corners=corners)
+        for c in configs:
+            yield (("corners, " if corners else "") + ", ".join(map(str, c)),
+                   params0, data, lm_checks.loc_config(*c))
+
+
+def _wide_jointloc(seed=3, n_lines=2000, n_points=12000, T=3):
+    """Chains whose active matches do not fit in a block's shared memory
+    (the kernel then reads them through their indices)."""
+    from limap_tpu_torch.testing.localization import synthetic_problem
+    rng = np.random.default_rng(seed)
+    cam, pose_gt, p3, p2, l3, _, l2 = synthetic_problem(
+        rng, n_points=n_points, n_lines=n_lines, outlier_ratio=0.1)
+    params0 = torch.as_tensor(np.tile(np.concatenate(
+        [pose_gt.qvec, pose_gt.tvec + 0.02]), (T, 1)), dtype=torch.float32,
+        device="cuda")
+
+    def f(x, dt=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device="cuda")
+
+    data = (f(l3[:, 0]), f(l3[:, 1]), f(l2[:, 0]), f(l2[:, 1]),
+            f(rng.random((T, n_lines)) < 0.95, torch.bool), f(p3), f(p2),
+            f(rng.random((T, n_points)) < 0.95, torch.bool), f(cam.kvec()))
+    return params0, data
+
+
+def test_jointloc_with_the_first_designs_team_is_its_first_design(cuda):
+    """Kernel I with the first design's team (256 threads, match i on
+    thread i mod 256) against lm_jointloc_scan, bit for bit: every trace
+    row, the params, costs and accepts, on the seeded cases, on chains
+    of phase 8's widths and on chains read through their indices; so the
+    fused loop (one pass an iteration, the normal equations kept on a
+    reject) changes no bit."""
+    from limap_tpu_torch.ops import lm_jointloc as I
+    from limap_tpu_torch.testing import loc_kernels
+    failed = []
+    for name, params0, data, cfg in _jointloc_cases():
+        res = loc_kernels.jointloc_bits(params0, data, cfg)
+        if not res["ok"]:
+            failed.append((name, res))
+    cfg = lm_checks.loc_config("2d_perpendicular_dist2", "none", "huber",
+                               1.0, 1.0)
+    for n in (32, 300):
+        res = loc_kernels.jointloc_bits(*loc_kernels.lo_like(n), cfg)
+        if not res["ok"]:
+            failed.append((f"{n} active", res))
+    params0, data = _wide_jointloc()
+    assert not I.team_for(data[0].shape[0], data[5].shape[0])["staged"]
+    res = loc_kernels.jointloc_bits(params0, data, cfg, 10)
+    if not res["ok"]:
+        failed.append(("through indices", res))
+    assert not failed, failed
+
+
+@pytest.mark.parametrize("warps,order", [(1, "balanced"), (1, "owner"),
+                                         (2, "balanced"), (4, "balanced"),
+                                         (8, "balanced"), (8, "owner")])
+def test_jointloc_teams_hold_to_plain(cuda, warps, order):
+    """Each team of kernel I against plain on the seeded cases, row by
+    row, by check_jointloc's rules."""
+    from limap_tpu_torch.ops import lm_jointloc as I
+    o = I.OWNER if order == "owner" else I.BALANCED
+
+    def solve(params0, *a, trace=False):
+        res, tr, team = I.launch_parts(params0, a[:9], a[9], a[10],
+                                       warps=warps, order=o, trace=True)
+        assert team["warps"] == warps
+        return res, tr
+
+    failed = []
+    for name, params0, data, cfg in _jointloc_cases():
+        _, res = lm_checks.check_jointloc(params0, data, cfg, solve=solve)
+        if not res["ok"]:
+            failed.append((name, res))
+    assert not failed, failed
+
+
+def test_jointloc_through_indices_holds_to_plain(cuda):
+    from limap_tpu_torch.ops import lm_jointloc as I
+    params0, data = _wide_jointloc(T=2)
+    cfg = lm_checks.loc_config("2d_perpendicular_dist2", "none", "huber",
+                               1.0, 1.0)
+    team = I.team_for(data[0].shape[0], data[5].shape[0])
+    assert not team["staged"] and team["warps"] == I.MAX_WARPS
+    res_ne, res = lm_checks.check_jointloc(params0, data, cfg, 10)
+    assert res_ne["ok"] and res["ok"], (res_ne, res)
+
+
+def test_jointloc_through_global_indices_holds_to_plain(cuda):
+    """Chains of more active matches than a block's shared memory holds
+    even as indices (~57,000): the indices go to a global scratch; the
+    solve holds to plain row by row, and with the first design's team to
+    the first design bit for bit."""
+    from limap_tpu_torch.ops import lm_jointloc as I
+    from limap_tpu_torch.testing import loc_kernels
+    params0, data = _wide_jointloc(n_lines=8000, n_points=52000, T=2)
+    cfg = lm_checks.loc_config("2d_perpendicular_dist2", "none", "huber",
+                               1.0, 1.0)
+    team = I.team_for(data[0].shape[0], data[5].shape[0])
+    assert team["matches_in"] == "indices in global memory"
+    res_ne, res = lm_checks.check_jointloc(params0, data, cfg, 10)
+    assert res_ne["ok"] and res["ok"], (res_ne, res)
+    bits = loc_kernels.jointloc_bits(params0, data, cfg, 10)
+    assert bits["ok"], bits
+
+
+def test_jointloc_chains_pick_their_teams_on_the_card(cuda):
+    """Each chain's team as the kernel picked it equals chain_warps (the
+    rule on the host), on chains of 9 to 1,164 active matches in one
+    launch, and the solve holds to plain row by row."""
+    from limap_tpu_torch.ops import lm_jointloc as I
+    from limap_tpu_torch.testing import loc_kernels
+    cfg = lm_checks.loc_config("2d_perpendicular_dist2", "none", "huber",
+                               1.0, 1.0)
+    parts = [loc_kernels.lo_like(n, T=2) for n in (9, 200, 400, 1164)]
+    params0 = torch.cat([p for p, _ in parts])
+    data = list(parts[0][1])
+    data[4] = torch.cat([d[4] for _, d in parts])
+    data[7] = torch.cat([d[7] for _, d in parts])
+    data = tuple(data)
+    res, _, team = I.launch_parts(params0, data, cfg, 10)
+    torch.cuda.synchronize()
+    assert team["chain_warps"].tolist() == I.chain_warps(data[4], data[7])
+    assert sorted(set(team["chain_warps"].tolist())) == [1, 4, 8]
+    _, held = lm_checks.check_jointloc(params0, data, cfg, 10)
+    assert held["ok"], held
+
+
+@pytest.mark.parametrize("n_roots", [3, 4, 8])
+@pytest.mark.parametrize("seed,degenerate", kernel_checks.SEEDS)
+def test_trace_roots_equals_its_first_design_bit_for_bit(cuda, seed,
+                                                         degenerate,
+                                                         n_roots):
+    """Kernel B (a warp an instance, its trees in the planned phases and
+    in the one-level plan) against trace_roots_scan: rotations and flags
+    bit for bit, degenerate (rank-deficient) instances included."""
+    from limap_tpu_torch.ops import trace_roots as B
+    from limap_tpu_torch.ops.trace_roots import alpha_grid
+    from limap_tpu_torch.testing import loc_kernels
+    args = [torch.as_tensor(x, device="cuda") for x in
+            kernel_checks.trace_roots_inputs(seed, degenerate=degenerate)]
+    args.append(torch.as_tensor(alpha_grid(256), device="cuda"))
+    res = loc_kernels.trace_roots_bits(args, 48, n_roots)
+    assert res["ok"], res
+    R1, ok1 = B.launch_parts(*args, 48, n_roots, [(1, 1, 48)])
+    Rs, oks = B.trace_roots_scan(*args, 48, n_roots)
+    assert torch.equal(R1.view(torch.int32), Rs.view(torch.int32))
+    assert torch.equal(ok1, oks)
+
+
+def test_first_designs_count_their_own_launches(cuda):
+    from limap_tpu_torch.ops import lm_jointloc as I
+    from limap_tpu_torch.ops import trace_roots as B
+    from limap_tpu_torch.ops.trace_roots import alpha_grid
+    params0, data = lm_checks.seeded_jointloc(T=3)
+    cfg = lm_checks.loc_config(*lm_checks.JOINTLOC_CONFIGS[-1])
+    n = (I.solve.launches, I.solve_scan.launches)
+    I.solve_scan(params0, *data, cfg, num_iterations=3)
+    I.launch_parts(params0, data, cfg, 3)
+    I.prepared(params0, data, cfg, 3)[2]()
+    assert (I.solve.launches, I.solve_scan.launches) == (n[0], n[1] + 1)
+    args = [torch.as_tensor(x, device="cuda") for x in
+            kernel_checks.trace_roots_inputs(0, B=64)]
+    args.append(torch.as_tensor(alpha_grid(256), device="cuda"))
+    n = (trace_roots.launches, B.trace_roots_scan.launches)
+    B.trace_roots_scan(*args, 48, 4)
+    B.launch_parts(*args, 48, 4)
+    torch.cuda.synchronize()
+    assert (trace_roots.launches, B.trace_roots_scan.launches) == \
+        (n[0], n[1] + 1)
+    with pytest.raises(ValueError):
+        I.solve_scan(params0.cpu(), *(x.cpu() for x in data), cfg)
+    with pytest.raises(ValueError):
+        B.trace_roots_scan(*(x.cpu() for x in args), 48, 4)
